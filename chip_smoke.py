@@ -6,8 +6,13 @@ gives it, then serves five 512x512 forward renders of the committed bench
 fixture (the 8x512 DeepSDF decoder marched through its distilled 4x256
 proxy, 50 steps) through ``render()``, checks that the render went
 through every kernel, and compares it with the same render on the plain
-versions. Prints the timings, one JSON line of per-kernel results, the
-card's name and power limit, and last a JSON status line.
+versions. Then it differentiates the same render: bench.py's fwd+bwd (a
+depth loss's gradient to the latent) for the five requests, that gradient
+and a camera-pose gradient against the plain versions, and five Adam
+steps of the depth-completion fit, checking that the backward went
+through the recompute backward kernel. Prints the timings, one JSON line
+of per-kernel results, the card's name and power limit, and last a JSON
+status line.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -102,6 +107,158 @@ def march_ok(d):
     return d["agree"] >= MARCH_AGREE and max_err(d) <= MARCH_TOL
 
 
+# Kernel path against plain path, whole gradients of a render (phase 5).
+# Measured on an H100: latent gradient cos 1.0, relative L2 1.0e-5; pose
+# gradient 9.4e-5 (the plain render's march stops elsewhere on one ray,
+# phase 4). Bars with room: cos >= 0.9999, relative L2 <= 1e-3.
+GRAD_COS, GRAD_REL = 0.9999, 1e-3
+
+
+def grad_diff(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return dict(cos=(a @ b / (a.norm() * b.norm())).item(),
+                rel=((a - b).norm() / b.norm()).item())
+
+
+def fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, cfg, plain_cfg, cam,
+                  lats, latent, counters, smi):
+    """Phase 5: gradients through render() on the card. (i) bench.py's
+    fwd+bwd (a depth L1 loss, its gradient to the latent) for every
+    request; (ii) request 0 again on the plain versions; (iii) a pose
+    gradient on the pose-refinement objective, kernels and plain; (iv) 5
+    Adam steps of the depth-completion fit."""
+    import math
+
+    from dist_renderer_tpu_torch.config import OptimConfig
+    from dist_renderer_tpu_torch.ops.camera import (
+        Camera, camera_from_pose, pose_from_camera, so3_exp,
+    )
+    from dist_renderer_tpu_torch.ops.renderer import render
+    from dist_renderer_tpu_torch.utils import losses as L
+    from dist_renderer_tpu_torch.utils.optim import fit
+
+    print(f"\n== fwd+bwd: gradients through render() ==")
+    target = torch.full((IMG, IMG), 1.5, device=dev)
+    everywhere = torch.ones((IMG, IMG), dtype=torch.bool, device=dev)
+
+    def depth_grad(z, c=cfg, fac=factory):
+        zz = z.detach().clone().requires_grad_(True)
+        out = render(sdf_fn, zz, cam, c, fac)
+        return torch.autograd.grad(L.masked_l1(out.depth, target, everywhere), zz)[0]
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts(what):
+        got = {fn.__name__: fn.launches for fn in counters}
+        print(f"launches in {what}: {got}")
+        for name, count in got.items():
+            check(count > 0, f"{what} never launched {name}")
+        return got
+
+    depth_grad(lats[0])  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    grads, ms = [], []
+    for z_i in lats:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        grads.append(depth_grad(z_i))
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    launches = counts(f"the {REQUESTS} fwd+bwd requests")
+    for g in grads:
+        check(torch.isfinite(g).all().item() and g.norm().item() > 0,
+              "the latent gradient is not finite or is zero")
+    fb_ms = sorted(ms)[len(ms) // 2]
+    print(f"(i) fwd+bwd ms/frame (median of {REQUESTS}, CUDA events): {fb_ms:.3f}  "
+          f"all: {[round(m, 3) for m in ms]}  [{smi}]")
+
+    # (iv) tasks/depth_completion.py's fit: the bench latent's own render,
+    # its left half of the columns observed, from a jittered start
+    with torch.no_grad():
+        truth = render(sdf_fn, latent, cam, cfg, factory)
+    cols = (torch.arange(IMG, device=dev) < IMG // 2)[None, :]
+    obs_valid = truth.mask & cols
+    obs_depth = torch.where(obs_valid, truth.depth, torch.zeros_like(truth.depth))
+
+    def loss_fn(z):
+        out = render(sdf_fn, z, cam, cfg, factory)
+        ld = L.depth_loss(out.depth, obs_depth, obs_valid, out.mask)
+        ls = L.silhouette_loss(torch.where(cols, out.min_sdf, 0.0 * out.min_sdf),
+                               obs_valid)
+        return 10.0 * ld + ls + 1e-4 * L.latent_reg(z), {"depth": ld, "sil": ls}
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    z_start = latent + 0.01 * torch.randn(latent.shape, generator=gen).to(dev)
+    stamps = []
+    tick = lambda *_: (torch.cuda.synchronize(), stamps.append(time.perf_counter()))
+    mem = lambda: (torch.cuda.memory_stats(dev), torch.cuda.memory_reserved(dev))
+    (st0, res0) = mem()
+    reset()
+    tick()
+    res = fit(loss_fn, z_start, OptimConfig(steps=5), callback=tick)
+    counts("the 5 fit steps")
+    (st1, res1) = mem()
+    hist = res.loss_history.tolist()
+    steps_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    fit_ms = sorted(steps_ms)[len(steps_ms) // 2]
+    print(f"(iv) fit losses {[round(x, 6) for x in hist]}; ms/step median "
+          f"{fit_ms:.3f}, all {[round(m, 3) for m in steps_ms]}  [{smi}]; "
+          f"allocator: reserved {res0 / 2**30:.1f} -> {res1 / 2**30:.1f} GiB, "
+          + ", ".join(f"{k} +{st1.get(k, 0) - st0.get(k, 0)}" for k in (
+              "num_alloc_retries", "num_device_alloc", "num_device_free")))
+    check(all(math.isfinite(x) for x in hist), "a fit loss is not finite")
+
+    # (ii) and (iii) run the plain versions, after the timed fit: timed
+    # right after them, the fit's first step took 6.4 s on an H100, and
+    # 0.57 s in a process that had not run them
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g_plain = depth_grad(lats[0], plain_cfg, plain_fac)
+    b.record()
+    torch.cuda.synchronize()
+    plain_fb_ms = a.elapsed_time(b)
+    d_lat = grad_diff(grads[0], g_plain)
+    print(f"(ii) latent gradient, kernels vs plain versions ({plain_fb_ms:.1f} ms): "
+          f"cos {d_lat['cos']:.7f}, relative L2 {d_lat['rel']:.3e}")
+
+    # (iii) tasks/pose_refine.py's objective from a perturbed pose (its
+    # defaults: 10 degrees about a seeded axis, 0.1 translation noise)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    axis = torch.randn(3, generator=gen)
+    axis = (axis / axis.norm()).to(dev)
+    R0 = so3_exp(axis * math.radians(10.0)) @ cam.R
+    T0 = cam.T + 0.1 * torch.randn(3, generator=gen).to(dev)
+    pose0 = pose_from_camera(Camera(K=cam.K, R=R0, T=T0))
+    with torch.no_grad():
+        gt = render(sdf_fn, lats[0], cam, cfg, factory)
+
+    def pose_grad(c, fac):
+        p = pose0.clone().requires_grad_(True)
+        out = render(sdf_fn, lats[0], camera_from_pose(p, cam.K), c, fac)
+        loss = (10.0 * L.depth_loss(out.depth, gt.depth, gt.mask, out.mask)
+                + L.silhouette_loss(out.min_sdf, gt.mask))
+        return torch.autograd.grad(loss, p)[0]
+
+    gp_k, gp_p = pose_grad(cfg, factory), pose_grad(plain_cfg, plain_fac)
+    d_pose = grad_diff(gp_k, gp_p)
+    print(f"(iii) so3 pose gradient {[round(x, 6) for x in gp_k.tolist()]}; "
+          f"kernels vs plain: cos {d_pose['cos']:.7f}, relative L2 {d_pose['rel']:.3e}")
+    check(torch.isfinite(gp_k).all().item(), "the pose gradient is not finite")
+    for what, d in (("latent", d_lat), ("pose", d_pose)):
+        check(d["cos"] >= GRAD_COS and d["rel"] <= GRAD_REL,
+              f"the {what} gradient on the kernels differs from the plain "
+              f"versions' (bars: cos >= {GRAD_COS}, relative L2 <= {GRAD_REL})")
+
+    return dict(fwdbwd_ms=fb_ms, plain_fwdbwd_ms=plain_fb_ms, fit_ms=fit_ms,
+                launches=launches)
+
+
 def main():
     import torch
 
@@ -125,7 +282,8 @@ def main():
     )
     from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
     from dist_renderer_tpu_torch.ops.kernels.recompute import (
-        fold_bias_precise, pack_precise, precise_sdg_call,
+        fold_bias_precise, latent_grad, pack_precise, precise_bias_grads_call,
+        precise_sdg_call,
     )
     from dist_renderer_tpu_torch.ops.renderer import make_march_factory, render
 
@@ -251,6 +409,52 @@ def main():
               "K3 disagrees with its plain version (bars: max |diff| s 1e-5, "
               "dd and g 1e-4)")
 
+        # K4 on the main path's inputs: (a) the compose bucket with a
+        # seeded cotangent, (b) every ray's anchor (the lazy margin's
+        # width), (c) 3 seed rows taken as preactivation cotangents, with
+        # the xyz gradient. Each against its plain version, with the xyz
+        # gradient asked for in every case; timed in the mode the render's
+        # backward uses
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+        seeded = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+        pts_all = (origins + anchor[:, None] * dirs).contiguous()
+        k4 = []
+        for case, p_c, ct_c, kw in (
+                ("a", pts, seeded(pts.shape[0]), dict(scalar_chain=True)),
+                ("b", pts_all, seeded(n), dict(scalar_chain=True)),
+                ("c", pts, seeded(pts.shape[0], 3),
+                 dict(scalar_chain=False, want_gx=True))):
+            call = lambda k, gx: precise_bias_grads_call(
+                packed, biases, p_c, ct_c, use_kernel=k,
+                **dict(kw, want_gx=gx))
+            (uk, gxk), (up, gxp) = call(True, True), call(False, True)
+            u_main = call(True, kw.get("want_gx", False))
+            u_main = u_main[0] if kw.get("want_gx") else u_main
+            torch.cuda.synchronize()
+            cat = lambda us: torch.cat(us).double()
+            rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+            r = dict(case=case, n=p_c.shape[0],
+                     u=rel(cat(uk), cat(up)),
+                     gz=rel(latent_grad(packed, uk).double(),
+                            latent_grad(packed, up).double()),
+                     u_abs=(cat(uk) - cat(up)).abs().max().item(),
+                     gx=(gxk - gxp).abs().max().item(),
+                     same=all(torch.equal(a, b) for a, b in zip(uk, u_main)),
+                     ms=cuda_ms(lambda: call(True, kw.get("want_gx", False))),
+                     plain_ms=cuda_ms(lambda: call(False, kw.get("want_gx", False))))
+            k4.append(r)
+            print(f"K4 bias grads ({case}) {r['n']} points, {kw}: relative L2 u "
+                  f"{r['u']:.3e}, gz {r['gz']:.3e}; max |diff| gx {r['gx']:.3e}; "
+                  f"u equal across launches and gx modes: {r['same']}; "
+                  f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms")
+        # bars: u and gz within relative L2 1e-5, gx within 1e-5, and a
+        # second launch gives the same bits
+        for r in k4:
+            check(r["u"] <= 1e-5 and r["gz"] <= 1e-5 and r["gx"] <= 1e-5
+                  and r["same"], f"K4 ({r['case']}) disagrees with its plain "
+                  "version or with itself (bars: relative L2 u, gz <= 1e-5; "
+                  "max |diff| gx <= 1e-5; equal bits across launches)")
+
         # kernel times beside the plain versions at these shapes
         t_k1 = sum(cuda_ms(lv[1]) for lv in k1_levels)
         t_k1p = sum(cuda_ms(lv[2]) for lv in k1_levels)
@@ -339,6 +543,9 @@ def main():
     check(within >= 0.999, "depth differs from the plain render by > 1e-3 on "
           f"{1 - within:.4%} of common hits (bar: 0.1%)")
 
+    fb = fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, cfg, plain_cfg, cam,
+                       lats, latent, counters + (precise_bias_grads_call,), smi)
+
     src = "dist_renderer_tpu_torch/csrc/"
     kernels = [
         dict(name="sphere_trace_persistent (K1)", route="cuda",
@@ -357,8 +564,17 @@ def main():
              launches=launches["precise_sdg_call"],
              max_abs_err=max(e_s[2], e_dd[2], e_g[2]),
              ms=t_k3, plain_ms=t_k3p),
+        dict(name="precise_bias_grads_call (K4)", route="cuda",
+             source=src + "recompute.cu",
+             replaces="dist_renderer_tpu/ops/pallas/recompute.py:421",
+             launches=fb["launches"]["precise_bias_grads_call"],
+             max_abs_err=max(max(r["u_abs"], r["gx"]) for r in k4),
+             ms=k4[0]["ms"], plain_ms=k4[0]["plain_ms"]),
     ]
     print(json.dumps({"fwd_ms_per_frame": fwd_ms, "plain_fwd_ms": plain_ms,
+                      "fwdbwd_ms_per_frame": fb["fwdbwd_ms"],
+                      "plain_fwdbwd_ms": fb["plain_fwdbwd_ms"],
+                      "fit_ms_per_step": fb["fit_ms"],
                       "hit_frac": hit_frac, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

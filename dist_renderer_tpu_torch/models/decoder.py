@@ -90,10 +90,7 @@ def decoder_apply(
 class PreciseSDF:
     """(latent, points) -> sdf with the fp32 value, plus the sibling the
     renderer reads: ``sdg_builder`` (the fused value + spatial-gradient
-    kernel, ops/kernels/recompute.py).
-
-    Forward only in this port slice: gradients through the renderer arrive
-    with the recompute backward kernel."""
+    kernel K3 with its backward K4, ops/kernels/recompute.py)."""
 
     def __init__(self, params: Params, cfg: DecoderConfig):
         self.params = params
@@ -105,26 +102,18 @@ class PreciseSDF:
 
     def sdg_builder(self, block: int = 512, use_kernel: bool = True):
         """(latent, points, dirs) -> (s, dd, g): precise value, directional
-        derivative <g, dirs> and spatial gradient, one fused evaluation.
-        use_kernel=False runs the plain PyTorch version on any device."""
+        derivative <g, dirs> and spatial gradient, one fused evaluation; s
+        is differentiable to the latent and the points (dd and g are
+        constants). use_kernel=False runs the plain PyTorch versions on
+        any device."""
         from dist_renderer_tpu_torch.ops.kernels.recompute import (
-            fold_bias_precise, pack_precise, precise_sdg_call,
+            make_precise_sdg, pack_precise,
         )
 
         if self._packed is None:
             self._packed = pack_precise(self.params, self.cfg)
-        packed = self._packed
-
-        def sdg(latent, points, dirs):
-            if latent.ndim != 1:
-                raise ValueError(
-                    "precise_sdg folds ONE latent per call (got shape "
-                    f"{tuple(latent.shape)})")
-            biases = fold_bias_precise(self.params, latent, self.cfg, packed)
-            return precise_sdg_call(packed, biases, points, dirs, block,
-                                    use_kernel=use_kernel)
-
-        return sdg
+        return make_precise_sdg(self.params, self.cfg, block, use_kernel,
+                                packed=self._packed)
 
 
 def make_precise_sdf(params: Params,

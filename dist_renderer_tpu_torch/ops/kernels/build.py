@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``dist_renderer_tpu_torch/csrc/`` are compiled with nvcc
-into one shared library with a plain C interface, loaded with ctypes. The
+The sources in ``dist_renderer_tpu_torch/csrc/`` are compiled with nvcc,
+one process per ``.cu`` file, all at once, and linked into one shared
+library with a plain C interface, loaded with ctypes. The
 build runs at first use, into ``dist_renderer_tpu_torch/.kernel_build/<hash>/``
 (listed in .gitignore), keyed by a hash of the sources and the flags, so a
 fresh checkout builds itself and an edited source rebuilds. A failed
@@ -32,7 +33,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, ".kernel_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -48,6 +49,8 @@ SIGNATURES = {
         _P, _I, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I,
         _P, _P, _P, _P, _P, _P],
     "drt_precise_sdg": [_P, _P, _I, _P, _P, _P, _I, _P, _P],
+    "drt_precise_bias_grads": [
+        _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
 }
 
 
@@ -114,21 +117,35 @@ def load() -> KernelLibrary:
     seconds = 0.0
     if not os.path.exists(lib_path):
         os.makedirs(out_dir, exist_ok=True)
-        cu = [s for s in _sources() if s.endswith(".cu")]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+        work = tempfile.mkdtemp(dir=out_dir)
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        # one nvcc per source, all started together, then one link
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.endswith(".cu")):
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        steps = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+        if all(rc == 0 for _, _, rc in steps):
+            tmp = os.path.join(work, "libdrt_kernels.so")
+            cmd = [nvcc, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            steps.append((cmd, proc.stdout, proc.returncode))
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                "nvcc failed building the CUDA kernels:\n"
-                + " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        log = "".join(out for _, out, _ in steps)
+        failed = [(cmd, out) for cmd, out, rc in steps if rc != 0]
+        if failed:
+            shutil.rmtree(work, ignore_errors=True)
+            raise RuntimeError("nvcc failed building the CUDA kernels:\n" + "".join(
+                " ".join(cmd) + "\n" + out for cmd, out in failed))
         with open(log_path, "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write(log)
         os.replace(tmp, lib_path)  # atomic: concurrent builds agree
+        shutil.rmtree(work, ignore_errors=True)
     with open(log_path) as f:
         log = f.read()
     _LIB = KernelLibrary(lib_path, log, seconds)

@@ -1,10 +1,13 @@
 """Fused precise recompute (K3): the precise SDF value, the spatial
 gradient g = ds/dx and the directional derivative dd = <g, v> of each
-point, in one evaluation.
+point, in one evaluation; and its cotangent-seeded backward (K4).
 
 Replaces the JAX package's ``ops/pallas/recompute.py::precise_sdg_call``
-(``_make_fwd_kernel``: ``_forward``, ``_seed_last``, ``_reverse``). The
-renderer takes the IFT depth denominator and the normals from it.
+(``_make_fwd_kernel``: ``_forward``, ``_seed_last``, ``_reverse``) and
+``precise_bias_grads_call`` (``_make_bwd_kernel``). The renderer takes
+the IFT depth denominator and the normals from K3, and the gradients of
+depth and margins to the latent and the points from K4, through
+``make_precise_sdg``'s ``torch.autograd.Function``.
 
 Rounding points (the JAX kernel's):
   - layers that consume the raw input (layer 0 and the skip layer) use a
@@ -15,17 +18,17 @@ Rounding points (the JAX kernel's):
     orientation, accumulated in fp32, and gates by the forward's ReLU
     masks.
 
-``precise_sdg_call`` launches ``csrc/recompute.cu`` on a CUDA tensor and
-runs ``precise_sdg_plain`` on a CPU tensor or with ``use_kernel=False``.
-Forward only: the cotangent-seeded backward (the latent gradient)
-arrives with its own kernel, and then this becomes a
-``torch.autograd.Function``.
+``precise_sdg_call`` and ``precise_bias_grads_call`` launch
+``csrc/recompute.cu`` on a CUDA tensor and run their plain versions
+(``precise_sdg_plain``, ``precise_bias_grads_plain``, which share the
+forward and the reverse sweep as the kernels do) on a CPU tensor or with
+``use_kernel=False``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -165,9 +168,9 @@ def fold_bias_precise(params: Params, latent: torch.Tensor,
     return tuple(cols)
 
 
-def precise_sdg_plain(packed: PackedPrecise, biases, points: torch.Tensor,
-                      dirs: torch.Tensor, block: int = 512):
-    """The plain PyTorch version of K3 -> (s [N], dd [N], g [N, 3])."""
+def _forward_plain(packed: PackedPrecise, biases, points: torch.Tensor):
+    """The precise forward: (last layer's preactivation [N, out_p], the
+    hidden layers' ReLU gates)."""
     x = points.to(torch.float32)
     xi = round_bf16(x)
     xl = round_bf16(x - xi)
@@ -194,32 +197,59 @@ def precise_sdg_plain(packed: PackedPrecise, biases, points: torch.Tensor,
             h = torch.relu(acc)
         else:
             h = acc
-    pre0 = h[:, 0]
+    return h, gates
+
+
+def _seed_last(packed: PackedPrecise, pre: torch.Tensor, seed: torch.Tensor):
+    """(s, delta): the SDF value from row 0 of the last preactivation, and
+    the reverse seed there, ``seed`` times the tanh chain, on row 0."""
+    pre0 = pre[:, 0]
     s = pre0
     if packed.use_tanh:
         s = torch.tanh(s)
     if packed.final_tanh:
         s = torch.tanh(s)
-
-    # reverse seed at the last preactivation: row 0 = the tanh chain
-    dchain = torch.ones_like(s)
+    dchain = seed
     if packed.use_tanh:
         t1 = torch.tanh(pre0)
         dchain = dchain * (1.0 - t1 * t1)
     if packed.final_tanh:
         dchain = dchain * (1.0 - s * s)
-    delta = torch.zeros_like(h)
+    delta = torch.zeros_like(pre)
     delta[:, 0] = dchain
+    return s, delta
+
+
+def _reverse_plain(packed: PackedPrecise, gates, delta: torch.Tensor,
+                   want_gx: bool, want_u: bool):
+    """The reverse sweep from the last layer's preactivation gradient:
+    (gx [N, 3] or None, [u_l] for the layers the latent enters, in
+    ascending order). u_l sums delta_l over the points in fp64, rounded
+    once to fp32, as K4 does."""
+    meta = packed.meta
     gx = None
+    us = []
     for i in range(len(meta) - 1, -1, -1):
         m, ops = meta[i], packed.layers[i]
+        if want_u and m.takes_z:
+            us.append(delta.to(torch.float64).sum(0).to(torch.float32))
         db = round_bf16(delta)
-        if m.has_wx:
+        if want_gx and m.has_wx:
             c = dot_f32(db, ops["wx_hi"].T)
             gx = c if gx is None else gx + c
         if not m.has_wh:
             break
         delta = dot_f32(db, ops["wh_hi"].T) * gates[i - 1].to(torch.float32)
+    us.reverse()
+    return gx, us
+
+
+def precise_sdg_plain(packed: PackedPrecise, biases, points: torch.Tensor,
+                      dirs: torch.Tensor, block: int = 512):
+    """The plain PyTorch version of K3 -> (s [N], dd [N], g [N, 3])."""
+    pre, gates = _forward_plain(packed, biases, points)
+    s, delta = _seed_last(packed, pre, torch.ones_like(pre[:, 0]))
+    gx, _ = _reverse_plain(packed, gates, delta, True, False)
     return s, dot3(gx, dirs), gx
 
 
@@ -255,3 +285,172 @@ def precise_sdg_call(packed: PackedPrecise, biases, points: torch.Tensor,
 
 
 precise_sdg_call.launches = 0
+
+
+TILE = 32       # points per CUDA thread block (csrc/march_body.cuh)
+SUM_CHUNK = 64  # per-tile partials K4 adds per thread, per pass
+
+
+def _seed_cols(ct: torch.Tensor, n: int) -> torch.Tensor:
+    """ct [N] or [N, seed_rows] -> contiguous fp32 [N, seed_rows]."""
+    if ct.shape[0] != n or ct.ndim not in (1, 2):
+        raise ValueError("ct must be [N] or [N, seed_rows] for N points")
+    return ct.reshape(n, -1).to(torch.float32).contiguous()
+
+
+def precise_bias_grads_plain(packed: PackedPrecise, biases,
+                             points: torch.Tensor, ct: torch.Tensor,
+                             block: int = 512, scalar_chain: bool = True,
+                             want_gx: bool = False):
+    """The plain PyTorch version of K4 (see precise_bias_grads_call)."""
+    pre, gates = _forward_plain(packed, biases, points)
+    cols = _seed_cols(ct, points.shape[0])
+    if scalar_chain:
+        _, delta = _seed_last(packed, pre, cols[:, 0])
+    else:
+        delta = torch.zeros_like(pre)
+        delta[:, :cols.shape[1]] = cols
+    gx, us = _reverse_plain(packed, gates, delta, want_gx, True)
+    return (us, gx) if want_gx else us
+
+
+def precise_bias_grads_call(packed: PackedPrecise, biases,
+                            points: torch.Tensor, ct: torch.Tensor,
+                            block: int = 512, use_kernel: bool = True,
+                            scalar_chain: bool = True, want_gx: bool = False):
+    """Cotangent-weighted bias gradients u_l = sum over points of delta_l,
+    one [out_p] fp32 vector for each layer the latent enters (ascending
+    layer order), where delta_l is the preactivation gradient of layer l
+    in a reverse sweep seeded by ``ct``:
+
+      - scalar_chain=True: ct [N] (or the first column of [N, rows])
+        seeds row 0 of the last layer through the tanh chain (the sdg's
+        value s);
+      - scalar_chain=False: ct [N, seed_rows] are the preactivation
+        cotangents of the last layer's first seed_rows rows.
+
+    With want_gx, returns (us, gx) where gx [N, 3] is the ct-weighted
+    gradient to each point's xyz. The sum over points is taken in fp64 in
+    a fixed order and rounded once, so two launches agree bit for bit. A
+    CUDA tensor launches K4; a CPU tensor, or use_kernel=False, runs the
+    plain version. ``block`` only steered the TPU and has no effect."""
+    if not (use_kernel and points.is_cuda):
+        return precise_bias_grads_plain(packed, biases, points, ct, block,
+                                        scalar_chain, want_gx)
+    n = points.shape[0]
+    meta = packed.meta
+    cols = _seed_cols(ct, n)
+    bias = torch.cat([b.reshape(-1) for b in biases]).contiguous()
+    for t in (points, cols, bias):
+        if t.device != points.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError("precise_bias_grads_call takes contiguous "
+                             "float32 tensors on one CUDA device")
+    if points.shape != (n, 3):
+        raise ValueError("points must be [N, 3]")
+    if cols.shape[1] > meta[-1].out_p:
+        raise ValueError(f"ct has {cols.shape[1]} seed rows; the last layer "
+                         f"has {meta[-1].out_p}")
+    if packed.flat.device != points.device:
+        raise ValueError("packed weights must sit on the points' device")
+    dev = points.device
+    u_rows = sum(m.out_p for m in meta if m.takes_z)
+    tiles = max((n + TILE - 1) // TILE, 1)
+    partials = torch.empty(tiles * u_rows, dtype=torch.float64, device=dev)
+    scratch = torch.empty(((tiles + SUM_CHUNK - 1) // SUM_CHUNK) * u_rows,
+                          dtype=torch.float64, device=dev)
+    u = torch.empty(u_rows, dtype=torch.float32, device=dev)
+    gx = torch.empty((n, 3), dtype=torch.float32, device=dev) if want_gx else None
+    tab = (ctypes.c_int * len(packed.table))(*packed.table)
+    lib = build.load()
+    lib.call("drt_precise_bias_grads", build.ptr(points), build.ptr(cols), n,
+             cols.shape[1], int(scalar_chain), build.ptr(packed.flat),
+             build.ptr(bias), tab, len(meta),
+             build.ptr(gx) if want_gx else None, build.ptr(partials),
+             build.ptr(scratch), tiles, SUM_CHUNK, build.ptr(u),
+             build.stream_of(points))
+    precise_bias_grads_call.launches += 1
+    us, off = [], 0
+    for m in meta:
+        if m.takes_z:
+            us.append(u[off:off + m.out_p])
+            off += m.out_p
+    return (us, gx) if want_gx else us
+
+
+precise_bias_grads_call.launches = 0
+
+
+def latent_grad(packed: PackedPrecise, us) -> torch.Tensor:
+    """The latent's gradient from K4's u_l: sum_l W_z,l u_l (two small
+    products, as the JAX package takes them outside its kernel)."""
+    gz = None
+    for (_, wz_l), u in zip(packed.wz, us):
+        c = wz_l @ u[:wz_l.shape[1]]
+        gz = c if gz is None else gz + c
+    return gz
+
+
+class _PreciseSDG(torch.autograd.Function):
+    """(latent, points, dirs) -> (s, dd, g): K3 forward, K4 backward."""
+
+    @staticmethod
+    def forward(ctx, latent, points, dirs, params, cfg, packed, block,
+                use_kernel):
+        biases = fold_bias_precise(params, latent, cfg, packed)
+        s, dd, g = precise_sdg_call(packed, biases, points, dirs, block,
+                                    use_kernel=use_kernel)
+        ctx.mark_non_differentiable(dd, g)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(points, g)
+        ctx.biases, ctx.packed, ctx.block = biases, packed, block
+        ctx.use_kernel = use_kernel
+        ctx.latent_shape = latent.shape
+        return s, dd, g
+
+    @staticmethod
+    def backward(ctx, ct_s, ct_dd, ct_g):
+        # dd and g carry no gradient: their cotangents are dropped
+        if ct_s is None:
+            return (None,) * 8
+        points, g = ctx.saved_tensors
+        gz = gp = None
+        if ctx.needs_input_grad[0]:
+            us = precise_bias_grads_call(
+                ctx.packed, ctx.biases, points.contiguous(),
+                ct_s.to(torch.float32).contiguous(), ctx.block,
+                use_kernel=ctx.use_kernel)
+            gz = latent_grad(ctx.packed, us).reshape(ctx.latent_shape)
+        if ctx.needs_input_grad[1]:
+            gp = ct_s[:, None] * g
+        return gz, gp, None, None, None, None, None, None
+
+
+def make_precise_sdg(params: Params, cfg: DecoderConfig, block: int = 512,
+                     use_kernel: bool = True,
+                     packed: Optional[PackedPrecise] = None):
+    """(latent [L], points [N, 3], dirs [N, 3]) -> (s, dd, g), with a
+    backward.
+
+    s is differentiable to the latent and the points: d s / d points = g
+    (already computed), and the latent, which enters only through the
+    folded biases, gets sum_l W_z,l u_l from K4 and two small products.
+    dd and g are value-exact but carry no gradient (the renderer takes
+    the IFT denominator and the normals from them as constants). dirs
+    gets no gradient. The decoder parameters are constants here: they
+    get no gradient, as in the JAX package, where they are closed over.
+
+    A CUDA tensor launches K3 forward and K4 backward; a CPU tensor, or
+    use_kernel=False, runs their plain versions."""
+    if packed is None:
+        packed = pack_precise(params, cfg)
+
+    def sdg(latent, points, dirs):
+        if latent.ndim != 1:
+            raise ValueError(
+                "precise_sdg folds ONE latent per call (got shape "
+                f"{tuple(latent.shape)})")
+        return _PreciseSDG.apply(latent, points, dirs, params, cfg, packed,
+                                 block, use_kernel)
+
+    return sdg

@@ -1,18 +1,17 @@
-"""Rendering: a no-grad coarse-to-fine march, then one precise recompute
-at the traced surface points.
+"""Rendering: a no-grad coarse-to-fine march, then one differentiable
+precise recompute at the traced surface points.
 
 The march (ops/kernels/batched_march.py::render_batched_c2f) gives each
 ray its surface distance d* (or, for a miss, the distance of its min-SDF
-sample). The composition re-expresses the depth with one implicit-
-function-theorem step on the precise decoder,
+sample); it runs outside the autograd graph. The composition re-expresses
+the depth with one implicit-function-theorem step on the precise decoder,
 
     depth = d* - f(z, o + d* v) / <grad_x f, v>,
 
-from the fused recompute kernel (K3), which also gives the normals.
-
-Forward only in this slice: ``render`` runs under ``torch.no_grad()``.
-Gradients to the latent and the pose arrive with the recompute backward
-kernel (ROADMAP: K4, the fwd+bwd slice).
+from the fused recompute kernel (K3), which also gives the normals. The
+denominator and the normals are constants; the value f carries the
+gradient to the latent and, through o and v, to the camera pose (its
+backward is K4).
 
 Ported path: ``use_pallas`` + ``coarse_to_fine`` + ``c2f_classify`` with a
 march factory (the ``trace_frame`` path), composed with
@@ -49,14 +48,49 @@ class RenderOutput(NamedTuple):
     trace: TraceResult      # raw march diagnostics
 
 
+class LazyMargin(torch.autograd.Function):
+    """The margin of misses outside the compose bucket: the value is the
+    one the march recorded, and the backward attaches the decoder's
+    gradient at each ray's anchor, running the precise sdg there (K3
+    forward, K4 backward) at full width. Under a loss that ignores the
+    margins autograd never calls it, which keeps a depth-only backward
+    cheap."""
+
+    @staticmethod
+    def forward(ctx, latent, p_anchor, margin, dirs, sdg):
+        ctx.save_for_backward(latent, p_anchor, dirs)
+        ctx.sdg = sdg
+        return margin.clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        latent, p_anchor, dirs = ctx.saved_tensors
+        want_z, want_p = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            z = latent.detach().requires_grad_(want_z)
+            p = p_anchor.detach().requires_grad_(want_p)
+            s, _, _ = ctx.sdg(z, p, dirs)
+            wrt = [x for x, want in ((z, want_z), (p, want_p)) if want]
+            grads = iter(torch.autograd.grad(s, wrt, ct))
+        gz = next(grads) if want_z else None
+        gp = next(grads) if want_p else None
+        return gz, gp, None, None, None
+
+
 def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
                 dirs: torch.Tensor, cfg: RenderConfig,
                 trace: Optional[TraceResult] = None) -> RenderOutput:
-    """Composition for a flat ray batch [N, 3] on a precomputed trace.
+    """Differentiable composition for a flat ray batch [N, 3] on a
+    precomputed trace (a constant).
 
-    The precise recompute runs on a hit-first bucket of n/compact_frac
-    rays when the hits fit it (misses keep the trace's margin), else at
-    full width."""
+    depth, min_sdf and points carry gradients to ``latent`` and, through
+    ``origins`` and ``dirs``, to whatever they were computed from (the
+    camera pose); normals and the mask are constants. The precise
+    recompute runs on a hit-first bucket of n/compact_frac rays when the
+    hits fit it, else at full width. Misses outside the bucket keep the
+    trace's margin as the value, with the decoder's gradient at their
+    anchor (LazyMargin); rays that never enter the bounding sphere take
+    the geometric distance as the value and keep the margin's gradient."""
     if trace is None:
         not_ported("render_rays without a precomputed trace", "A4/A5")
     use_sdg = (cfg.grad.mode == "ift" and cfg.grad.recompute == "pallas"
@@ -72,7 +106,8 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
     min_denom = cfg.grad.ift_min_denom
 
     def compose(o, v, d0, anchor, hit):
-        s, dd, g = sdg(latent, o + anchor[:, None] * v, v)
+        # o and v live (pose gradients); dd and g are constants
+        s, dd, g = sdg(latent, o + anchor[:, None] * v, v.detach())
         depth = d0 - s / torch.clamp(dd, max=-min_denom)
         depth = torch.where(hit, depth, torch.full_like(depth, cfg.background_depth))
         normal = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True),
@@ -91,52 +126,61 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
     if 0 < bucket < n and int(trace.hit.sum()) <= bucket:
         # hit-first stable order: hits, then misses in pixel order
         order = torch.sort((~trace.hit).to(torch.int32), stable=True).indices
-        idx_b = order[:bucket]
-        take = lambda a: a[idx_b]
-        d_b, s_b, n_b = compose(take(origins), take(dirs), take(d0),
-                                take(anchor), take(trace.hit))
-        # misses outside the bucket keep the margin the march recorded;
-        # misses inside it take the precise value at their anchor
-        min_sdf = trace.min_sdf.clone()
-        min_sdf[idx_b] = s_b
+        idx_b = (order[:bucket],)
+        d_b, s_b, n_b = compose(origins[idx_b], dirs[idx_b], d0[idx_b],
+                                anchor[idx_b], trace.hit[idx_b])
+        # misses outside the bucket keep the margin the march recorded,
+        # with the decoder's gradient at their anchor; the bucket's rays
+        # take the precise value (scatters out of place, for autograd)
+        margins = trace.min_sdf
+        if torch.is_grad_enabled() and (latent.requires_grad
+                                        or origins.requires_grad
+                                        or dirs.requires_grad):
+            margins = LazyMargin.apply(latent, origins + anchor[:, None] * dirs,
+                                       margins, dirs.detach(), sdg)
+        min_sdf = margins.index_put(idx_b, s_b)
         depth = torch.full((n,), cfg.background_depth, dtype=d_b.dtype,
-                           device=d_b.device)
-        depth[idx_b] = d_b
-        normal = torch.zeros((n, 3), dtype=n_b.dtype, device=n_b.device)
-        normal[idx_b] = n_b
+                           device=d_b.device).index_put(idx_b, d_b)
+        normal = torch.zeros((n, 3), dtype=n_b.dtype,
+                             device=n_b.device).index_put(idx_b, n_b)
     else:
         depth, min_sdf, normal = compose(origins, dirs, d0, anchor, trace.hit)
 
-    # rays that never enter the bounding sphere: the geometric margin
-    _, _, enters = ray_sphere_entry(origins, dirs, cfg.march.sphere_radius, 0.0)
-    t_c = torch.clamp(-dot3(origins, dirs), min=0.0)
-    min_sdf = torch.where(enters, min_sdf,
-                          geo_margin(origins, dirs, t_c, cfg.march))
+    # rays that never enter the bounding sphere: the geometric margin as
+    # the value, the decoder eval's gradient kept (it pulls back a shape
+    # that pokes past the sphere during a fit)
+    o_c, v_c = origins.detach(), dirs.detach()
+    _, _, enters = ray_sphere_entry(o_c, v_c, cfg.march.sphere_radius, 0.0)
+    t_c = torch.clamp(-dot3(o_c, v_c), min=0.0)
+    geo = geo_margin(o_c, v_c, t_c, cfg.march)
+    min_sdf = torch.where(enters, min_sdf, geo + min_sdf - min_sdf.detach())
     return RenderOutput(depth=depth, mask=trace.hit, normal=normal,
                         min_sdf=min_sdf, points=origins + depth[:, None] * dirs,
                         trace=trace)
 
 
-@torch.no_grad()
 def render(sdf_fn, latent: torch.Tensor, camera: Camera,
            cfg: RenderConfig = RenderConfig(),
            march_fn_factory: Optional[Callable] = None) -> RenderOutput:
     """Full-frame render: camera -> [H, W] maps (depth, mask, normal,
     silhouette margin, points).
 
-    Forward only: runs under ``torch.no_grad()``. Gradients to the latent
-    and pose arrive with the recompute backward kernel (ROADMAP K4).
-    Float32 products run in full fp32 (TF32 off), which the precise
-    value's accuracy needs."""
+    Differentiable: depth, min_sdf and points carry gradients to
+    ``latent`` and to the camera's R and T when they require grad; the
+    march runs under ``torch.no_grad()`` on a detached latent. With
+    nothing requiring grad no graph is built. Float32 products run in
+    full fp32 (TF32 off), which the precise value's accuracy needs."""
     set_fp32_matmul()
     origins, dirs = pixel_rays(camera, cfg.img_h, cfg.img_w)
-    march_fn = march_fn_factory(latent) if march_fn_factory is not None else None
+    march_fn = (march_fn_factory(latent.detach())
+                if march_fn_factory is not None else None)
     if not (cfg.march.coarse_to_fine and cfg.march.c2f_classify
             and march_fn is not None and hasattr(march_fn, "trace_frame")):
         not_ported("rendering without the coarse-to-fine trace_frame "
                     "path (plain and compaction tracers)", "A4/A5")
-    trace = march_fn.trace_frame(origins, dirs, cfg.march,
-                                 (cfg.img_h, cfg.img_w))
+    with torch.no_grad():
+        trace = march_fn.trace_frame(origins.detach(), dirs.detach(),
+                                     cfg.march, (cfg.img_h, cfg.img_w))
     out = render_rays(sdf_fn, latent, origins, dirs, cfg, trace=trace)
     hw = (cfg.img_h, cfg.img_w)
     return RenderOutput(
@@ -205,7 +249,7 @@ def make_march_factory(params, dcfg: DecoderConfig, cfg: RenderConfig,
 class SDFRenderer:
     """OO wrapper mirroring the reference's ``SDFRenderer`` class API:
     constructed from a decoder + intrinsics + image size; ``render`` takes
-    (latent, R, T).
+    (latent, R, T) and passes gradients to those that require grad.
 
     ``device`` (default: the decoder weights' device, else the CPU) is
     where the camera, the latent and every render live; intrinsics, poses

@@ -1,4 +1,5 @@
-"""Where the time of one forward render goes, on one CUDA card.
+"""Where the time of one render, and of one render with its backward,
+goes on one CUDA card.
 
 Renders the bench cell that ``chip_smoke.py`` serves (the committed bench
 fixture: the 8x512 DeepSDF decoder marched through its distilled 4x256
@@ -15,7 +16,11 @@ request latent) and reports:
   - per march stage: active rays, mean march steps per active ray and
     the multiply-adds those steps cost, as a rate over the stage's time;
   - torch.profiler's device time per kernel over the same number of
-    renders, and the device's idle share, 1 - device time / wall time.
+    renders, and the device's idle share, 1 - device time / wall time;
+  - all of the above again for bench.py's fwd+bwd (a depth L1 loss and
+    its gradient to the latent, which adds K4 on the compose bucket),
+    and the backward's cost beyond the forward split into K4 and the
+    autograd glue.
 
     python -m dist_renderer_tpu_torch.profile_render [--requests 5]
                                                      [--out FILE.json]
@@ -122,6 +127,42 @@ class StageTimer:
             setattr(module, attr, fn)
 
 
+def _timed(run, requests):
+    """CUDA-event ms of each of ``requests`` calls of run(), and the last
+    call's result."""
+    import torch
+
+    ms, out = [], None
+    for _ in range(requests):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = run()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return ms, out
+
+
+def _device_ms(run, requests):
+    """torch.profiler's device time per kernel, ms per call of run()."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(requests):
+            run()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t > 0:
+            kernels[ev.key] = t / 1e3 / requests
+    return kernels
+
+
 def main(argv=None):
     import torch
 
@@ -137,6 +178,7 @@ def main(argv=None):
     from dist_renderer_tpu_torch.ops.kernels import queue_march as qm
     from dist_renderer_tpu_torch.ops.kernels import recompute as rc
     from dist_renderer_tpu_torch.ops.renderer import render
+    from dist_renderer_tpu_torch.utils.losses import masked_l1
 
     dev = torch.device("cuda", 0)
     set_fp32_matmul()
@@ -144,102 +186,105 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     sdf_fn, factory, z, cam, cfg, decs = bench_setup(dev)
-    run = lambda: render(sdf_fn, z, cam, cfg, factory)
+    img = cfg.img_h
+    target = torch.full((img, img), 1.5, device=dev)
+    everywhere = torch.ones((img, img), dtype=torch.bool, device=dev)
 
-    # wall time per frame, nothing wrapped
-    run()
-    torch.cuda.synchronize()
-    wall = []
-    for _ in range(args.requests):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = run()
-        b.record()
-        torch.cuda.synchronize()
-        wall.append(a.elapsed_time(b))
-    hit_frac = out.mask.float().mean().item()
+    def fwd():
+        return render(sdf_fn, z, cam, cfg, factory)
 
-    # stage split: events around each kernel wrapper's call
-    queue_names = ("proxy fine march (K2)", "verify march (K2)")
-    timer = StageTimer()
-    timer.wrap(bm, "batched_trace_padded",
-               lambda calls, a, k: f"c2f level {a[2].shape[1]} rays (K1)")
-    timer.wrap(qm, "queue_march", lambda calls, a, k: queue_names[
-        sum(c[0] in queue_names for c in calls) % 2])
-    timer.wrap(rc, "precise_sdg_call", lambda calls, a, k: "compose bucket (K3)")
-    stages, frames = {}, []
-    try:
-        for _ in range(args.requests):
-            timer.calls = []
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            run()
-            b.record()
-            torch.cuda.synchronize()
-            frames.append(a.elapsed_time(b))
-            for name, ea, eb, _ in timer.calls:
-                stages.setdefault(name, []).append(ea.elapsed_time(eb))
-        last_calls = timer.calls
-    finally:
-        timer.close()
+    def fwdbwd():
+        # bench.py's fwd+bwd: a depth L1 loss, its gradient to the latent
+        zz = z.detach().clone().requires_grad_(True)
+        out = render(sdf_fn, zz, cam, cfg, factory)
+        torch.autograd.grad(masked_l1(out.depth, target, everywhere), zz)
+        return out
+
     med = lambda xs: sorted(xs)[len(xs) // 2]
-    stage_ms = {k: med(v) for k, v in stages.items()}
-    stage_ms["glue"] = med(frames) - sum(stage_ms.values())
-
-    # march work per stage (from the last split render's outputs)
-    work = {}
-    for name, _, _, (a, k, out) in last_calls:
-        if name not in queue_names:
-            continue
-        key = a[4]
-        act = key != 2
-        steps = out.steps[act].to(torch.float64)
-        dec = decs["proxy" if name.startswith("proxy") else "decoder"]
-        ray_steps = float(steps.sum())
-        macs = ray_steps * macs_per_eval(*dec)
-        work[name] = dict(active_rays=int(act.sum()),
-                          mean_steps=ray_steps / max(int(act.sum()), 1),
-                          max_steps=int(steps.max()) if steps.numel() else 0,
-                          tmac_per_s=macs / (stage_ms[name] * 1e-3) / 1e12)
-
-    # device time per kernel and the device's idle share
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.requests):
-            run()
+    queue_names = ("proxy fine march (K2)", "verify march (K2)")
+    result = dict(card=smi)
+    for mode, run in (("fwd", fwd), ("fwdbwd", fwdbwd)):
+        # wall time per frame, nothing wrapped
+        run()
         torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        if t > 0:
-            kernels[ev.key] = t / 1e3 / args.requests  # ms per frame
-    device_ms = sum(kernels.values())
-    fwd_ms = med(wall)
+        wall, out = _timed(run, args.requests)
 
+        # stage split: events around each kernel wrapper's call
+        timer = StageTimer()
+        timer.wrap(bm, "batched_trace_padded",
+                   lambda calls, a, k: f"c2f level {a[2].shape[1]} rays (K1)")
+        timer.wrap(qm, "queue_march", lambda calls, a, k: queue_names[
+            sum(c[0] in queue_names for c in calls) % 2])
+        timer.wrap(rc, "precise_sdg_call", lambda calls, a, k: "compose bucket (K3)")
+        timer.wrap(rc, "precise_bias_grads_call",
+                   lambda calls, a, k: "sdg backward (K4)")
+        stages, frames = {}, []
+        try:
+            for _ in range(args.requests):
+                timer.calls = []
+                ms, _ = _timed(run, 1)
+                frames.append(ms[0])
+                for name, ea, eb, _ in timer.calls:
+                    stages.setdefault(name, []).append(ea.elapsed_time(eb))
+            last_calls = timer.calls
+        finally:
+            timer.close()
+        stage_ms = {k: med(v) for k, v in stages.items()}
+        stage_ms["glue"] = med(frames) - sum(stage_ms.values())
+
+        # march work per stage (from the last split render's outputs)
+        work = {}
+        for name, _, _, (a, k, o) in last_calls:
+            if name not in queue_names:
+                continue
+            act = a[4] != 2
+            steps = o.steps[act].to(torch.float64)
+            dec = decs["proxy" if name.startswith("proxy") else "decoder"]
+            ray_steps = float(steps.sum())
+            work[name] = dict(
+                active_rays=int(act.sum()),
+                mean_steps=ray_steps / max(int(act.sum()), 1),
+                max_steps=int(steps.max()) if steps.numel() else 0,
+                tmac_per_s=ray_steps * macs_per_eval(*dec)
+                / (stage_ms[name] * 1e-3) / 1e12)
+
+        # device time per kernel and the device's idle share
+        kernels = _device_ms(run, args.requests)
+        device_ms = sum(kernels.values())
+        frame_ms = med(wall)
+        result[mode] = dict(
+            ms=frame_ms, wall_ms=wall, hit_frac=out.mask.float().mean().item(),
+            split_ms=med(frames), stage_ms=stage_ms, work=work,
+            device_ms=device_ms, idle_share=1 - device_ms / frame_ms,
+            kernels_ms=kernels)
+
+    fw, fb = result["fwd"], result["fwdbwd"]
+    # the backward's cost beyond the forward, and the part of it that is
+    # not K4: autograd's own work (the scatters' and the IFT's backward,
+    # the bias fold's products, pixel_rays' backward)
+    fb["backward_ms"] = fb["split_ms"] - fw["split_ms"]
+    fb["autograd_glue_ms"] = fb["backward_ms"] - fb["stage_ms"].get("sdg backward (K4)", 0.0)
     print(f"card: {smi}")
-    print(f"render() {fwd_ms:.3f} ms/frame (median of {args.requests}, CUDA "
-          f"events; all {[round(w, 3) for w in wall]}), hit_frac {hit_frac:.4f}")
-    print(f"split renders {med(frames):.3f} ms/frame; stages (median ms):")
-    for name, ms in sorted(stage_ms.items(), key=lambda kv: -kv[1]):
-        extra = ""
-        if name in work:
-            w = work[name]
-            extra = (f"  {w['active_rays']} active rays, mean {w['mean_steps']:.2f} "
-                     f"steps (max {w['max_steps']}), {w['tmac_per_s']:.2f} TMAC/s")
-        print(f"  {name:28s} {ms:9.3f}{extra}")
-    print(f"device kernel time {device_ms:.3f} ms/frame (torch.profiler); "
-          f"idle share {1 - device_ms / fwd_ms:.4f} of {fwd_ms:.3f} ms")
-    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  {ms:9.3f}  {name[:90]}")
-    result = dict(card=smi, fwd_ms=fwd_ms, wall_ms=wall, hit_frac=hit_frac,
-                  split_ms=med(frames), stage_ms=stage_ms, work=work,
-                  device_ms=device_ms, idle_share=1 - device_ms / fwd_ms,
-                  kernels_ms=kernels)
+    for mode in ("fwd", "fwdbwd"):
+        r = result[mode]
+        print(f"\n{'render()' if mode == 'fwd' else 'render() + backward'} "
+              f"{r['ms']:.3f} ms/frame (median of {args.requests}, CUDA events; "
+              f"all {[round(w, 3) for w in r['wall_ms']]}), hit_frac {r['hit_frac']:.4f}")
+        print(f"split renders {r['split_ms']:.3f} ms/frame; stages (median ms):")
+        for name, ms in sorted(r["stage_ms"].items(), key=lambda kv: -kv[1]):
+            extra = ""
+            if name in r["work"]:
+                w = r["work"][name]
+                extra = (f"  {w['active_rays']} active rays, mean {w['mean_steps']:.2f} "
+                         f"steps (max {w['max_steps']}), {w['tmac_per_s']:.2f} TMAC/s")
+            print(f"  {name:28s} {ms:9.3f}{extra}")
+        print(f"device kernel time {r['device_ms']:.3f} ms/frame (torch.profiler); "
+              f"idle share {r['idle_share']:.4f} of {r['ms']:.3f} ms")
+        for name, ms in sorted(r["kernels_ms"].items(), key=lambda kv: -kv[1])[:12]:
+            print(f"  {ms:9.3f}  {name[:90]}")
+    print(f"\nbackward beyond the forward {fb['backward_ms']:.3f} ms/frame: K4 "
+          f"{fb['stage_ms'].get('sdg backward (K4)', 0.0):.3f}, autograd glue "
+          f"{fb['autograd_glue_ms']:.3f}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -182,6 +182,127 @@ def test_cuda_k3_matches_plain(arch, k_order):
     assert torch.isfinite(out[0]).all() and torch.isfinite(out[2]).all()
 
 
+def _k4_inputs(arch, dev, n=3000):
+    """A decoder of K3's card test (arch == len(K3_ARCHS): the 8x512
+    bench decoder), its packed weights and folded biases, and seeded
+    points and cotangents (one column and three)."""
+    rng = np.random.default_rng(100 + arch)
+    if arch == len(K3_ARCHS):
+        params, z = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+        cfg = DecoderConfig()
+    else:
+        cfg = DecoderConfig(**K3_ARCHS[arch])
+        params = params_from_numpy({"layers": [
+            {"w": rng.standard_normal((i, o)) * np.sqrt(2.0 / i),
+             "b": 0.1 * rng.standard_normal(o)} for i, o in cfg.layer_dims]}, dev)
+        z = torch.as_tensor(0.3 * rng.standard_normal(cfg.latent_size),
+                            dtype=torch.float32, device=dev)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    pts = t(0.6 * rng.standard_normal((n, 3)))
+    cts = {1: t(rng.standard_normal(n)), 3: t(rng.standard_normal((n, 3)))}
+    pk = rc.pack_precise(params, cfg)
+    return params, cfg, z, pk, rc.fold_bias_precise(params, z, cfg, pk), pts, cts
+
+
+K4_MODES = [dict(scalar_chain=True, want_gx=False), dict(scalar_chain=True, want_gx=True),
+            dict(scalar_chain=False, want_gx=True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", range(len(K4_MODES)))
+@pytest.mark.parametrize("arch", range(len(K3_ARCHS) + 1))
+def test_cuda_k4_matches_plain(arch, mode, k_order):
+    """K4 against its in-order plain version: gx bit for bit; u (a sum
+    over 3,000 points, in fp64 in either, in another order) within
+    relative L2 1e-6; two launches give the same bits."""
+    dev = _device()
+    kw = K4_MODES[mode]
+    _, _, _, pk, b, pts, cts = _k4_inputs(arch, dev)
+    ct = cts[1 if kw["scalar_chain"] else 3]
+    n0 = rc.precise_bias_grads_call.launches
+    out = rc.precise_bias_grads_call(pk, b, pts, ct, **kw)
+    again = rc.precise_bias_grads_call(pk, b, pts, ct, **kw)
+    assert rc.precise_bias_grads_call.launches == n0 + 2
+    ref = rc.precise_bias_grads_call(pk, b, pts, ct, use_kernel=False, **kw)
+    assert rc.precise_bias_grads_call.launches == n0 + 2
+    torch.cuda.synchronize()
+    us, us2, ur = ((o[0], o[1]) if kw["want_gx"] else (o, None)
+                   for o in (out, again, ref))
+    assert len(us[0]) == sum(m.takes_z for m in pk.meta) == 2
+    for a, a2, r in zip(us[0], us2[0], ur[0]):
+        assert torch.equal(a, a2)
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        rel = ((a.double() - r.double()).norm() / r.double().norm()).item()
+        assert rel <= 1e-6, rel
+    if kw["want_gx"]:
+        assert torch.equal(us[1], ur[1]) and torch.equal(us[1], us2[1])
+        assert torch.isfinite(us[1]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", [1, len(K3_ARCHS)])
+def test_cuda_precise_sdg_autograd_matches_plain(arch, k_order):
+    """make_precise_sdg on the card (K3 forward, K4 backward) against its
+    plain version: s and the points' gradient bit for bit, the latent's
+    within relative L2 1e-6."""
+    dev = _device()
+    params, cfg, z, _, _, pts, cts = _k4_inputs(arch, dev, n=1000)
+    dirs = torch.nn.functional.normalize(pts.flip(1), dim=-1)
+    counters = (rc.precise_sdg_call, rc.precise_bias_grads_call)
+    res = []
+    for use in (True, False):
+        n0 = [fn.launches for fn in counters]
+        sdg = rc.make_precise_sdg(params, cfg, use_kernel=use)
+        zz, pp = z.clone().requires_grad_(), pts.clone().requires_grad_()
+        s, dd, g = sdg(zz, pp, dirs)
+        res.append((s, *torch.autograd.grad((cts[1] * s).sum(), (zz, pp))))
+        assert [fn.launches - c for fn, c in zip(counters, n0)] == ([1, 1] if use else [0, 0])
+    (s_k, gz_k, gp_k), (s_p, gz_p, gp_p) = res
+    assert torch.equal(s_k, s_p) and torch.equal(gp_k, gp_p)
+    rel = ((gz_k.double() - gz_p.double()).norm() / gz_p.double().norm()).item()
+    assert rel <= 1e-6 and torch.isfinite(gz_k).all(), rel
+
+
+@pytest.mark.gpu
+def test_cuda_sdf_renderer_gradients_match_plain(k_order):
+    """SDFRenderer on the card: the gradients of a depth + silhouette loss
+    to (latent, R, T) through K1-K4 (the silhouette reaches the lazy
+    margin's backward) against the same render and backward on the plain
+    versions. With the in-order products the forward is equal bit for
+    bit, so only K4's fp64 sums, in another order, differ: relative L2
+    <= 1e-5 on each gradient."""
+    dev = _device()
+    proxy, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"), dev)
+    _, z = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"))
+    img = 32
+    cfg = RenderConfig(
+        img_h=img, img_w=img,
+        march=MarchConfig(max_steps=50, convergence_eps=2e-3, depth_eps=5e-4,
+                          coarse_to_fine=True, c2f_strides=(16, 4),
+                          c2f_coarse_steps=16),
+        grad=GradConfig(mode="ift", compact_frac=4, compact_min=256),
+        compute_dtype="bfloat16", use_pallas=True)
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img))
+    grads = []
+    for use in (True, False):
+        n0 = rc.precise_bias_grads_call.launches
+        r = SDFRenderer(proxy, cam.K, (img, img), decoder_cfg=pcfg,
+                        cfg=dataclasses.replace(cfg, use_pallas=use))
+        leaves = [t.to(dev).requires_grad_() for t in (z.clone(), cam.R.clone(),
+                                                       cam.T.clone())]
+        out = r.render(*leaves)
+        obs = out.mask.detach() & (torch.arange(img, device=dev) < img // 2)[None, :]
+        loss = (10.0 * (out.depth - 1.5).abs()[obs].mean()
+                + torch.clamp(out.min_sdf, min=0.0)[~out.mask].mean())
+        grads.append(torch.autograd.grad(loss, leaves))
+        # the bucket's K4 and the lazy margin's
+        assert rc.precise_bias_grads_call.launches - n0 == (2 if use else 0)
+    for a, b in zip(*grads):
+        assert a.is_cuda and torch.isfinite(a).all() and a.abs().sum() > 0
+        rel = ((a.double() - b.double()).norm() / b.double().norm()).item()
+        assert rel <= 1e-5, rel
+
+
 @pytest.mark.gpu
 def test_cuda_render_matches_plain_render():
     dev = _device()
@@ -279,6 +400,41 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
     sdg(z, o[0, :8], v[0, :8])
     assert counts == (bm.sphere_trace_persistent.launches, queue_march.launches,
                       rc.precise_sdg_call.launches)
+
+
+@pytest.mark.gpu
+def test_cuda_k4_rejects_bad_inputs():
+    """A CUDA tensor launches K4 or raises: weights on another device,
+    non-contiguous points and too many seed rows are refused."""
+    dev = _device()
+    params, cfg, _, pk, b, pts, cts = _k4_inputs(1, dev, n=64)
+    with pytest.raises(ValueError):
+        rc.precise_bias_grads_call(rc.pack_precise(
+            {"layers": [{k: v.cpu() for k, v in l.items()} for l in params["layers"]]},
+            cfg), b, pts, cts[1])
+    with pytest.raises(ValueError):
+        rc.precise_bias_grads_call(pk, b, pts.T.contiguous().T, cts[1])
+    with pytest.raises(ValueError):
+        rc.precise_bias_grads_call(pk, b, pts, torch.zeros(64, 9, device=dev),
+                                   scalar_chain=False)
+
+
+def test_cpu_tensors_take_the_k4_plain_version_uncounted():
+    """On CPU tensors K4's wrapper and the sdg's backward run the plain
+    version and count no launch."""
+    _, _, _, pk, b, pts, cts = _k4_inputs(1, torch.device("cpu"), n=100)
+    n0 = rc.precise_bias_grads_call.launches
+    us, gx = rc.precise_bias_grads_call(pk, b, pts, cts[3], scalar_chain=False,
+                                        want_gx=True)
+    ref = rc.precise_bias_grads_plain(pk, b, pts, cts[3], scalar_chain=False,
+                                      want_gx=True)
+    assert all(torch.equal(a, r) for a, r in zip(us, ref[0]))
+    assert torch.equal(gx, ref[1])
+    params, z = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"))
+    sdg = make_precise_sdf(params, DecoderConfig()).sdg_builder()
+    zz = z.clone().requires_grad_()
+    sdg(zz, pts[:8], pts[:8])[0].sum().backward()
+    assert zz.grad is not None and rc.precise_bias_grads_call.launches == n0
 
 
 def test_kernel_build_is_keyed_by_source_hash():
