@@ -10,9 +10,15 @@ versions. Then it differentiates the same render: bench.py's fwd+bwd (a
 depth loss's gradient to the latent) for the five requests, that gradient
 and a camera-pose gradient against the plain versions, and five Adam
 steps of the depth-completion fit, checking that the backward went
-through the recompute backward kernel. Prints the timings, one JSON line
-of per-kernel results, the card's name and power limit, and last a JSON
-status line.
+through the recompute backward kernel. Then the single-frame grid march
+path (K1-grid): SDFRenderer on the 8x512 bench decoder without the
+coarse-to-fine pipeline, three forward and three fwd+bwd requests, held
+against the plain versions, and one request through c2f_plan's coarse
+levels; and last the command-line tasks (render_demo, depth_completion,
+pose_refine with warm starts, multiview) and the render server, in
+process, on the committed torus 8x512 decoder. Prints the timings, one
+JSON line of per-kernel results, the card's name and power limit, and
+last a JSON status line.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -120,7 +126,50 @@ def grad_diff(a, b):
                 rel=((a - b).norm() / b.norm()).item())
 
 
-def fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, cfg, plain_cfg, cam,
+# The least time the card could take for a kernel's work: the larger of
+# its multiply-adds at the bf16 dense tensor-core peak and the bytes it
+# must move (each input read once, each output written once) at the
+# memory rate; an NVIDIA H100 SXM's published peaks.
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+
+
+def macs_per_eval(shared):
+    from dist_renderer_tpu_torch.profile_render import macs_per_eval as macs
+
+    return macs(shared)
+
+
+def bound(macs, nbytes):
+    t_ops, t_bytes = 2.0 * macs / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def march_bytes(n, shared, bank):
+    """A march's traffic: [16, N] ray rows in, [8, N] rows out, the
+    weights and the bias bank once."""
+    return 4 * 24 * n + 2 * shared.flat.numel() + 4 * bank.numel()
+
+
+def precise_macs(packed):
+    """Multiply-adds of the precise recompute of one point: the forward
+    (three products on the split input layers, one on the others) and the
+    reverse sweep to the inputs."""
+    total = 0
+    for m in packed.meta:
+        k = 3 if m.split else 1
+        if m.has_wh:
+            total += (k + 1) * m.in_p * m.out_p
+        if m.has_wx:
+            total += 4 * 3 * m.out_p
+    return total
+
+
+def precise_bytes(n, packed, rows_in, rows_out):
+    return 4 * (rows_in + rows_out) * n + 2 * packed.flat.numel()
+
+
+def fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, plain_sdf, cfg, cam,
                   lats, latent, counters, smi):
     """Phase 5: gradients through render() on the card. (i) bench.py's
     fwd+bwd (a depth L1 loss, its gradient to the latent) for every
@@ -141,9 +190,9 @@ def fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, cfg, plain_cfg, cam,
     target = torch.full((IMG, IMG), 1.5, device=dev)
     everywhere = torch.ones((IMG, IMG), dtype=torch.bool, device=dev)
 
-    def depth_grad(z, c=cfg, fac=factory):
+    def depth_grad(z, fac=factory, sdf=sdf_fn):
         zz = z.detach().clone().requires_grad_(True)
-        out = render(sdf_fn, zz, cam, c, fac)
+        out = render(sdf, zz, cam, cfg, fac)
         return torch.autograd.grad(L.masked_l1(out.depth, target, everywhere), zz)[0]
 
     def reset():
@@ -219,7 +268,7 @@ def fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, cfg, plain_cfg, cam,
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    g_plain = depth_grad(lats[0], plain_cfg, plain_fac)
+    g_plain = depth_grad(lats[0], plain_fac, plain_sdf)
     b.record()
     torch.cuda.synchronize()
     plain_fb_ms = a.elapsed_time(b)
@@ -238,14 +287,14 @@ def fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, cfg, plain_cfg, cam,
     with torch.no_grad():
         gt = render(sdf_fn, lats[0], cam, cfg, factory)
 
-    def pose_grad(c, fac):
+    def pose_grad(fac, sdf):
         p = pose0.clone().requires_grad_(True)
-        out = render(sdf_fn, lats[0], camera_from_pose(p, cam.K), c, fac)
+        out = render(sdf, lats[0], camera_from_pose(p, cam.K), cfg, fac)
         loss = (10.0 * L.depth_loss(out.depth, gt.depth, gt.mask, out.mask)
                 + L.silhouette_loss(out.min_sdf, gt.mask))
         return torch.autograd.grad(loss, p)[0]
 
-    gp_k, gp_p = pose_grad(cfg, factory), pose_grad(plain_cfg, plain_fac)
+    gp_k, gp_p = pose_grad(factory, sdf_fn), pose_grad(plain_fac, plain_sdf)
     d_pose = grad_diff(gp_k, gp_p)
     print(f"(iii) so3 pose gradient {[round(x, 6) for x in gp_k.tolist()]}; "
           f"kernels vs plain: cos {d_pose['cos']:.7f}, relative L2 {d_pose['rel']:.3e}")
@@ -257,6 +306,323 @@ def fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, cfg, plain_cfg, cam,
 
     return dict(fwdbwd_ms=fb_ms, plain_fwdbwd_ms=plain_fb_ms, fit_ms=fit_ms,
                 launches=launches)
+
+
+TRACE_FIELDS = ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf",
+                "unresolved", "steps_per_ray", "bracketed")
+
+
+def k1_grid_phase(torch, dev, params, dcfg, latent, cfg, origins, dirs):
+    """Phase 3, K1-grid on the bench decoder folded at the bench latent,
+    every ray of the 512^2 bench camera: (a) one full-budget march from
+    the sphere entry, salvage on; (b) the rounds driver; (c) one march
+    seeded and masked by c2f_plan's classification of the same frame (its
+    levels also on K1-grid). Each against its plain version with K1's
+    bars; (a) also against K1 at F=1, bit for bit."""
+    from dist_renderer_tpu_torch.models.folded import fold_latent
+    from dist_renderer_tpu_torch.ops.kernels.batched_march import (
+        fold_bias_bank, pack_shared, sphere_trace_persistent,
+    )
+    from dist_renderer_tpu_torch.ops.kernels.fused_march import (
+        pack_folded, sphere_trace_grid, sphere_trace_rounds,
+    )
+    from dist_renderer_tpu_torch.ops.renderer import c2f_plan, make_march_factory
+
+    march = cfg.march
+    shared = pack_shared(params, dcfg)
+    packed = pack_folded(fold_latent(params, latent, dcfg), dcfg, shared)
+    bank = fold_bias_bank(params, latent[None], dcfg, shared)
+    cfg_c = dataclasses.replace(cfg, march=dataclasses.replace(
+        march, coarse_to_fine=True, c2f_classify=True))
+    plan = c2f_plan(make_march_factory(params, dcfg, cfg_c)(latent), origins,
+                    dirs, cfg_c)
+    perm = plan.order
+    o_c, v_c = origins[perm], dirs[perm]
+    seed_c, act_c = plan.init_depth[perm], plan.init_active[perm]
+    cases = {
+        "a": lambda k: sphere_trace_grid(packed, origins, dirs, march,
+                                         use_kernel=k),
+        "b": lambda k: sphere_trace_rounds(packed, origins, dirs, march,
+                                           use_kernel=k),
+        "c": lambda k: sphere_trace_grid(packed, o_c, v_c, march, seed_c,
+                                         init_active=act_c, use_kernel=k),
+    }
+    n = origins.shape[0]
+    rows = []
+    macs = macs_per_eval(shared)
+    for name, run in cases.items():
+        rk, rp = run(True), run(False)
+        torch.cuda.synchronize()
+        d = march_diff(rk, rp)
+        steps = int(rk.steps_per_ray.sum())
+        r = dict(case=name, d=d, steps=steps, ms=cuda_ms(lambda: run(True)),
+                 plain_ms=cuda_ms(lambda: run(False), 1))
+        r["bound_ms"], r["bound_by"] = bound(steps * macs,
+                                             march_bytes(n, shared, packed.bias))
+        if name == "a":
+            # the same tile march on K1's persistent grid: bits, and the
+            # time the one-block-per-tile grid is kept for
+            frame0 = torch.zeros(n, dtype=torch.int64, device=dev)
+            k1_run = lambda: sphere_trace_persistent(shared, bank, frame0,
+                                                     origins, dirs, march)
+            k1 = k1_run()
+            torch.cuda.synchronize()
+            r["k1_exact"] = all(torch.equal(getattr(rk, f), getattr(k1, f))
+                                for f in TRACE_FIELDS)
+            r["k1_ms"] = cuda_ms(k1_run)
+        rows.append(r)
+        print(f"K1-grid ({name}) {int((rk.steps_per_ray > 0).sum())} marched rays, "
+              f"{steps} active ray-steps: {march_line(d)}; {r['ms']:.3f} ms vs "
+              f"plain {r['plain_ms']:.3f} ms (bound {r['bound_ms']:.3f} ms, "
+              f"{r['bound_by']})" + (f"; == K1 at F=1 bit for bit: {r['k1_exact']}, "
+                                     f"K1 at F=1 {r['k1_ms']:.3f} ms"
+                                     if name == "a" else ""), flush=True)
+    for r in rows:
+        check(march_ok(r["d"]), f"K1-grid ({r['case']}) disagrees with its plain "
+              f"version: {march_line(r['d'])} (bars: agreement >= {MARCH_AGREE}, "
+              f"|diff| <= {MARCH_TOL})")
+    check(rows[0]["k1_exact"], "K1-grid differs from K1 at F=1 on the same rays")
+    return rows
+
+
+# The K1-grid path against its plain versions, whole renders (phase 6).
+# Gradient bars: phase 5's, set after the first reading on an H100 (see
+# PERF.md); no looser than cos >= 0.999, relative L2 <= 1e-2.
+GRID_GRAD_COS, GRID_GRAD_REL = GRAD_COS, GRAD_REL
+
+
+def grid_path_phase(torch, dev, params, dcfg, lats, cam, smi, tf_out):
+    """Phase 6: SDFRenderer on the bench decoder at 512^2 with use_pallas
+    and no coarse-to-fine pipeline: the trace runs the rounds driver on
+    K1-grid, the composition K3, the backward K4."""
+    from dist_renderer_tpu_torch.config import GradConfig, MarchConfig, RenderConfig
+    from dist_renderer_tpu_torch.ops.kernels.fused_march import sphere_trace_grid
+    from dist_renderer_tpu_torch.ops.kernels.recompute import (
+        precise_bias_grads_call, precise_sdg_call,
+    )
+    from dist_renderer_tpu_torch.ops.renderer import SDFRenderer
+    from dist_renderer_tpu_torch.utils import losses as L
+
+    print(f"\n== the K1-grid path: SDFRenderer, {IMG}x{IMG}, no coarse-to-fine ==")
+    cfg = RenderConfig(
+        march=MarchConfig(max_steps=50, convergence_eps=2e-3, depth_eps=5e-4),
+        grad=GradConfig(mode="ift", compact_frac=4, recompute="pallas"),
+        compute_dtype="bfloat16", use_pallas=True)
+    rk = SDFRenderer(params, cam.K, (IMG, IMG), decoder_cfg=dcfg, cfg=cfg)
+    rp = SDFRenderer(params, cam.K, (IMG, IMG), decoder_cfg=dcfg, cfg=cfg,
+                     use_kernel=False)
+    counters = (sphere_trace_grid, precise_sdg_call, precise_bias_grads_call)
+    target = torch.full((IMG, IMG), 1.5, device=dev)
+    everywhere = torch.ones((IMG, IMG), dtype=torch.bool, device=dev)
+    lat3 = lats[:3]
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def grads(r, z):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (z, cam.R, cam.T)]
+        out = r.render(*leaves)
+        return torch.autograd.grad(L.masked_l1(out.depth, target, everywhere), leaves)
+
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    with torch.no_grad():
+        rk.render(lat3[0], cam.R, cam.T)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    outs, ms = [], []
+    with torch.no_grad():
+        for z in lat3:
+            out, t = timed(lambda: rk.render(z, cam.R, cam.T))
+            outs.append(out)
+            ms.append(t)
+    fwd_launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"launches in the {len(lat3)} forward requests: {fwd_launches}")
+    for name in ("sphere_trace_grid", "precise_sdg_call"):
+        check(fwd_launches[name] > 0, f"the K1-grid path never launched {name}")
+    for out in outs:
+        check(all(torch.isfinite(getattr(out, k)).all().item()
+                  for k in ("depth", "normal", "min_sdf")), "non-finite render")
+        check(out.depth.shape == (IMG, IMG), "wrong output shape")
+    hit_frac = outs[0].mask.float().mean().item()
+    fwd_ms = sorted(ms)[len(ms) // 2]
+    steps = int(outs[0].trace.steps_per_ray.sum())
+    print(f"hit_frac {hit_frac:.4f}; active ray-steps (request 0) {steps}")
+    print(f"fwd ms/frame (median of {len(lat3)}, CUDA events): {fwd_ms:.3f}  "
+          f"all: {[round(m, 3) for m in ms]}  [{smi}]")
+    check(hit_frac > 0.05, "the render shows almost nothing of the shape")
+
+    reset()
+    gks, ms = [], []
+    for z in lat3:
+        g, t = timed(lambda: grads(rk, z))
+        gks.append(g)
+        ms.append(t)
+    bwd_launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"launches in the {len(lat3)} fwd+bwd requests: {bwd_launches}")
+    check(bwd_launches["precise_bias_grads_call"] > 0,
+          "the K1-grid path's backward never launched precise_bias_grads_call")
+    check(all(torch.isfinite(x).all().item() for g in gks for x in g),
+          "a gradient is not finite")
+    fb_ms = sorted(ms)[len(ms) // 2]
+    print(f"fwd+bwd ms/frame (median of {len(lat3)}, CUDA events): {fb_ms:.3f}  "
+          f"all: {[round(m, 3) for m in ms]}  [{smi}]")
+
+    # the same request on the plain versions, same card
+    with torch.no_grad():
+        ref, plain_ms = timed(lambda: rp.render(lat3[0], cam.R, cam.T))
+    agree = (ref.mask == outs[0].mask).float().mean().item()
+    both = ref.mask & outs[0].mask
+    derr = (ref.depth - outs[0].depth).abs()[both]
+    within = (derr <= 1e-3).float().mean().item()
+    print(f"vs plain render ({plain_ms:.1f} ms): hit agreement {agree:.5f}; depth on "
+          f"{int(both.sum())} common hits: median {derr.median().item():.3e}, "
+          f"max {derr.max().item():.3e}, within 1e-3: {within:.5f}")
+    gps, plain_fb_ms = timed(lambda: grads(rp, lat3[0]))
+    diffs = {name: grad_diff(a, b) for name, a, b in zip(("latent", "R", "T"),
+                                                          gks[0], gps)}
+    print("gradients, kernels vs plain ({:.1f} ms): ".format(plain_fb_ms) + "; ".join(
+        f"{k} cos {d['cos']:.7f} relative L2 {d['rel']:.3e}" for k, d in diffs.items()))
+    check(agree >= 0.99, f"hit agreement with the plain render {agree:.4f} < 0.99")
+    check(within >= 0.999, "depth differs from the plain render by > 1e-3 on "
+          f"{1 - within:.4%} of common hits (bar: 0.1%)")
+    for k, d in diffs.items():
+        check(d["cos"] >= GRID_GRAD_COS and d["rel"] <= GRID_GRAD_REL,
+              f"the {k} gradient on the kernels differs from the plain versions' "
+              f"(bars: cos >= {GRID_GRAD_COS}, relative L2 <= {GRID_GRAD_REL})")
+
+    # one request through c2f_plan's levels (K1-grid), no classification
+    cfg_c = dataclasses.replace(cfg, march=dataclasses.replace(
+        cfg.march, coarse_to_fine=True, c2f_classify=False, c2f_strides=(16, 4),
+        c2f_coarse_steps=16))
+    rc = SDFRenderer(params, cam.K, (IMG, IMG), decoder_cfg=dcfg, cfg=cfg_c)
+    with torch.no_grad():
+        rc.render(lat3[0], cam.R, cam.T)  # warm-up
+        reset()
+        out_c, c2f_ms = timed(lambda: rc.render(lat3[0], cam.R, cam.T))
+    check(sphere_trace_grid.launches > 0, "c2f_plan's levels never launched K1-grid")
+    same = (out_c.mask == outs[0].mask).float().mean().item()
+    print(f"c2f_plan request (strides (16, 4), unclassified): {c2f_ms:.3f} ms, "
+          f"{sphere_trace_grid.launches} K1-grid launches; hit agreement with the "
+          f"no-c2f render {same:.5f}")
+    check(torch.isfinite(out_c.depth).all().item(), "non-finite c2f render")
+    # for information: against phase 4's trace_frame render of the same latent
+    both = tf_out.mask & outs[0].mask
+    derr = (tf_out.depth - outs[0].depth).abs()[both]
+    print(f"vs the trace_frame render (proxy + verify): hit agreement "
+          f"{(tf_out.mask == outs[0].mask).float().mean().item():.5f}; depth on "
+          f"{int(both.sum())} common hits: median {derr.median().item():.3e}, "
+          f"p99 {derr.quantile(0.99).item():.3e}", flush=True)
+    return dict(fwd_ms=fwd_ms, fwdbwd_ms=fb_ms, plain_ms=plain_ms,
+                plain_fwdbwd_ms=plain_fb_ms, c2f_ms=c2f_ms, hit_frac=hit_frac,
+                launches=fwd_launches["sphere_trace_grid"])
+
+
+def cli_phase(torch, smi):
+    """Phase 7: the command-line tasks and the server, in process, on the
+    committed torus 8x512 decoder, each into a temporary --out."""
+    import argparse
+    import math
+    import tempfile
+
+    from dist_renderer_tpu_torch.ops.kernels.batched_march import sphere_trace_persistent
+    from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
+    from dist_renderer_tpu_torch.ops.kernels.recompute import (
+        precise_bias_grads_call, precise_sdg_call,
+    )
+    from dist_renderer_tpu_torch.tasks import (
+        depth_completion, multiview, pose_refine, render_demo, serve,
+    )
+    from dist_renderer_tpu_torch.tasks.common import add_common_args
+
+    print("\n== the tasks on the card ==")
+    counters = (sphere_trace_persistent, queue_march, precise_sdg_call,
+                precise_bias_grads_call)
+    times = {}
+
+    def run(name, fn, argv, need=()):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = fn(argv)
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in counters}
+        print(f"{name}: {time.perf_counter() - t0:.1f} s in all; launches {got}",
+              flush=True)
+        for k in need:
+            check(got[k] > 0, f"{name} never launched {k}")
+        return res
+
+    def fit_ok(name, res, out):
+        hist = res.loss_history.tolist()
+        check(len(hist) > 0 and all(math.isfinite(x) for x in hist),
+              f"{name}: a loss is not finite: {hist}")
+        check(os.path.exists(os.path.join(out, "final.png"))
+              or os.path.exists(os.path.join(out, "final_views.png")),
+              f"{name} wrote no final image")
+        times[name] = res.metrics["ms_per_step"]
+        print(f"{name}: losses {[round(x, 6) for x in hist]}; ms/step median "
+              f"{times[name]:.1f}  [{smi}]")
+
+    fits = ("precise_sdg_call", "precise_bias_grads_call")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "demo")
+        ms = run("render_demo", render_demo.main,
+                 ["--fast", "--img", "256", "--views", "2", "--out", out])
+        check(all(os.path.exists(os.path.join(out, f"view{i:02d}.png"))
+                  for i in range(2)), "render_demo wrote no views")
+        times["render_demo"] = ms[-1]
+        print(f"render_demo: ms per view {[round(m, 1) for m in ms]}  [{smi}]")
+
+        out = os.path.join(tmp, "depth")
+        res = run("depth_completion", depth_completion.main,
+                  ["--fast", "--img", "256", "--steps", "5", "--out", out], fits)
+        fit_ok("depth_completion", res, out)
+
+        out = os.path.join(tmp, "pose")
+        # the pose gradient reaches the points through K3's spatial
+        # gradient; with the latent frozen no K4 sum is needed
+        res, rot, t_err = run("pose_refine", pose_refine.main,
+                              ["--fast", "--img", "256", "--steps", "5", "--warm",
+                               "4", "--out", out],
+                              ("queue_march", "precise_sdg_call"))
+        fit_ok("pose_refine", res, out)
+        check(math.isfinite(rot) and math.isfinite(t_err), "pose errors not finite")
+
+        out = os.path.join(tmp, "mv")
+        res = run("multiview", multiview.main,
+                  ["--fast", "--img", "128", "--views", "3", "--steps", "3",
+                   "--out", out], fits)
+        fit_ok("multiview", res, out)
+
+        ap = argparse.ArgumentParser()
+        add_common_args(ap)
+        args = ap.parse_args(["--fast", "--img", "256"])
+        do_render, latent0, _ = run("serve.build_engine", serve.build_engine, args)
+        for c in counters:
+            c.launches = 0
+        req_ms = []
+        for az in (30.0, 75.0, 120.0):
+            t0 = time.perf_counter()
+            out = do_render(latent0, az, 20.0, 2.2)  # synchronizes
+            req_ms.append(1e3 * (time.perf_counter() - t0))
+            check(torch.isfinite(out.depth).all().item() and out.mask.any().item(),
+                  "a served render is empty or not finite")
+        got = {c.__name__: c.launches for c in counters}
+        for k in ("sphere_trace_persistent", "queue_march", "precise_sdg_call"):
+            check(got[k] > 0, f"the server never launched {k}")
+        times["serve"] = sorted(req_ms)[1]
+        print(f"serve: 3 requests, ms {[round(m, 1) for m in req_ms]}; launches "
+              f"{got}  [{smi}]", flush=True)
+    return times
 
 
 def main():
@@ -342,7 +708,8 @@ def main():
         torch.cuda.synchronize()
         d = march_diff(rk, rp)
         print(f"K1 coarse stride {stride}: {o_l.shape[1]} rays, {march_line(d)}")
-        k1_levels.append((d, lambda: run(True), lambda: run(False)))
+        k1_levels.append((d, lambda: run(True), lambda: run(False),
+                          int(rk.steps_per_ray.sum()), o_l.shape[1]))
         return rp
 
     with torch.no_grad():
@@ -368,7 +735,10 @@ def main():
             print(f"K2 {stage}: {int((key_ != 2).sum())} active rays, K2 == K1 "
                   f"bit for bit: {exact}; vs plain: {march_line(d)}")
             check(exact, f"K2 ({stage}) differs from K1 on the same inputs")
+            k2_steps.append((int(qk.steps.sum()), macs_per_eval(sh), march_bytes(n, sh, bk)))
             return qp, d
+
+        k2_steps = []
 
         fine_p, d_fine = queue_pair(shared_p, bank_p, key, init_depth, "proxy fine")
         fine = merge_skip(fine_p, skip, maps.anchor.reshape(1, n),
@@ -474,6 +844,17 @@ def main():
     print(f"times (ms, median of 3 after warm-up; plain K2 one run): "
           f"K1 {t_k1:.3f} vs plain {t_k1p:.3f}; K2 {t_k2:.3f} vs plain {t_k2p:.3f}; "
           f"K3 {t_k3:.3f} vs plain {t_k3p:.3f}", flush=True)
+    with torch.no_grad():
+        kg = k1_grid_phase(torch, dev, params, dcfg, latent, cfg, origins, dirs)
+    # bounds at these shapes and this run's active ray-steps
+    b_k1 = bound(sum(lv[3] for lv in k1_levels) * macs_per_eval(shared_p),
+                 sum(march_bytes(lv[4], shared_p, bank_p) for lv in k1_levels))
+    b_k2 = bound(sum(st * mc for st, mc, _ in k2_steps),
+                 sum(by for _, _, by in k2_steps))
+    b_k3 = bound(pts.shape[0] * precise_macs(packed),
+                 precise_bytes(pts.shape[0], packed, 6, 5))
+    b_k4 = bound(pts.shape[0] * precise_macs(packed),
+                 precise_bytes(pts.shape[0], packed, 4, 0))
 
     # ---- phase 4: the slice: render() serving 5 requests ----
     print(f"\n== render(): {REQUESTS} requests at {IMG}x{IMG}, 50 steps ==")
@@ -514,14 +895,14 @@ def main():
     print(f"fwd ms/frame (median of {REQUESTS}, CUDA events): {fwd_ms:.3f}  "
           f"all: {[round(m, 3) for m in ms]}  [{smi}]")
 
-    # the same request on the plain versions, same card
-    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
-    plain_fac = make_march_factory(params, dcfg, plain_cfg, march_params=pparams,
-                                   march_dcfg=pcfg)
+    # the same request on the plain versions (use_kernel=False), same card
+    plain_sdf = make_precise_sdf(params, dcfg, use_kernel=False)
+    plain_fac = make_march_factory(params, dcfg, cfg, march_params=pparams,
+                                   march_dcfg=pcfg, use_kernel=False)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    ref = render(sdf_fn, lats[0], cam, plain_cfg, plain_fac)
+    ref = render(plain_sdf, lats[0], cam, cfg, plain_fac)
     b.record()
     torch.cuda.synchronize()
     plain_ms = a.elapsed_time(b)
@@ -543,8 +924,10 @@ def main():
     check(within >= 0.999, "depth differs from the plain render by > 1e-3 on "
           f"{1 - within:.4%} of common hits (bar: 0.1%)")
 
-    fb = fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, cfg, plain_cfg, cam,
+    fb = fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, plain_sdf, cfg, cam,
                        lats, latent, counters + (precise_bias_grads_call,), smi)
+    g6 = grid_path_phase(torch, dev, params, dcfg, lats, cam, smi, outs[0])
+    tasks = cli_phase(torch, smi)
 
     src = "dist_renderer_tpu_torch/csrc/"
     kernels = [
@@ -553,29 +936,52 @@ def main():
              replaces="dist_renderer_tpu/ops/pallas/batched_march.py:254",
              launches=launches["sphere_trace_persistent"],
              max_abs_err=max(max_err(lv[0]) for lv in k1_levels), ms=t_k1,
-             plain_ms=t_k1p),
+             plain_ms=t_k1p, bound_ms=b_k1[0], bound_by=b_k1[1], library_ms=None),
         dict(name="queue_march (K2)", route="cuda", source=src + "queue_march.cu",
              replaces="dist_renderer_tpu/ops/pallas/queue_march.py:463",
              launches=launches["queue_march"],
              max_abs_err=max(max_err(d_fine), max_err(d_ver)),
-             ms=t_k2, plain_ms=t_k2p),
+             ms=t_k2, plain_ms=t_k2p, bound_ms=b_k2[0], bound_by=b_k2[1],
+             library_ms=None),
         dict(name="precise_sdg_call (K3)", route="cuda", source=src + "recompute.cu",
              replaces="dist_renderer_tpu/ops/pallas/recompute.py:386",
              launches=launches["precise_sdg_call"],
              max_abs_err=max(e_s[2], e_dd[2], e_g[2]),
-             ms=t_k3, plain_ms=t_k3p),
+             ms=t_k3, plain_ms=t_k3p, bound_ms=b_k3[0], bound_by=b_k3[1],
+             library_ms=None),
         dict(name="precise_bias_grads_call (K4)", route="cuda",
              source=src + "recompute.cu",
              replaces="dist_renderer_tpu/ops/pallas/recompute.py:421",
              launches=fb["launches"]["precise_bias_grads_call"],
              max_abs_err=max(max(r["u_abs"], r["gx"]) for r in k4),
-             ms=k4[0]["ms"], plain_ms=k4[0]["plain_ms"]),
+             ms=k4[0]["ms"], plain_ms=k4[0]["plain_ms"], bound_ms=b_k4[0],
+             bound_by=b_k4[1], library_ms=None),
+        dict(name="sphere_trace_grid (K1-grid)", route="cuda",
+             source=src + "fused_march.cu",
+             replaces="dist_renderer_tpu/ops/pallas/fused_march.py:148",
+             launches=g6["launches"],
+             max_abs_err=max(max_err(r["d"]) for r in kg),
+             ms=kg[0]["ms"], plain_ms=kg[0]["plain_ms"],
+             bound_ms=kg[0]["bound_ms"], bound_by=kg[0]["bound_by"],
+             library_ms=None),
     ]
     print(json.dumps({"fwd_ms_per_frame": fwd_ms, "plain_fwd_ms": plain_ms,
                       "fwdbwd_ms_per_frame": fb["fwdbwd_ms"],
                       "plain_fwdbwd_ms": fb["plain_fwdbwd_ms"],
                       "fit_ms_per_step": fb["fit_ms"],
-                      "hit_frac": hit_frac, "card": smi}))
+                      "hit_frac": hit_frac,
+                      "grid_fwd_ms_per_frame": g6["fwd_ms"],
+                      "grid_fwdbwd_ms_per_frame": g6["fwdbwd_ms"],
+                      "grid_plain_fwd_ms": g6["plain_ms"],
+                      "grid_plain_fwdbwd_ms": g6["plain_fwdbwd_ms"],
+                      "grid_c2f_fwd_ms": g6["c2f_ms"],
+                      "grid_hit_frac": g6["hit_frac"],
+                      "k1_f1_ms": kg[0]["k1_ms"],
+                      "k1_grid_cases": [dict(case=r["case"], ms=r["ms"],
+                                             plain_ms=r["plain_ms"],
+                                             ray_steps=r["steps"],
+                                             bound_ms=r["bound_ms"]) for r in kg],
+                      "task_ms": tasks, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

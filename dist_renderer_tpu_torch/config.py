@@ -5,9 +5,11 @@ The same frozen dataclasses, field names and defaults as
 the same in the other. Differences:
 
   - ``RenderConfig.dtype`` returns a torch dtype;
-  - ``RenderConfig.use_pallas`` keeps its name and means "run the
-    hand-written CUDA kernels" (on a CPU tensor every kernel wrapper runs
-    its plain PyTorch version regardless);
+  - ``RenderConfig.use_pallas`` keeps its name and its meaning: route the
+    march through the fused kernels (K1-grid, the trace_frame pipeline).
+    Whether a kernel or its plain PyTorch version runs is the separate
+    ``use_kernel`` argument of the march factory and the precise SDF; on
+    a CPU tensor every wrapper runs its plain version regardless;
   - options that only steer the TPU's scheduling (block widths, queue
     capacities, dense fractions) are accepted and documented as inert
     where the port reads them.
@@ -119,7 +121,7 @@ class RenderConfig:
     normal_eps: float = 0.0
     background_depth: float = 0.0
     compute_dtype: str = "float32"
-    use_pallas: bool = False         # the hand-written CUDA kernel path
+    use_pallas: bool = False         # route the march through the fused kernels
 
     @property
     def dtype(self) -> torch.dtype:

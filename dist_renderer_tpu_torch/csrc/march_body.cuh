@@ -1,6 +1,6 @@
-// The march step and the latent-folded MLP shared by the two march
-// kernels: batched_march.cu (K1, the persistent march) and
-// queue_march.cu (K2, the work-queue generations).
+// The march step and the latent-folded MLP shared by the march kernels:
+// sphere_trace.cuh (K1, the persistent march, and K1-grid, the grid
+// march) and queue_march.cu (K2, the work-queue generations).
 //
 // Counterpart of the JAX package's ops/pallas/march_body.py (mlp_apply,
 // march_loop). Both kernels march TILE rays per thread block; the block

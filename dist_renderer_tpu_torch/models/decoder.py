@@ -60,9 +60,13 @@ def decoder_apply(
     latent: torch.Tensor,
     points: torch.Tensor,
     cfg: DecoderConfig = DecoderConfig(),
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Evaluate f_theta(z, x) -> sdf in fp32 for latent [L] or [N, L] and
-    points [..., 3]; returns [...]."""
+    """Evaluate f_theta(z, x) -> sdf for latent [L] or [N, L] and points
+    [..., 3]; returns [...] fp32. With bf16 compute every product takes
+    bf16-rounded operands and accumulates in fp32 (the JAX package's
+    bf16 dots with fp32 accumulation); the bias add stays fp32."""
+    cast = round_bf16 if compute_dtype == torch.bfloat16 else (lambda a: a)
     pts_shape = points.shape[:-1]
     x = points.reshape(-1, 3).to(torch.float32)
     n = x.shape[0]
@@ -75,7 +79,7 @@ def decoder_apply(
             h = torch.cat([h, inp], dim=-1)
         elif cfg.xyz_in_all and 0 < i < n_layers - 1:
             h = torch.cat([h, x], dim=-1)
-        h = h @ layer["w"] + layer["b"]
+        h = cast(h) @ cast(layer["w"]) + layer["b"]
         if i == n_layers - 1:
             if cfg.use_tanh:
                 h = torch.tanh(h)
@@ -88,34 +92,48 @@ def decoder_apply(
 
 
 class PreciseSDF:
-    """(latent, points) -> sdf with the fp32 value, plus the sibling the
-    renderer reads: ``sdg_builder`` (the fused value + spatial-gradient
-    kernel K3 with its backward K4, ops/kernels/recompute.py)."""
+    """(latent, points) -> sdf with the fp32 value and its fp32 autograd
+    backward, plus the siblings the renderer reads:
 
-    def __init__(self, params: Params, cfg: DecoderConfig):
+      - ``cheap``: the same decoder with bf16 products (fp32
+        accumulation), for values that tolerate ~1e-3 relative error
+        (miss-ray margins, spatial gradients that are normalized);
+      - ``sdg_builder``: the fused value + spatial-gradient kernel K3 with
+        its backward K4 (ops/kernels/recompute.py).
+
+    ``use_kernel=False`` makes ``sdg_builder`` run K3/K4's plain versions
+    on any device (on a CPU tensor they run regardless)."""
+
+    def __init__(self, params: Params, cfg: DecoderConfig,
+                 use_kernel: bool = True):
         self.params = params
         self.cfg = cfg
+        self.use_kernel = use_kernel
         self._packed = None  # kernel weight layout, packed at first use
 
     def __call__(self, latent, points):
         return decoder_apply(self.params, latent, points, self.cfg)
 
-    def sdg_builder(self, block: int = 512, use_kernel: bool = True):
+    def cheap(self, latent, points):
+        return decoder_apply(self.params, latent, points, self.cfg,
+                             torch.bfloat16)
+
+    def sdg_builder(self, block: int = 512):
         """(latent, points, dirs) -> (s, dd, g): precise value, directional
         derivative <g, dirs> and spatial gradient, one fused evaluation; s
         is differentiable to the latent and the points (dd and g are
-        constants). use_kernel=False runs the plain PyTorch versions on
-        any device."""
+        constants). This function's use_kernel=False runs the plain
+        PyTorch versions on any device."""
         from dist_renderer_tpu_torch.ops.kernels.recompute import (
             make_precise_sdg, pack_precise,
         )
 
         if self._packed is None:
             self._packed = pack_precise(self.params, self.cfg)
-        return make_precise_sdg(self.params, self.cfg, block, use_kernel,
+        return make_precise_sdg(self.params, self.cfg, block, self.use_kernel,
                                 packed=self._packed)
 
 
-def make_precise_sdf(params: Params,
-                     cfg: DecoderConfig = DecoderConfig()) -> PreciseSDF:
-    return PreciseSDF(params, cfg)
+def make_precise_sdf(params: Params, cfg: DecoderConfig = DecoderConfig(),
+                     use_kernel: bool = True) -> PreciseSDF:
+    return PreciseSDF(params, cfg, use_kernel)

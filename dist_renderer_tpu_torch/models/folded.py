@@ -80,9 +80,26 @@ def folded_apply(folded: List[FoldedLayer], points: torch.Tensor,
     return sdf.reshape(shape)
 
 
+class PointFn:
+    """The tracers' point function for one latent: points [..., 3] ->
+    sdf [...] through the folded decoder. ``proxy_march`` (set by the
+    march factory) tells the renderer that this function is a distilled
+    proxy, which must not supply the IFT denominator or the normals."""
+
+    proxy_march = False
+
+    def __init__(self, folded: List[FoldedLayer], cfg: DecoderConfig,
+                 compute_dtype: torch.dtype):
+        self.folded = folded
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+
+    def __call__(self, points: torch.Tensor) -> torch.Tensor:
+        return folded_apply(self.folded, points, self.cfg, self.compute_dtype)
+
+
 def make_point_fn(params: Params, latent: torch.Tensor,
                   cfg: DecoderConfig = DecoderConfig(),
-                  compute_dtype: torch.dtype = torch.float32):
+                  compute_dtype: torch.dtype = torch.float32) -> PointFn:
     """Bind (params, latent) -> point function for the tracer hot loop."""
-    folded = fold_latent(params, latent, cfg)
-    return lambda p: folded_apply(folded, p, cfg, compute_dtype)
+    return PointFn(fold_latent(params, latent, cfg), cfg, compute_dtype)

@@ -136,6 +136,43 @@ def classify_pyramid(
     return C2FMaps(*(up(g) for g in maps))
 
 
+def warm_maps(depth: torch.Tensor, hitish: torch.Tensor,
+              anchor: torch.Tensor, margin: torch.Tensor,
+              img_hw: Tuple[int, int], backoff: float, dilate: int = 4,
+              windows: Callable = default_windows) -> C2FMaps:
+    """Classification maps from the previous optimizer iteration's trace
+    instead of a coarse pyramid (inputs [F, H*W]: depth, hit-or-unresolved,
+    min-SDF depth and value). The same contract as classify_pyramid's
+    output, from stride-1 windows: interior = 3x3 all-hit (seeded at the
+    window minimum - backoff), skip = nothing hit within a
+    (2*dilate+1)^2 window; the dilation is the safety margin for the
+    silhouette's motion between iterations. Unresolved rays count as hits,
+    so none is wrongly skipped."""
+    f = depth.shape[0]
+    h, w = img_hw
+    inf = torch.full_like(depth, float("inf"))
+    dg = torch.where(hitish, depth, inf).reshape(f, h, w)
+    hg = hitish.reshape(f, h, w)
+    dmin = windows(dg, "min")
+    dmax = windows(torch.where(torch.isfinite(dg), dg,
+                               torch.full_like(dg, -float("inf"))), "max")
+    hit_all = windows(hg, "and")
+    hit_any = hg
+    for _ in range(max(dilate, 1)):  # iterated 3x3 OR = (2k+1)^2 dilation
+        hit_any = windows(hit_any, "or")
+    rng = dmax - dmin
+    bo = torch.where(rng < backoff, torch.full_like(rng, 0.2 * backoff),
+                     torch.full_like(rng, backoff))
+    nan = torch.full_like(dmin, float("nan"))
+    return C2FMaps(
+        seed=torch.where(torch.isfinite(dmin), dmin - bo, nan),
+        hit_any=hit_any, hit_all=hit_all,
+        anchor=anchor.reshape(f, h, w), margin=margin.reshape(f, h, w),
+        width=torch.where(torch.isfinite(rng), rng,
+                          torch.full_like(rng, float("inf"))),
+    )
+
+
 def plan_from_maps(maps: C2FMaps) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flatten maps into the per-ray plan (key, init_depth, skip), each
     [F, H*W]. key: 0 = rim, 1 = interior, 2 = skip."""

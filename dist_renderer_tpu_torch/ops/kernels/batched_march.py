@@ -63,14 +63,19 @@ class SharedDecoder(NamedTuple):
 def pack_shared(params: Params, cfg: DecoderConfig) -> SharedDecoder:
     """Pack the z-independent parts (weights) + bias layout."""
     dev = params["layers"][0]["w"].device
-    folded = fold_latent(
-        params, torch.zeros(cfg.latent_size, device=dev), cfg)
+    return pack_layers(fold_latent(
+        params, torch.zeros(cfg.latent_size, device=dev), cfg), cfg.final_tanh)
+
+
+def pack_layers(folded, final_tanh: bool) -> SharedDecoder:
+    """Pack folded layers' weights (their biases are not read)."""
     whT, wxT, offsets, flat, table = [], [], [], [], []
     off = 0
     flat_len = 0
     prev_out_p = None
     bf16 = torch.bfloat16
     for l in folded:
+        dev = l.b.device
         out_dim = l.b.shape[0]
         out_p = _round_up(out_dim, 8)
         wh_off = wx_off = -1
@@ -101,7 +106,7 @@ def pack_shared(params: Params, cfg: DecoderConfig) -> SharedDecoder:
         prev_out_p = out_p
     return SharedDecoder(
         whT=tuple(whT), wxT=tuple(wxT), offsets=tuple(offsets),
-        total=_round_up(off, 8), final_tanh=cfg.final_tanh,
+        total=_round_up(off, 8), final_tanh=final_tanh,
         flat=torch.cat(flat).contiguous(), table=tuple(table),
     )
 
@@ -267,6 +272,13 @@ def sphere_trace_persistent(
     else:
         out = march_rows_plain(shared, bias_bank, frame_of_ray, origins, dirs,
                                rs, march, salvage, rpf >= origins.shape[0])
+    return trace_from_rows(out, rs, origins, dirs, march)
+
+
+def trace_from_rows(out: torch.Tensor, rs: RaySetup, origins, dirs,
+                    march: MarchConfig) -> TraceResult:
+    """A march kernel's [8, N] output rows as a TraceResult; rays that
+    never sampled the SDF take the geometric sphere margin."""
     geo = geo_margin(origins, dirs, rs.t_closest, march)
     min_sdf = torch.where(rs.enters, out[2], geo)
     min_sdf = torch.where(min_sdf > POS_BIG / 2, geo, min_sdf)
@@ -398,10 +410,16 @@ def render_batched_c2f(
     packs once. block / proxy_block / queue_dense_frac only steered the
     TPU's scheduling and have no effect.
 
-    This slice ports the queue scheduler with verify_mode="march",
-    verify_band="march" and verify_hits="march"; the other modes, the
-    rounds scheduler and warm starts raise NotImplementedError."""
-    from dist_renderer_tpu_torch.ops.c2f import classify_pyramid, plan_from_maps
+    warm: optional (depth, hitish, anchor, margin), each [F, H*W], from
+    the previous optimizer iteration's trace: the classification comes
+    from them (ops/c2f.py::warm_maps) and the coarse pyramid is skipped.
+
+    The port runs the queue scheduler with verify_mode="march",
+    verify_band="march" and verify_hits="march"; the other modes and the
+    rounds scheduler raise NotImplementedError."""
+    from dist_renderer_tpu_torch.ops.c2f import (
+        classify_pyramid, plan_from_maps, warm_maps,
+    )
     from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
 
     if verify_mode != "march" or verify_band != "march":
@@ -409,9 +427,6 @@ def render_batched_c2f(
                     "A8 (ops/cert.py)")
     if verify_hits != "march":
         not_ported(f"verify_hits={verify_hits!r}", "A9")
-    if warm is not None:
-        not_ported("warm-started classification", "A10")
-
     f = origins.shape[0]
     h, w = img_hw
     n = h * w
@@ -439,9 +454,12 @@ def render_batched_c2f(
         return batched_trace_padded(shared_m, bank_m, o_l, v_l, coarse_march,
                                     seed, active, block, True, use_kernel)
 
-    maps = classify_pyramid(
-        trace_level, o_full.reshape(f, h, w, 3), dirs.reshape(f, h, w, 3),
-        tuple(s for s in strides if h % s == 0 and w % s == 0), backoff)
+    if warm is not None:
+        maps = warm_maps(*warm, img_hw, backoff)
+    else:
+        maps = classify_pyramid(
+            trace_level, o_full.reshape(f, h, w, 3), dirs.reshape(f, h, w, 3),
+            tuple(s for s in strides if h % s == 0 and w % s == 0), backoff)
 
     if maps is None:  # no valid strides: plain batched march
         res = batched_trace_padded(

@@ -10,7 +10,7 @@ build raises with nvcc's output.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false``: no automatic
 multiply-add contraction, so every product and sum in the march step
-rounds where the plain PyTorch version rounds, and the two march kernels
+rounds where the plain PyTorch version rounds, and the march kernels
 (which share the step code) stay bit-identical to each other. Products
 the kernels mean to fuse are written as ``fmaf``. No ``-use_fast_math``:
 the march relies on +-3e38 sentinels, IEEE division and an accurate tanh.
@@ -44,6 +44,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "drt_sphere_trace_persistent": [
         _P, _I, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
+    "drt_sphere_trace_grid": [
+        _P, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
     "drt_queue_seed": [_P, _I, _P, _P, _P, _P],
     "drt_queue_generation": [
         _P, _I, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I,

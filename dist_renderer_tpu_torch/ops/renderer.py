@@ -1,27 +1,45 @@
-"""Rendering: a no-grad coarse-to-fine march, then one differentiable
-precise recompute at the traced surface points.
+"""Rendering: a no-grad march, then one differentiable recompute at the
+traced surface points.
 
-The march (ops/kernels/batched_march.py::render_batched_c2f) gives each
-ray its surface distance d* (or, for a miss, the distance of its min-SDF
-sample); it runs outside the autograd graph. The composition re-expresses
-the depth with one implicit-function-theorem step on the precise decoder,
+The march gives each ray its surface distance d* (or, for a miss, the
+distance of its min-SDF sample); it runs outside the autograd graph. The
+composition re-expresses the depth from one differentiable decoder
+evaluation there, either as one unit marching step (``last_step``, DIST's
+default: depth = d* + f) or as one implicit-function-theorem step
+(``ift``):
 
     depth = d* - f(z, o + d* v) / <grad_x f, v>,
 
-from the fused recompute kernel (K3), which also gives the normals. The
-denominator and the normals are constants; the value f carries the
-gradient to the latent and, through o and v, to the camera pose (its
-backward is K4).
+where the denominator and the normals are constants and the value f
+carries the gradient to the latent and, through o and v, to the camera
+pose.
 
-Ported path: ``use_pallas`` + ``coarse_to_fine`` + ``c2f_classify`` with a
-march factory (the ``trace_frame`` path), composed with
-``GradConfig(mode="ift", recompute="pallas")``. Other configurations raise
-NotImplementedError naming the ROADMAP item that ports them.
+The march goes one of three ways (``render``), as in the JAX package's
+``ops/renderer.py``:
+
+  - ``use_pallas`` + ``coarse_to_fine`` + ``c2f_classify`` with a march
+    factory: the batched coarse-to-fine pipeline (``trace_frame``: K1, K2);
+  - ``coarse_to_fine`` otherwise: ``c2f_plan`` (strided coarse levels and
+    a 3x3 classification), then one seeded fine trace in class order;
+  - else one trace of every ray.
+
+Each trace goes through ``_trace``: a ``FusedMarchFn``'s K1-grid march
+under ``use_pallas``, else the compaction tracer or the masked tracer on
+the point function. The precise value comes from the fused recompute
+kernel (K3, backward K4) under ``GradConfig(mode="ift",
+recompute="pallas")``, else from ``sdf_fn`` by autograd.
+
+``use_pallas`` means what it means in the JAX package (route the march
+through the fused kernels). Whether a kernel runs or its plain PyTorch
+version is the separate ``use_kernel`` choice of the march factory and of
+``make_precise_sdf`` (the counterpart of the JAX package's ``interpret``);
+on a CPU tensor every wrapper runs its plain version.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -34,7 +52,101 @@ from dist_renderer_tpu_torch.ops.camera import (
 from dist_renderer_tpu_torch.ops.kernels.batched_march import (
     geo_margin, not_ported, pack_shared, render_batched_c2f,
 )
-from dist_renderer_tpu_torch.ops.tracer import TraceResult, live_counts_from_steps
+from dist_renderer_tpu_torch.ops.tracer import (
+    TraceResult, inverse_permutation, live_counts_from_steps, sphere_trace,
+    sphere_trace_compact,
+)
+
+
+def _trace(march_fn, origins, dirs, cfg: RenderConfig, init_depth=None,
+           init_active=None) -> TraceResult:
+    """Dispatch: fused kernel march > compaction > masked tracer."""
+    if cfg.use_pallas and hasattr(march_fn, "trace"):
+        return march_fn.trace(origins, dirs, cfg.march, init_depth, init_active)
+    if cfg.march.use_compaction:
+        return sphere_trace_compact(
+            march_fn, origins, dirs, cfg.march, init_depth,
+            bucket_frac=cfg.march.bucket_frac,
+            inner_steps=cfg.march.inner_steps, init_active=init_active)
+    return sphere_trace(march_fn, origins, dirs, cfg.march, init_depth,
+                        init_active)
+
+
+class C2FPlan(NamedTuple):
+    """Per-fine-ray plan from the coarse levels (all [N], constants)."""
+
+    init_depth: torch.Tensor   # seed distance (NaN = start at sphere entry)
+    init_active: torch.Tensor  # False = skip class (whole neighborhood missed)
+    order: torch.Tensor        # class-sorted ray order; identity when
+                               # classification is off
+
+
+def class_order(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, inv) of a stable sort of small-integer keys: x[order] is
+    sorted and sorted[inv] == x. A stable sort gives the permutation of
+    the JAX package's counting sort (ops/binning.py::counting_sort_perm)."""
+    order = torch.sort(key, stable=True).indices
+    return order, inverse_permutation(order)
+
+
+@torch.no_grad()
+def c2f_plan(march_fn, origins, dirs, cfg: RenderConfig) -> C2FPlan:
+    """Coarse-to-fine planning: march strided sub-grids of the pixel
+    lattice (ops/c2f.py::classify_pyramid), then classify every fine ray
+    from its 3x3 coarse neighborhood: all hit -> interior (seeded just in
+    front of the nearest coarse depth), none hit -> skip (never marched;
+    its margin anchors at the coarse min-SDF depth), mixed -> rim (full
+    march). With ``c2f_classify`` the rays come back ordered rim ->
+    interior -> skip and each level marches in that order too; without
+    it only the seeds are used."""
+    from dist_renderer_tpu_torch.ops.c2f import classify_pyramid, plan_from_maps
+
+    h, w = cfg.img_h, cfg.img_w
+    n = h * w
+    dev = origins.device
+    coarse_cfg = dataclasses.replace(cfg, march=dataclasses.replace(
+        cfg.march, max_steps=min(cfg.march.max_steps,
+                                 cfg.march.c2f_coarse_steps)))
+
+    def trace_level(o_l, v_l, seed, active, stride):
+        o1, v1 = o_l[0], v_l[0]
+        if seed is None:
+            res = _trace(march_fn, o1, v1, coarse_cfg)
+        elif cfg.march.c2f_classify:
+            init, act = seed[0], active[0]
+            key = torch.where(act & torch.isnan(init), 0,
+                              torch.where(act, 1, 2)).to(torch.int32)
+            order, inv = class_order(key)
+            res_s = _trace(march_fn, o1[order], v1[order], coarse_cfg,
+                           init[order], act[order])
+            res = TraceResult(*(
+                a[inv] if (a is not None and a.ndim and a.shape[0] == inv.shape[0])
+                else a for a in res_s))
+        else:
+            res = _trace(march_fn, o1, v1, coarse_cfg, seed[0], active[0])
+        return types.SimpleNamespace(
+            depth=res.depth[None], hit=res.hit[None],
+            unresolved=res.unresolved[None],
+            depth_at_min=res.depth_at_min[None], min_sdf=res.min_sdf[None])
+
+    maps = classify_pyramid(trace_level, origins.reshape(1, h, w, 3),
+                            dirs.reshape(1, h, w, 3), cfg.c2f_strides_valid(),
+                            cfg.march.c2f_backoff)
+    everyone = torch.ones((n,), dtype=torch.bool, device=dev)
+    identity = torch.arange(n, device=dev)
+    if maps is None:  # no valid strides: no plan
+        return C2FPlan(torch.full((n,), float("nan"), device=dev), everyone,
+                       identity)
+    if not cfg.march.c2f_classify:
+        return C2FPlan(maps.seed.reshape(-1), everyone, identity)
+    key, init_depth, skip = plan_from_maps(maps)
+    order, _ = class_order(key[0])
+    return C2FPlan(init_depth[0], ~skip[0], order)
+
+
+def c2f_seed_depth(march_fn, origins, dirs, cfg: RenderConfig) -> torch.Tensor:
+    """The seed-only view of c2f_plan."""
+    return c2f_plan(march_fn, origins, dirs, cfg).init_depth
 
 
 class RenderOutput(NamedTuple):
@@ -45,82 +157,172 @@ class RenderOutput(NamedTuple):
     normal: torch.Tensor    # [*, 3] unit surface normal (0 where miss)
     min_sdf: torch.Tensor   # per-ray min-SDF margin (silhouette)
     points: torch.Tensor    # [*, 3] surface points
-    trace: TraceResult      # raw march diagnostics
+    trace: Optional[TraceResult]  # raw march diagnostics (None after c2f_plan)
 
 
 class LazyMargin(torch.autograd.Function):
     """The margin of misses outside the compose bucket: the value is the
-    one the march recorded, and the backward attaches the decoder's
-    gradient at each ray's anchor, running the precise sdg there (K3
-    forward, K4 backward) at full width. Under a loss that ignores the
+    one the march recorded, and the backward attaches the gradient of
+    ``fn(latent, p)`` at each ray's anchor (the precise sdg, K3 forward
+    and K4 backward, or the cheap decoder). Under a loss that ignores the
     margins autograd never calls it, which keeps a depth-only backward
     cheap."""
 
     @staticmethod
-    def forward(ctx, latent, p_anchor, margin, dirs, sdg):
-        ctx.save_for_backward(latent, p_anchor, dirs)
-        ctx.sdg = sdg
+    def forward(ctx, latent, p_anchor, margin, fn):
+        ctx.save_for_backward(latent, p_anchor)
+        ctx.fn = fn
         return margin.clone()
 
     @staticmethod
     def backward(ctx, ct):
-        latent, p_anchor, dirs = ctx.saved_tensors
+        latent, p_anchor = ctx.saved_tensors
         want_z, want_p = ctx.needs_input_grad[:2]
         with torch.enable_grad():
             z = latent.detach().requires_grad_(want_z)
             p = p_anchor.detach().requires_grad_(want_p)
-            s, _, _ = ctx.sdg(z, p, dirs)
+            s = ctx.fn(z, p)
             wrt = [x for x, want in ((z, want_z), (p, want_p)) if want]
             grads = iter(torch.autograd.grad(s, wrt, ct))
         gz = next(grads) if want_z else None
         gp = next(grads) if want_p else None
-        return gz, gp, None, None, None
+        return gz, gp, None, None
+
+
+def _spatial_grad(fn, p: torch.Tensor) -> torch.Tensor:
+    """grad_x fn at the points p [N, 3] (constants), one backward pass:
+    each output depends on its own point only, so the gradient of the
+    sum is every point's gradient."""
+    with torch.enable_grad():
+        pp = p.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(pp).sum(), pp)
+    return g
+
+
+_FD_OFFSETS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
+               (0, 0, -1))
 
 
 def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
-                dirs: torch.Tensor, cfg: RenderConfig,
+                dirs: torch.Tensor, cfg: RenderConfig, march_fn=None,
+                init_depth: Optional[torch.Tensor] = None,
+                init_active: Optional[torch.Tensor] = None,
                 trace: Optional[TraceResult] = None) -> RenderOutput:
-    """Differentiable composition for a flat ray batch [N, 3] on a
-    precomputed trace (a constant).
+    """Trace + differentiable composition for a flat ray batch [N, 3].
 
-    depth, min_sdf and points carry gradients to ``latent`` and, through
-    ``origins`` and ``dirs``, to whatever they were computed from (the
-    camera pose); normals and the mask are constants. The precise
-    recompute runs on a hit-first bucket of n/compact_frac rays when the
-    hits fit it, else at full width. Misses outside the bucket keep the
-    trace's margin as the value, with the decoder's gradient at their
-    anchor (LazyMargin); rays that never enter the bounding sphere take
-    the geometric distance as the value and keep the margin's gradient."""
+    march_fn: optional point function for the no-grad march (the folded
+    decoder, or a FusedMarchFn); without it the march evaluates ``sdf_fn``
+    on the detached latent. trace: a precomputed march result (then only
+    the composition runs). depth, min_sdf and points carry gradients to
+    ``latent`` and, through ``origins`` and ``dirs``, to whatever they were
+    computed from; the mask and, but for finite-difference normals, the
+    normals are constants.
+
+    The spatial gradient (IFT denominator, normals) comes from the march
+    function, unless it is a distilled proxy (``proxy_march``), whose
+    slope carries model error: then from ``sdf_fn.cheap`` (else
+    ``sdf_fn``) on the detached latent. The recompute runs on a hit-first
+    bucket of n/compact_frac rays when the hits fit it, else at full
+    width; misses outside the bucket keep the trace's margin as the value
+    with the decoder's gradient at their anchor (LazyMargin); rays that
+    never enter the bounding sphere take the geometric distance as the
+    value and keep the margin's gradient."""
     if trace is None:
-        not_ported("render_rays without a precomputed trace", "A4/A5")
-    use_sdg = (cfg.grad.mode == "ift" and cfg.grad.recompute == "pallas"
-               and not cfg.grad.fused_dd and cfg.normal_eps == 0.0
-               and hasattr(sdf_fn, "sdg_builder"))
-    if not use_sdg:
-        not_ported("the non-fused composition (xla recompute, last-step, "
-                   "finite-difference normals)", "A5")
-    if cfg.grad.polish_iters > 1:
-        not_ported("extra Newton polish iterations (polish_iters > 1)", "A9")
-    sdg = sdf_fn.sdg_builder(cfg.grad.recompute_block,
-                             use_kernel=cfg.use_pallas)
-    min_denom = cfg.grad.ift_min_denom
+        trace_fn = march_fn if march_fn is not None else (
+            lambda p: sdf_fn(latent.detach(), p))
+        with torch.no_grad():
+            trace = _trace(trace_fn, origins.detach(), dirs.detach(), cfg,
+                           init_depth, init_active)
+    g = cfg.grad
+    if g.mode == "ift" and g.fused_dd:
+        not_ported("GradConfig.fused_dd (the fused value + directional "
+                   "derivative pass)", "A16")
+    if (cfg.march.proxy_verify_hits in ("polish", "polish-all")
+            and getattr(march_fn, "proxy_march", False)):
+        not_ported("proxy_verify_hits='polish' (the polish demote of proxy "
+                   "false hits)", "A9")
+    base = getattr(sdf_fn, "cheap", sdf_fn)
+    use_march_g = march_fn is not None and not getattr(
+        march_fn, "proxy_march", False)
+    g_fn = march_fn if use_march_g else (lambda p: base(latent.detach(), p))
+    use_sdg = (g.mode == "ift" and g.recompute == "pallas"
+               and cfg.normal_eps == 0.0 and hasattr(sdf_fn, "sdg_builder"))
+    sdg = sdf_fn.sdg_builder(g.recompute_block) if use_sdg else None
+    min_denom = g.ift_min_denom
+    extra = max(g.polish_iters - 1, 0)
 
-    def compose(o, v, d0, anchor, hit):
-        # o and v live (pose gradients); dd and g are constants
-        s, dd, g = sdg(latent, o + anchor[:, None] * v, v.detach())
-        depth = d0 - s / torch.clamp(dd, max=-min_denom)
+    def finish(depth, hit, normal_raw):
         depth = torch.where(hit, depth, torch.full_like(depth, cfg.background_depth))
-        normal = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True),
-                                 min=1e-12)
+        normal = normal_raw / torch.clamp(
+            torch.linalg.norm(normal_raw, dim=-1, keepdim=True), min=1e-12)
         normal = torch.where(hit[:, None], normal, torch.zeros_like(normal))
+        return depth, normal
+
+    def compose_sdg(o, v, d0, anchor, hit):
+        # one fused evaluation gives the value, the directional derivative
+        # and the spatial gradient; extra Newton steps take a fresh
+        # derivative each, accepted only off the denominator clamp and
+        # where |f| does not grow
+        vc = v.detach()
+        s, dd, gr = sdg(latent, o + anchor[:, None] * v, vc)
+        denom = torch.clamp(dd, max=-min_denom)
+        for _ in range(extra):
+            ok = hit & (dd < -min_denom)
+            d_try = torch.where(ok, d0 - s.detach() / denom, d0)
+            p_try = o + torch.where(hit, d_try, anchor)[:, None] * v
+            s2, dd2, g2 = sdg(latent, p_try, vc)
+            accept = ok & (s2.detach().abs() <= s.detach().abs())
+            d0 = torch.where(accept, d_try, d0)
+            s = torch.where(accept, s2, s)
+            dd = torch.where(accept, dd2, dd)
+            gr = torch.where(accept[:, None], g2, gr)
+            denom = torch.clamp(dd, max=-min_denom)
+        depth, normal = finish(d0 - s / denom, hit, gr)
         return depth, s, normal
 
+    def compose_xla(o, v, d0, anchor, hit):
+        p_surf = o + anchor[:, None] * v
+        s = sdf_fn(latent, p_surf)           # the precise value
+        gr = None
+        if g.mode == "ift":
+            gr = _spatial_grad(g_fn, p_surf)
+            dd = dot3(gr, v.detach())
+            denom = torch.clamp(dd, max=-min_denom)  # front-facing: < 0
+            # extra Newton steps with the frozen denominator, safeguarded:
+            # only off the clamp, and only where |f| does not grow
+            ok = hit & (dd < -min_denom)
+            for _ in range(extra):
+                d_try = torch.where(ok, d0 - s.detach() / denom, d0)
+                p_try = o + torch.where(hit, d_try, anchor)[:, None] * v
+                s2 = sdf_fn(latent, p_try)
+                accept = ok & (s2.detach().abs() <= s.detach().abs())
+                d0 = torch.where(accept, d_try, d0)
+                s = torch.where(accept, s2, s)
+                p_surf = torch.where(accept[:, None], p_try, p_surf)
+                gr = None  # the normals are taken where the polish ended
+            depth = d0 - s / denom
+        else:  # "last_step": one unit marching step
+            depth = d0 + s
+        if cfg.normal_eps > 0.0:
+            # central differences of the precise value (differentiable)
+            offs = torch.tensor(_FD_OFFSETS, dtype=p_surf.dtype,
+                                device=p_surf.device) * cfg.normal_eps
+            probe = (p_surf[:, None, :] + offs[None]).reshape(-1, 3)
+            sv = sdf_fn(latent, probe).reshape(-1, 6)
+            gr = torch.stack([sv[:, 0] - sv[:, 1], sv[:, 2] - sv[:, 3],
+                              sv[:, 4] - sv[:, 5]], dim=-1) / (2.0 * cfg.normal_eps)
+        elif gr is None:
+            gr = _spatial_grad(g_fn, p_surf)
+        depth, normal = finish(depth, hit, gr)
+        return depth, s, normal
+
+    compose = compose_sdg if use_sdg else compose_xla
     n = origins.shape[0]
     d0 = trace.depth
     anchor = torch.where(trace.hit, d0, trace.depth_at_min)
-    frac = cfg.grad.compact_frac
+    frac = g.compact_frac
     bucket = 0
-    if frac > 0 and n >= cfg.grad.compact_min:
+    if frac > 0 and n >= g.compact_min:
         bucket = min(((n // frac + 511) // 512) * 512, n)
     # the bucket choice is a host decision: one device sync per frame
     if 0 < bucket < n and int(trace.hit.sum()) <= bucket:
@@ -136,8 +338,13 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
         if torch.is_grad_enabled() and (latent.requires_grad
                                         or origins.requires_grad
                                         or dirs.requires_grad):
+            if use_sdg:
+                dirs_c = dirs.detach()
+                fn = lambda z, p: sdg(z, p, dirs_c)[0]
+            else:
+                fn = base
             margins = LazyMargin.apply(latent, origins + anchor[:, None] * dirs,
-                                       margins, dirs.detach(), sdg)
+                                       margins, fn)
         min_sdf = margins.index_put(idx_b, s_b)
         depth = torch.full((n,), cfg.background_depth, dtype=d_b.dtype,
                            device=d_b.device).index_put(idx_b, d_b)
@@ -159,29 +366,74 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
                         trace=trace)
 
 
+def warm_from_trace(trace: TraceResult) -> Tuple[torch.Tensor, ...]:
+    """The warm-start state (depth, hitish, anchor, margin) the next
+    optimizer iteration's render classifies from instead of the coarse
+    pyramid (ops/c2f.py::warm_maps). Unresolved rays count as hits, so a
+    step-capped ray is never wrongly skipped next iteration."""
+    return (trace.depth.detach(), (trace.hit | trace.unresolved).detach(),
+            trace.depth_at_min.detach(), trace.min_sdf.detach())
+
+
+def render_with_warm(sdf_fn, latent, camera, cfg, march_fn_factory, carry,
+                     refresh: int):
+    """One warm-started render inside an optimization loop.
+
+    carry = (step, warm_state), threaded through utils.optim.fit's carry;
+    every ``refresh`` steps the full coarse pyramid runs (the warm maps'
+    dilation bounds per-step silhouette motion, not drift). Returns
+    (RenderOutput, next carry); differentiable like render()."""
+    k, wstate = carry
+    warm = None if k % refresh == 0 else wstate
+    out = render(sdf_fn, latent, camera, cfg, march_fn_factory, warm)
+    return out, (k + 1, warm_from_trace(out.trace))
+
+
 def render(sdf_fn, latent: torch.Tensor, camera: Camera,
            cfg: RenderConfig = RenderConfig(),
-           march_fn_factory: Optional[Callable] = None) -> RenderOutput:
+           march_fn_factory: Optional[Callable] = None,
+           warm: Optional[Tuple[torch.Tensor, ...]] = None) -> RenderOutput:
     """Full-frame render: camera -> [H, W] maps (depth, mask, normal,
     silhouette margin, points).
 
+    march_fn_factory: optional (latent,) -> march function builder for
+    the no-grad march (make_march_factory). warm: optional
+    warm_from_trace(previous out.trace); the trace_frame path classifies
+    from it instead of the coarse pyramid (other paths ignore it).
+
     Differentiable: depth, min_sdf and points carry gradients to
     ``latent`` and to the camera's R and T when they require grad; the
-    march runs under ``torch.no_grad()`` on a detached latent. With
-    nothing requiring grad no graph is built. Float32 products run in
-    full fp32 (TF32 off), which the precise value's accuracy needs."""
+    march runs under ``torch.no_grad()`` on a detached latent. Float32
+    products run in full fp32 (TF32 off), which the precise value's
+    accuracy needs."""
     set_fp32_matmul()
     origins, dirs = pixel_rays(camera, cfg.img_h, cfg.img_w)
     march_fn = (march_fn_factory(latent.detach())
                 if march_fn_factory is not None else None)
-    if not (cfg.march.coarse_to_fine and cfg.march.c2f_classify
+    if (cfg.use_pallas and cfg.march.coarse_to_fine and cfg.march.c2f_classify
             and march_fn is not None and hasattr(march_fn, "trace_frame")):
-        not_ported("rendering without the coarse-to-fine trace_frame "
-                    "path (plain and compaction tracers)", "A4/A5")
-    with torch.no_grad():
-        trace = march_fn.trace_frame(origins.detach(), dirs.detach(),
-                                     cfg.march, (cfg.img_h, cfg.img_w))
-    out = render_rays(sdf_fn, latent, origins, dirs, cfg, trace=trace)
+        with torch.no_grad():
+            trace = march_fn.trace_frame(origins.detach(), dirs.detach(),
+                                         cfg.march, (cfg.img_h, cfg.img_w),
+                                         warm=warm)
+        out = render_rays(sdf_fn, latent, origins, dirs, cfg,
+                          march_fn=march_fn, trace=trace)
+    elif cfg.march.coarse_to_fine and cfg.c2f_strides_valid():
+        mf = march_fn if march_fn is not None else (
+            lambda p: sdf_fn(latent.detach(), p))
+        plan = c2f_plan(mf, origins.detach(), dirs.detach(), cfg)
+        perm = plan.order
+        inv = inverse_permutation(perm)
+        out_p = render_rays(sdf_fn, latent, origins[perm], dirs[perm], cfg,
+                            march_fn=march_fn,
+                            init_depth=plan.init_depth[perm],
+                            init_active=plan.init_active[perm])
+        out = RenderOutput(
+            depth=out_p.depth[inv], mask=out_p.mask[inv],
+            normal=out_p.normal[inv], min_sdf=out_p.min_sdf[inv],
+            points=out_p.points[inv], trace=None)
+    else:
+        out = render_rays(sdf_fn, latent, origins, dirs, cfg, march_fn=march_fn)
     hw = (cfg.img_h, cfg.img_w)
     return RenderOutput(
         depth=out.depth.reshape(hw), mask=out.mask.reshape(hw),
@@ -190,31 +442,53 @@ def render(sdf_fn, latent: torch.Tensor, camera: Camera,
     )
 
 
-class MarchFn(NamedTuple):
-    """The march handle a factory returns for one latent: ``trace_frame``
-    runs the coarse-to-fine pipeline (proxy + verify when the factory has
-    a proxy) and returns a TraceResult."""
-
-    trace_frame: Callable
-
-
 def make_march_factory(params, dcfg: DecoderConfig, cfg: RenderConfig,
-                       march_params=None, march_dcfg=None):
-    """Build the (latent,) -> MarchFn factory for the march. With
-    march_params/march_dcfg (a distilled proxy sharing the latent space)
-    the pyramid and fine march run on the proxy and a full-decoder verify
-    march re-derives depth and the hit mask. The weights are packed once,
-    here, for every frame the factory renders."""
+                       march_params=None, march_dcfg=None,
+                       use_kernel: bool = True):
+    """Build the (latent,) -> march function factory: the latent-folded
+    decoder in the render's compute dtype, wrapped as a ``FusedMarchFn``
+    under ``cfg.use_pallas`` (K1-grid ``.trace`` and the batched
+    coarse-to-fine ``.trace_frame``).
+
+    march_params/march_dcfg: an optional distilled proxy decoder sharing
+    the latent space. trace_frame marches the proxy and verifies with a
+    full-decoder march; ``.trace`` and the plain tracers march the proxy
+    alone (use GradConfig.polish_iters >= 2 so the full-decoder Newton in
+    the composition re-anchors depth). The march function carries
+    ``proxy_march`` so the renderer takes no derivative from a proxy.
+
+    use_kernel=False runs every kernel's plain version on any device. The
+    weights are packed once, here, for every frame the factory renders."""
+    from dist_renderer_tpu_torch.models.folded import PointFn, fold_latent
+    from dist_renderer_tpu_torch.ops.kernels.fused_march import (
+        FusedMarchFn, pack_folded,
+    )
+
     is_proxy = march_params is not None
-    proxy = (march_params, march_dcfg or dcfg) if is_proxy else None
-    packed = (pack_shared(params, dcfg),
-              pack_shared(*proxy) if is_proxy else None)
+    mparams = march_params if is_proxy else params
+    mdcfg = (march_dcfg or dcfg) if is_proxy else dcfg
+    packed = None
+    if cfg.use_pallas:
+        packed = (pack_shared(params, dcfg),
+                  pack_shared(mparams, mdcfg) if is_proxy else None)
+    proxy = (mparams, mdcfg) if is_proxy else None
 
     def factory(z):
-        def trace_frame(origins, dirs, march, img_hw):
+        folded = fold_latent(mparams, z, mdcfg)
+        point_fn = PointFn(folded, mdcfg, cfg.dtype)
+        point_fn.proxy_march = is_proxy
+        if not cfg.use_pallas:
+            return point_fn
+        mf = FusedMarchFn(pack_folded(folded, mdcfg, packed[1] or packed[0]),
+                          point_fn, use_kernel=use_kernel)
+        mf.proxy_march = is_proxy
+
+        def trace_frame(origins, dirs, march, img_hw, warm=None):
             """Single-frame plan + march through the batched c2f pipeline
             (F=1). Assumes the pinhole shared-origin layout render()
-            produces."""
+            produces. warm: optional flat [N] (depth, hitish, anchor,
+            margin) from the previous iteration (warm_from_trace); it
+            replaces the coarse pyramid."""
             vh = march.proxy_verify_hits
             st = render_batched_c2f(
                 params, dcfg, z[None], origins[None, :1], dirs[None], img_hw,
@@ -222,15 +496,16 @@ def make_march_factory(params, dcfg: DecoderConfig, cfg: RenderConfig,
                 coarse_steps=march.c2f_coarse_steps,
                 backoff=march.c2f_backoff, scheduler=march.scheduler,
                 queue_caps=march.queue_caps,
-                queue_dense_frac=march.queue_dense_frac, proxy=proxy,
-                proxy_backoff=march.proxy_backoff,
+                queue_dense_frac=march.queue_dense_frac,
+                warm=None if warm is None else tuple(a[None] for a in warm),
+                proxy=proxy, proxy_backoff=march.proxy_backoff,
                 proxy_band=march.proxy_band,
                 verify_mode=march.proxy_verify_mode,
                 verify_band=march.proxy_verify_band,
                 verify_hits="polish" if vh == "polish-all" else vh,
                 verify_gen_caps=march.proxy_verify_caps_queue,
                 proxy_block=march.proxy_block_width,
-                use_kernel=cfg.use_pallas, packed=packed,
+                use_kernel=use_kernel, packed=packed,
             )
             steps = st.steps[0]
             return TraceResult(
@@ -241,7 +516,8 @@ def make_march_factory(params, dcfg: DecoderConfig, cfg: RenderConfig,
                 unresolved=st.unresolved[0], steps_per_ray=steps,
             )
 
-        return MarchFn(trace_frame)
+        mf.trace_frame = trace_frame
+        return mf
 
     return factory
 
@@ -253,12 +529,13 @@ class SDFRenderer:
 
     ``device`` (default: the decoder weights' device, else the CPU) is
     where the camera, the latent and every render live; intrinsics, poses
-    and latents may come as numpy arrays or tensors on any device."""
+    and latents may come as numpy arrays or tensors on any device.
+    use_kernel=False runs every kernel's plain version."""
 
     def __init__(self, decoder_params, intrinsic, img_hw: Tuple[int, int] = (256, 256),
                  decoder_cfg: DecoderConfig = DecoderConfig(),
                  cfg: Optional[RenderConfig] = None, sdf_fn=None,
-                 device=None):
+                 device=None, use_kernel: bool = True):
         from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
 
         if device is None:
@@ -270,18 +547,18 @@ class SDFRenderer:
         self.cfg = dataclasses.replace(base, img_h=img_hw[0], img_w=img_hw[1])
         self.march_fn_factory = None
         if sdf_fn is None:
-            sdf_fn = make_precise_sdf(decoder_params, decoder_cfg)
+            sdf_fn = make_precise_sdf(decoder_params, decoder_cfg, use_kernel)
             self.march_fn_factory = make_march_factory(
-                decoder_params, decoder_cfg, self.cfg)
+                decoder_params, decoder_cfg, self.cfg, use_kernel=use_kernel)
         self.sdf_fn = sdf_fn
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
-    def render(self, latent, R, T) -> RenderOutput:
+    def render(self, latent, R, T, warm=None) -> RenderOutput:
         cam = Camera(K=self.K, R=self._tensor(R), T=self._tensor(T))
         return render(self.sdf_fn, self._tensor(latent), cam, self.cfg,
-                      self.march_fn_factory)
+                      self.march_fn_factory, warm)
 
     def render_depth(self, latent, R, T) -> torch.Tensor:
         return self.render(latent, R, T).depth

@@ -79,12 +79,11 @@ def bench_setup(dev, img=512, seed=0):
             {"decoder": (params, dcfg), "proxy": (pparams, pcfg)})
 
 
-def macs_per_eval(params, dcfg) -> int:
-    """Multiply-adds of one march MLP evaluation as the march kernels do
-    it: padded widths, the last layer's single output row."""
-    from dist_renderer_tpu_torch.ops.kernels.batched_march import pack_shared
-
-    t = pack_shared(params, dcfg).table
+def macs_per_eval(shared) -> int:
+    """Multiply-adds of one march MLP evaluation (of a SharedDecoder) as
+    the march kernels do it: padded widths, the last layer's single
+    output row."""
+    t = shared.table
     rows = [t[i:i + 5] for i in range(0, len(t), 5)]
     total = 0
     for li, (out_p, in_p, wh, wx, _) in enumerate(rows):
@@ -245,7 +244,7 @@ def main(argv=None):
                 active_rays=int(act.sum()),
                 mean_steps=ray_steps / max(int(act.sum()), 1),
                 max_steps=int(steps.max()) if steps.numel() else 0,
-                tmac_per_s=ray_steps * macs_per_eval(*dec)
+                tmac_per_s=ray_steps * macs_per_eval(bm.pack_shared(*dec))
                 / (stage_ms[name] * 1e-3) / 1e12)
 
         # device time per kernel and the device's idle share

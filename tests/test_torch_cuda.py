@@ -21,7 +21,6 @@ relative) or a march's stopping sample, so against it only agreement
 fractions hold (chip_smoke.py's bars at the main path's shapes).
 """
 
-import dataclasses
 import os
 
 import numpy as np
@@ -32,11 +31,13 @@ from dist_renderer_tpu_torch.config import (
     DecoderConfig, GradConfig, MarchConfig, RenderConfig,
 )
 from dist_renderer_tpu_torch.models.decoder import make_precise_sdf, params_from_numpy
+from dist_renderer_tpu_torch.models.folded import fold_latent
 from dist_renderer_tpu_torch.models.pretrain import load_params_npz
 from dist_renderer_tpu_torch.models.proxy import load_proxy_npz
 from dist_renderer_tpu_torch.ops.camera import Camera, pixel_rays
 from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
 from dist_renderer_tpu_torch.ops.kernels import build, march_body
+from dist_renderer_tpu_torch.ops.kernels import fused_march as fm
 from dist_renderer_tpu_torch.ops.kernels import recompute as rc
 from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
 from dist_renderer_tpu_torch.ops.renderer import (
@@ -286,8 +287,8 @@ def test_cuda_sdf_renderer_gradients_match_plain(k_order):
     grads = []
     for use in (True, False):
         n0 = rc.precise_bias_grads_call.launches
-        r = SDFRenderer(proxy, cam.K, (img, img), decoder_cfg=pcfg,
-                        cfg=dataclasses.replace(cfg, use_pallas=use))
+        r = SDFRenderer(proxy, cam.K, (img, img), decoder_cfg=pcfg, cfg=cfg,
+                        use_kernel=use)
         leaves = [t.to(dev).requires_grad_() for t in (z.clone(), cam.R.clone(),
                                                        cam.T.clone())]
         out = r.render(*leaves)
@@ -318,13 +319,12 @@ def test_cuda_render_matches_plain_render():
         compute_dtype="bfloat16", use_pallas=True)
     cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2,
                             img_hw=(img, img), device=dev)
-    sdf = make_precise_sdf(params, DecoderConfig())
     outs = []
     for use in (True, False):
-        c = dataclasses.replace(cfg, use_pallas=use)
-        fac = make_march_factory(params, DecoderConfig(), c, march_params=proxy,
-                                 march_dcfg=pcfg)
-        outs.append(render(sdf, z, cam, c, fac))
+        sdf = make_precise_sdf(params, DecoderConfig(), use_kernel=use)
+        fac = make_march_factory(params, DecoderConfig(), cfg, march_params=proxy,
+                                 march_dcfg=pcfg, use_kernel=use)
+        outs.append(render(sdf, z, cam, cfg, fac))
     a, b = outs
     assert (a.mask == b.mask).float().mean() >= 0.99
     both = a.mask & b.mask
@@ -354,8 +354,8 @@ def test_cuda_sdf_renderer_on_the_card(k_order):
     n0 = [fn.launches for fn in counters]
     outs = []
     for use in (True, False):
-        r = SDFRenderer(proxy, K, (img, img), decoder_cfg=pcfg,
-                        cfg=dataclasses.replace(cfg, use_pallas=use))
+        r = SDFRenderer(proxy, K, (img, img), decoder_cfg=pcfg, cfg=cfg,
+                        use_kernel=use)
         assert r.device == proxy["layers"][0]["w"].device
         outs.append(r.render(z.numpy(), R, T))
         if use:
@@ -437,11 +437,141 @@ def test_cpu_tensors_take_the_k4_plain_version_uncounted():
     assert zz.grad is not None and rc.precise_bias_grads_call.launches == n0
 
 
+def _grid_scene(dev, which, img=48):
+    """One frame of _scene's rays, the latent folded into K1-grid's
+    layout and K1's one-frame bank of the same decoder ("proxy": the bench
+    proxy, "bench": the 8x512 bench decoder)."""
+    shared, bank, o, v, key, seed_d = _scene(dev, img=img, frames=1, seed=2)
+    params, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"), dev)
+    _, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    if which == "bench":
+        params, pcfg = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"),
+                                       dev)[0], DecoderConfig()
+        shared = bm.pack_shared(params, pcfg)
+        bank = bm.fold_bias_bank(params, z0[None], pcfg, shared)
+    else:
+        bank = bm.fold_bias_bank(params, z0[None], pcfg, shared)
+    packed = fm.pack_folded(fold_latent(params, z0, pcfg), pcfg, shared)
+    return packed, shared, bank, o[0], v[0], key[0], seed_d[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["proxy", "bench"])
+@pytest.mark.parametrize("seeded", [True, False])
+@pytest.mark.parametrize("salvage", [True, False])
+def test_cuda_k1_grid_matches_plain(salvage, seeded, which, k_order):
+    """K1-grid against its in-order plain version bit for bit; a CPU-side
+    rule: the plain run counts no launch."""
+    dev = _device()
+    packed, _, _, o, v, key, seed_d = _grid_scene(dev, which)
+    kw = dict(init_depth=seed_d, init_active=key != 2) if seeded else {}
+    n0 = fm.sphere_trace_grid.launches
+    out = fm.sphere_trace_grid(packed, o, v, MARCH, salvage=salvage, **kw)
+    assert fm.sphere_trace_grid.launches == n0 + 1
+    ref = fm.sphere_trace_grid(packed, o, v, MARCH, salvage=salvage,
+                               use_kernel=False, **kw)
+    assert fm.sphere_trace_grid.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert out.hit.sum() > 100
+    for name in TRACE_FIELDS:
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["proxy", "bench"])
+def test_cuda_k1_grid_equals_k1(which):
+    """K1-grid and K1 at F=1 share the step body: the same bits on the
+    same rays (seeded, inactive and salvage-off rays included)."""
+    dev = _device()
+    packed, shared, bank, o, v, key, seed_d = _grid_scene(dev, which)
+    frame = torch.zeros(o.shape[0], dtype=torch.int64, device=dev)
+    for salvage in (True, False):
+        a = fm.sphere_trace_grid(packed, o, v, MARCH, seed_d, init_active=key != 2,
+                                 salvage=salvage)
+        b = bm.sphere_trace_persistent(shared, bank, frame, o, v, MARCH, seed_d,
+                                       key != 2, salvage=salvage)
+        torch.cuda.synchronize()
+        for name in TRACE_FIELDS:
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seeded", [True, False])
+def test_cuda_rounds_match_plain(seeded, k_order):
+    """sphere_trace_rounds on the card (every round on K1-grid) equals
+    its run on the in-order plain version."""
+    dev = _device()
+    packed, _, _, o, v, key, seed_d = _grid_scene(dev, "proxy", img=64)
+    kw = dict(init_depth=seed_d, init_active=key != 2) if seeded else {}
+    n0 = fm.sphere_trace_grid.launches
+    out = fm.sphere_trace_rounds(packed, o, v, MARCH, **kw)
+    assert fm.sphere_trace_grid.launches == n0 + 3
+    ref = fm.sphere_trace_rounds(packed, o, v, MARCH, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert out.hit.sum() > 100
+    for name in ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf",
+                 "unresolved", "steps_per_ray"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+
+
+@pytest.mark.gpu
+def test_cuda_sdf_renderer_grid_path_matches_plain(k_order):
+    """SDFRenderer with use_pallas and no coarse-to-fine traces through
+    the rounds driver on K1-grid; its render and the (latent, R, T)
+    gradients of a depth + silhouette loss equal the plain versions'
+    (K4's fp64 sums in another order: relative L2 <= 1e-5)."""
+    dev = _device()
+    proxy, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"), dev)
+    _, z = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"))
+    img = 32
+    cfg = RenderConfig(
+        img_h=img, img_w=img, march=MARCH,
+        grad=GradConfig(mode="ift", compact_frac=4, compact_min=256),
+        compute_dtype="bfloat16", use_pallas=True)
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img))
+    outs, grads = [], []
+    for use in (True, False):
+        n0 = fm.sphere_trace_grid.launches
+        r = SDFRenderer(proxy, cam.K, (img, img), decoder_cfg=pcfg, cfg=cfg,
+                        use_kernel=use)
+        leaves = [t.to(dev).requires_grad_() for t in (z.clone(), cam.R.clone(),
+                                                       cam.T.clone())]
+        out = r.render(*leaves)
+        assert (fm.sphere_trace_grid.launches > n0) == use
+        obs = out.mask.detach() & (torch.arange(img, device=dev) < img // 2)[None, :]
+        loss = (10.0 * (out.depth - 1.5).abs()[obs].mean()
+                + torch.clamp(out.min_sdf, min=0.0)[~out.mask].mean())
+        grads.append(torch.autograd.grad(loss, leaves))
+        outs.append(out)
+    for k in ("depth", "mask", "normal", "min_sdf", "points"):
+        assert torch.equal(getattr(outs[0], k).detach(), getattr(outs[1], k).detach()), k
+    assert outs[0].mask.float().mean() > 0.05
+    for a, b in zip(*grads):
+        assert a.is_cuda and torch.isfinite(a).all() and a.abs().sum() > 0
+        rel = ((a.double() - b.double()).norm() / b.double().norm()).item()
+        assert rel <= 1e-5, rel
+
+
+def test_cpu_tensors_take_the_k1_grid_plain_version_uncounted():
+    """On CPU tensors K1-grid and its rounds driver run the plain version
+    and count no launch."""
+    packed, _, _, o, v, key, seed_d = _grid_scene(torch.device("cpu"), "proxy",
+                                                  img=16)
+    n0 = fm.sphere_trace_grid.launches
+    a = fm.sphere_trace_grid(packed, o, v, MARCH, seed_d, init_active=key != 2)
+    b = fm.sphere_trace_grid(packed, o, v, MARCH, seed_d, init_active=key != 2,
+                             use_kernel=False)
+    fm.sphere_trace_rounds(packed, o, v, MARCH)
+    assert fm.sphere_trace_grid.launches == n0
+    for name in TRACE_FIELDS:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
 def test_kernel_build_is_keyed_by_source_hash():
     h = build.source_hash()
     assert len(h) == 16 and h == build.source_hash()
     names = {os.path.basename(p) for p in build._sources()}
     assert {"march_body.cuh", "batched_march.cu", "queue_march.cu",
-            "recompute.cu"} <= names
+            "recompute.cu", "fused_march.cu", "sphere_trace.cuh"} <= names
     assert "-use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -139,7 +139,7 @@ def test_slice_bench_fixture_full_width():
 def test_sdf_renderer_and_plain_switch_agree():
     """SDFRenderer(...).render(latent, R, T) is render() with a full-decoder
     march, on the weights' device, from numpy camera and latent inputs;
-    use_pallas=False runs every kernel's plain version (the same
+    use_kernel=False runs every kernel's plain version (the same
     arithmetic on a CPU tensor)."""
     proxy, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"))
     _, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"))
@@ -150,9 +150,8 @@ def test_sdf_renderer_and_plain_switch_agree():
     a = r.render(z0.numpy(), cam.R.numpy(), cam.T.numpy())
     b = render(make_precise_sdf(proxy, pcfg), z0, cam, cfg,
                make_march_factory(proxy, pcfg, cfg))
-    plain = dataclasses.replace(cfg, use_pallas=False)
-    c = render(make_precise_sdf(proxy, pcfg), z0, cam, plain,
-               make_march_factory(proxy, pcfg, plain))
+    c = render(make_precise_sdf(proxy, pcfg, use_kernel=False), z0, cam, cfg,
+               make_march_factory(proxy, pcfg, cfg, use_kernel=False))
     for x, y in [(a, b), (b, c)]:
         for k in ("depth", "mask", "normal", "min_sdf", "points"):
             assert torch.equal(getattr(x, k), getattr(y, k)), k
@@ -172,9 +171,16 @@ def test_unported_modes_raise():
         render_batched_c2f(proxy, pcfg, z[:1], o[:1], v[:1], (4, 4), MarchConfig(),
                            verify_mode="cert")
     cam = Camera.looking_at((0.0, 0.0, -2.5), focal=20.0, img_hw=(8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
         render(make_precise_sdf(proxy, pcfg), z[0], cam,
-               RenderConfig(img_h=8, img_w=8))
+               RenderConfig(img_h=8, img_w=8, grad=GradConfig(mode="ift",
+                                                             fused_dd=True)))
+    vh = MarchConfig(coarse_to_fine=True, proxy_verify_hits="polish")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        render(make_precise_sdf(proxy, pcfg), z[0], cam,
+               RenderConfig(img_h=8, img_w=8, march=vh, use_pallas=True),
+               make_march_factory(proxy, pcfg, RenderConfig(use_pallas=True),
+                                  march_params=proxy, march_dcfg=pcfg))
 
 
 def test_no_valid_stride_marches_every_ray():

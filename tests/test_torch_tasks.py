@@ -1,0 +1,182 @@
+"""The port's command-line tasks and render server on the CPU (``--cpu``)
+at 16x16, 24 march steps, on the committed torus 8x512 decoder cache,
+against the JAX package's same CLIs.
+
+Loss-history bars. The first loss depends on the forward render only:
+the two packages' precise values differ by the JAX package's bf16 split
+products (its TPU workaround; the port computes fp32), measured at 8.9e-4
+relative on depth_completion; bar 2e-3. Later losses also follow the
+gradients, whose backward the JAX package takes in bf16 and the port in
+fp32, so Adam's steps drift apart: measured 1.2e-2 relative at step 2;
+bar 3e-2. pose_refine starts both CLIs from the same perturbation (the
+JAX package's draws, handed to the port's ``perturbation``).
+"""
+
+import json
+import threading
+import urllib.request
+from http.server import ThreadingHTTPServer
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dist_renderer_tpu.tasks import depth_completion as jdc
+from dist_renderer_tpu.tasks import pose_refine as jpr
+from dist_renderer_tpu_torch.tasks import (
+    depth_completion, multiview, pose_refine, render_demo, serve,
+)
+from dist_renderer_tpu_torch.tasks import common
+from test_torch_grad import one_thread  # noqa: F401 (autouse: torch on one thread)
+
+TINY = ["--cpu", "--img", "16", "--march-steps", "24"]
+FIRST_REL, LATER_REL = 2e-3, 3e-2
+
+
+def _assert_histories(ours, theirs):
+    ours, theirs = np.asarray(ours), np.asarray(theirs)
+    rel = np.abs(ours - theirs) / np.abs(theirs)
+    assert rel[0] <= FIRST_REL, rel
+    assert np.all(rel[1:] <= LATER_REL), rel
+
+
+def test_depth_completion_matches_jax_and_improves(tmp_path):
+    res = depth_completion.main(TINY + ["--steps", "8", "--lr", "5e-2",
+                                        "--out", str(tmp_path / "t")])
+    ref = jdc.main(TINY + ["--steps", "3", "--lr", "5e-2",
+                           "--out", str(tmp_path / "j")])
+    h = res.loss_history.numpy()
+    _assert_histories(h[:3], np.asarray(ref.loss_history))
+    assert h[-1] < h[0]
+    assert (tmp_path / "t" / "final.png").exists()
+    assert (tmp_path / "t" / "metrics.csv").exists()
+    assert np.isfinite(res.metrics["ms_per_step"])
+
+
+def _jax_draws():
+    """The JAX CLI's perturbation draws (pose_refine.py's PRNGKey(3))."""
+    k1, k2 = jax.random.split(jax.random.PRNGKey(3))
+    return (torch.as_tensor(np.array(jax.random.normal(k1, (3,)))),
+            torch.as_tensor(np.array(jax.random.normal(k2, (3,)))))
+
+
+def test_pose_refine_so3_matches_jax_and_improves(tmp_path, monkeypatch):
+    monkeypatch.setattr(pose_refine, "perturbation", _jax_draws)
+    args = ["--rot-err-deg", "6", "--trans-err", "0.05", "--lr", "2e-2"]
+    res, rot_err, _ = pose_refine.main(TINY + args + [
+        "--steps", "10", "--out", str(tmp_path / "t")])
+    ref, _, _ = jpr.main(TINY + args + ["--steps", "3",
+                                        "--out", str(tmp_path / "j")])
+    h = res.loss_history.numpy()
+    _assert_histories(h[:3], np.asarray(ref.loss_history))
+    assert h[-1] < h[0] and rot_err < 6.0
+    assert (tmp_path / "t" / "final.png").exists()
+
+
+def test_pose_refine_rot6d_improves(tmp_path):
+    res, rot_err, t_err = pose_refine.main(TINY + [
+        "--steps", "10", "--lr", "2e-2", "--rot-err-deg", "6",
+        "--trans-err", "0.05", "--param", "rot6d", "--out", str(tmp_path)])
+    h = res.loss_history.numpy()
+    assert np.isfinite(h).all() and h[-1] < h[0]
+    assert rot_err < 6.0 and np.isfinite(t_err)
+
+
+def test_render_demo_and_multiview_run(tmp_path):
+    times = render_demo.main(TINY + ["--views", "2", "--out", str(tmp_path / "d")])
+    assert len(times) == 2 and all(np.isfinite(times))
+    png = (tmp_path / "d" / "view01.png").read_bytes()
+    assert png.startswith(b"\x89PNG\r\n\x1a\n")
+    res = multiview.main(TINY + ["--steps", "3", "--views", "3",
+                                 "--out", str(tmp_path / "m")])
+    h = res.loss_history.numpy()
+    assert np.isfinite(h).all() and h.min() <= h[0]
+    summary = json.loads((tmp_path / "m" / "summary.json").read_text())
+    assert 0.0 <= summary["mask_iou"] <= 1.0
+    assert (tmp_path / "m" / "final_views.png").exists()
+
+
+def test_serve_answers_health_and_json(tmp_path):
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    common.add_common_args(ap)
+    args = ap.parse_args(TINY)
+    do_render, latent0, dcfg = serve.build_engine(args)
+    assert dcfg.hidden_dims == (512,) * 8
+    srv = ThreadingHTTPServer(("127.0.0.1", 0),
+                              serve.make_handler(do_render, latent0, args, "cpu"))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        health = json.loads(urllib.request.urlopen(url + "/health").read())
+        assert health == {"status": "ok", "latent_size": 256, "img": 16,
+                          "device": "cpu"}
+        req = urllib.request.Request(url + "/render", data=json.dumps(
+            {"format": "json", "azimuth": 45.0}).encode())
+        body = json.loads(urllib.request.urlopen(req).read())
+        depth, mask = np.asarray(body["depth"]), np.asarray(body["mask"])
+        assert depth.shape == (16, 16) and np.isfinite(depth).all()
+        assert 0 < mask.sum() < mask.size
+        req = urllib.request.Request(url + "/render", data=b'{"latent": [1.0]}')
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(req)
+        assert err.value.code == 400
+        png = urllib.request.urlopen(urllib.request.Request(
+            url + "/render", data=b"{}")).read()
+        assert png.startswith(b"\x89PNG")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def test_tasks_need_the_card_unless_cpu(monkeypatch, tmp_path):
+    """Without --cpu the tasks run on the card; with no card they raise
+    rather than carry on on the CPU. Unported flags name their items."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--cpu"):
+        render_demo.main(["--img", "16", "--out", str(tmp_path)])
+    for main, flag, item in [
+            (depth_completion.main, ["--data", "x"], "A10"),
+            (render_demo.main, ["--mesh"], "A12"),
+            (pose_refine.main, ["--data", "x"], "A10"),
+            (multiview.main, ["--mesh"], "A12"),
+            (render_demo.main, ["--experiment-dir", "x"], "A2"),
+            (render_demo.main, ["--no-cache"], "A11"),
+            (render_demo.main, ["--shape", "sphere"], "A11")]:
+        with pytest.raises(NotImplementedError, match=item):
+            main(TINY + flag + ["--out", str(tmp_path)])
+
+
+def test_color_decoder_matches_jax_and_pngs_decode():
+    """color_apply against the JAX package's on the same weights (fp32 on
+    both sides, CPU BLAS orders: 1e-6); the port's PNG writer against an
+    independent decoder (PIL, where installed)."""
+    from dist_renderer_tpu.models.color_decoder import color_apply as jcolor_apply
+    from dist_renderer_tpu.models.color_decoder import init_color_params as jinit
+    from dist_renderer_tpu.models.color_decoder import make_color_config as jcfg
+    from dist_renderer_tpu_torch.models.color_decoder import (
+        color_apply, color_layer_dims, make_color_config,
+    )
+    from dist_renderer_tpu_torch.models.decoder import params_from_numpy
+    from dist_renderer_tpu_torch.utils.viz import colorize_depth, png_bytes
+
+    kw = dict(latent_size=8, hidden_dims=(32,) * 4, latent_in=(2,))
+    jp = jinit(jax.random.PRNGKey(7), jcfg(**kw))
+    cfg = make_color_config(**kw)
+    assert color_layer_dims(cfg)[-1] == (32, 3)
+    rng = np.random.default_rng(0)
+    z = rng.standard_normal(8).astype(np.float32)
+    pts = rng.standard_normal((50, 3)).astype(np.float32)
+    ref = np.asarray(jcolor_apply(jp, jax.numpy.asarray(z), jax.numpy.asarray(pts),
+                                  jcfg(**kw)))
+    out = color_apply(params_from_numpy(jp), torch.tensor(z), torch.tensor(pts), cfg)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
+
+    img = colorize_depth(rng.uniform(1.0, 2.0, (9, 13)), rng.uniform(size=(9, 13)) > 0.3)
+    Image = pytest.importorskip("PIL.Image")
+    import io
+
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(png_bytes(img)))), img)
