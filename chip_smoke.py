@@ -6,19 +6,23 @@ gives it, then serves five 512x512 forward renders of the committed bench
 fixture (the 8x512 DeepSDF decoder marched through its distilled 4x256
 proxy, 50 steps) through ``render()``, checks that the render went
 through every kernel, and compares it with the same render on the plain
-versions. Then it differentiates the same render: bench.py's fwd+bwd (a
-depth loss's gradient to the latent) for the five requests, that gradient
-and a camera-pose gradient against the plain versions, and five Adam
-steps of the depth-completion fit, checking that the backward went
-through the recompute backward kernel. Then the single-frame grid march
-path (K1-grid): SDFRenderer on the 8x512 bench decoder without the
+versions, and one request with polish-verify (compose()'s demote). Then
+it differentiates the same render: bench.py's fwd+bwd (a depth loss's
+gradient to the latent) for the five requests, that gradient and a
+camera-pose gradient against the plain versions, and five Adam steps of
+the depth-completion fit, checking that the backward went through the
+recompute backward kernel. Then the single-frame grid march path
+(K1-grid): SDFRenderer on the 8x512 bench decoder without the
 coarse-to-fine pipeline, three forward and three fwd+bwd requests, held
 against the plain versions, and one request through c2f_plan's coarse
-levels; and last the command-line tasks (render_demo, depth_completion,
-pose_refine with warm starts, multiview) and the render server, in
-process, on the committed torus 8x512 decoder. Prints the timings, one
-JSON line of per-kernel results, the card's name and power limit, and
-last a JSON status line.
+levels; the command-line tasks (render_demo, depth_completion,
+pose_refine with warm starts, multiview, batched_render) and the render
+server, in process, on the committed torus 8x512 decoder; and last
+bench.py's batched headline: 64 frames of the bench cell through
+render_batched_c2f on the rounds scheduler in the three verify modes,
+with the multi-frame grid march (K1-multi) held to K1 and to its plain
+version. Prints the timings, one JSON line of per-kernel results, the
+card's name and power limit, and last a JSON status line.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -526,6 +530,256 @@ def grid_path_phase(torch, dev, params, dcfg, lats, cam, smi, tf_out):
                 launches=fwd_launches["sphere_trace_grid"])
 
 
+F8 = 64        # frames per batch in phase 8 (bench.py's batched headline)
+F8_PLAIN = 4   # frames of phase 8's kernel-vs-plain comparison
+# Phase 8's whole path at F=4 against the plain versions with their GEMM:
+# the least share of hits agreeing, and of rays within MARCH_TOL per field,
+# and the largest |diff|. Set from the first readings on an H100 (agreement
+# 1.00000; within: depth 0.999949, min_sdf 0.999989, depth_at_min 0.999738;
+# max 6.1e-3, 3.5e-3, 6.8e-3); with the in-order product every ray is equal.
+PATH_AGREE = 0.9999
+PATH_WITHIN = dict(depth=0.9999, min_sdf=0.9999, depth_at_min=0.9995)
+PATH_MAX = 2e-2
+
+
+def quantiles(x, ps=(0.5, 0.95, 1.0)):
+    """Quantiles of a 1-D tensor by sorting (torch.quantile refuses more
+    than 2^24 elements)."""
+    s = x.flatten().sort().values
+    return [s[int(round(p * (s.numel() - 1)))].item() for p in ps] if s.numel() else [0.0] * len(ps)
+
+
+def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
+    """Phase 8, bench.py's batched headline: render_batched_c2f over 64
+    frames of 512^2 (the bench latent + 0.001 jitter each, one pinhole
+    camera, the proxy with its margins, verify caps (2, 4, 12), 50 steps)
+    on the rounds scheduler, verify_hits (a) "march", (b) "polish" and (c)
+    "polish-all", the two polish modes with finalize_hits_batched (and
+    (c) its weak mask) in the timed region; (a) again with every level and
+    round on K1-multi; render_depth_batched at F=64. Then, outside the
+    counted run: K1-multi against K1 and against its plain version on the
+    verify stage's first round at F=64, render_depth_batched against K1,
+    and the kernel path against the plain versions at F=4."""
+    import types
+
+    from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+    from dist_renderer_tpu_torch.profile_render import batched_setup
+
+    print(f"\n== phase 8: the batched headline, F={F8} x {IMG}x{IMG}, rounds ==")
+    march = cfg.march
+    n = IMG * IMG
+    batch, lats, packed = batched_setup(dev, F8, IMG, SEED + 9)
+    ob = origins[None, :1].expand(F8, 1, 3)
+    vb = dirs[None].expand(F8, n, 3)
+
+    def timed(fn, reps=3):
+        """(last output, median ms of reps after a warm-up), CUDA events."""
+        out = fn()
+        ms = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return out, sorted(ms)[len(ms) // 2], ms
+
+    counters = (bm.sphere_trace_persistent, bm.sphere_trace_batched)
+    for c in counters:
+        c.launches = 0
+    rows = {}
+    outs = {}
+    with torch.no_grad():
+        for name, vh, pers in (("a", "march", True), ("b", "polish", True),
+                               ("c", "polish-all", True), ("a_multi", "march", False)):
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, ms, all_ms = timed(lambda: batch(vh, persistent=pers))
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            outs[name] = out
+            check(torch.isfinite(out.depth).all().item()
+                  and torch.isfinite(out.min_sdf).all().item(),
+                  f"phase 8 ({name}): non-finite depth or margin")
+            check(out.depth.shape == (F8, n), f"phase 8 ({name}): wrong shape")
+            hf = out.hit.float().mean().item()
+            rows[name] = dict(verify_hits=vh, persistent=pers, ms=ms, all_ms=all_ms,
+                              ms_per_frame=ms / F8, mrays_s=F8 * n / ms / 1e3,
+                              hit_frac=hf, peak_gib=peak)
+            print(f"({name}) verify_hits={vh!r}{'' if pers else ', every level and round on K1-multi'}"
+                  f"{', finalize in the timed region' if vh != 'march' else ''}: "
+                  f"{rows[name]['mrays_s']:.3f} Mrays/s, {ms / F8:.3f} ms/frame "
+                  f"(median of 3 batches, {[round(m, 1) for m in all_ms]} ms), "
+                  f"hit_frac {hf:.4f}, peak memory {peak:.2f} GiB  [{smi}]", flush=True)
+            check(hf > 0.05, f"phase 8 ({name}) shows almost nothing of the shape")
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        dd_out = bm.render_depth_batched(params, dcfg, lats, ob, vb, march)
+        b.record()
+        torch.cuda.synchronize()
+        dd_ms = a.elapsed_time(b)
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"launches in phase 8's batches: {launches}")
+    for k, v in launches.items():
+        check(v > 0, f"phase 8 never launched {k}")
+    check(torch.equal(outs["a"].depth, outs["a_multi"].depth)
+          and torch.equal(outs["a"].hit, outs["a_multi"].hit),
+          "(a) on K1-multi differs from (a) on K1")
+
+    # flips of the polish modes against march-verify, depth on common hits
+    ha = outs["a"].hit
+    for name in ("b", "c"):
+        o = outs[name]
+        flips = (o.hit != ha)
+        both = o.hit & ha
+        q = quantiles((o.depth - outs["a"].depth).abs()[both])
+        rows[name].update(flips=int(flips.sum()), flip_of_hits=flips.sum().item() / max(int(ha.sum()), 1),
+                          flip_of_rays=flips.float().mean().item(),
+                          lost=int((ha & ~o.hit).sum()), gained=int((o.hit & ~ha).sum()),
+                          depth_p50=q[0], depth_p95=q[1], depth_max=q[2])
+        r = rows[name]
+        print(f"({name}) vs (a): {r['flips']} hit flips = {r['flip_of_hits']:.4%} of (a)'s "
+              f"hits ({r['lost']} lost, {r['gained']} gained), {r['flip_of_rays']:.4%} of "
+              f"rays; |depth diff| on {int(both.sum())} common hits p50 {q[0]:.3e} "
+              f"p95 {q[1]:.3e} max {q[2]:.3e}")
+
+    # K1-multi against K1 on the rounds' own inputs: the verify stage's
+    # first round (the first full-decoder launch of a batch)
+    seen = []
+    real = bm.batched_trace_padded
+
+    def spy(sh, *a, **kw):
+        if sh is packed[0] and not seen:
+            seen.append([x.clone() if torch.is_tensor(x) else x for x in a])
+        return real(sh, *a, **kw)
+
+    bm.batched_trace_padded = spy
+    try:
+        with torch.no_grad():
+            batch("march")
+    finally:
+        bm.batched_trace_padded = real
+    bank, o_r, v_r, m_r, seed_r, act_r, block, salvage = seen[0][:8]
+    grid = lambda p: real(packed[0], bank, o_r, v_r, m_r, seed_r, act_r, block,
+                          salvage, True, p)
+    with torch.no_grad():
+        km, k1 = grid(False), grid(True)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(getattr(km, f), getattr(k1, f)) for f in TRACE_FIELDS)
+        km_ms, k1_ms = cuda_ms(lambda: grid(False)), cuda_ms(lambda: grid(True))
+        # its plain version on the same rays, 8 frames at a time (memory)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        parts = [real(packed[0], bank[:, i:i + 8], o_r[i:i + 8], v_r[i:i + 8], m_r,
+                      seed_r[i:i + 8], act_r[i:i + 8], block, salvage, False, False)
+                 for i in range(0, F8, 8)]
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+    plain = types.SimpleNamespace(**{f: torch.cat([getattr(p, f) for p in parts])
+                                     for f in ("depth", "hit", "min_sdf", "depth_at_min")})
+    d_multi = march_diff(km, plain)
+    steps = int(km.steps_per_ray.sum())
+    n_rays = km.steps_per_ray.numel()
+    b_multi = bound(steps * macs_per_eval(packed[0]), march_bytes(n_rays, packed[0], bank))
+    print(f"K1-multi on the verify stage's first round ({o_r.shape[0]} frames x "
+          f"{o_r.shape[1]} rays, cap {m_r.max_steps}, {steps} active ray-steps): == K1 bit "
+          f"for bit: {exact}; {km_ms:.3f} ms vs K1 {k1_ms:.3f} ms; vs plain "
+          f"({plain_ms:.1f} ms): {march_line(d_multi)} (bound {b_multi[0]:.3f} ms, "
+          f"{b_multi[1]})", flush=True)
+    check(exact, "K1-multi differs from K1 on the verify stage's first round")
+    check(march_ok(d_multi), f"K1-multi disagrees with its plain version: "
+          f"{march_line(d_multi)} (bars: agreement >= {MARCH_AGREE}, |diff| <= {MARCH_TOL})")
+
+    # render_depth_batched (K1-multi) against K1 on the same rays
+    with torch.no_grad():
+        shared_f = bm.pack_shared(params, dcfg)
+        ref = real(shared_f, bm.fold_bias_bank(params, lats, dcfg, shared_f),
+                   ob.expand(F8, n, 3), vb, march, None,
+                   torch.ones((F8, n), dtype=torch.bool, device=dev), 512, True,
+                   True, True)
+        torch.cuda.synchronize()
+    dd_exact = torch.equal(dd_out[0], ref.depth) and torch.equal(dd_out[1], ref.hit)
+    print(f"render_depth_batched at F={F8} (K1-multi, every ray from its sphere entry): "
+          f"{dd_ms:.1f} ms, hit_frac {dd_out[1].float().mean().item():.4f}; == K1 bit "
+          f"for bit: {dd_exact}", flush=True)
+    check(dd_exact, "render_depth_batched differs from K1 on the same rays")
+
+    # the kernel path against the plain versions at F=4, march-verify: with
+    # the GEMM, and with the in-order product in its place
+    from dist_renderer_tpu_torch.models.decoder import dot_f32_in_order
+    from dist_renderer_tpu_torch.ops.kernels import march_body
+
+    fields = ("depth", "hit", "min_sdf", "depth_at_min")
+    with torch.no_grad():
+        rk = batch("march", f=F8_PLAIN, return_anchor=True)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        rp = batch("march", f=F8_PLAIN, use_kernel=False, return_anchor=True)
+        b.record()
+        torch.cuda.synchronize()
+        gemm_ms = a.elapsed_time(b)
+        # the in-order product against a loop over k, bit for bit
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 10)
+        bf = lambda *sh: torch.randn(sh, generator=gen).to(torch.bfloat16).float().to(dev)
+        ok_dot = True
+        for x, w in ((bf(1000, 515), bf(515, 70)), (bf(4096, 3), bf(3, 512))):
+            loop = torch.zeros((x.shape[0], w.shape[1]), device=dev)
+            for k in range(x.shape[1]):
+                loop = loop + x[:, k:k + 1] * w[k]
+            ok_dot &= torch.equal(dot_f32_in_order(x, w), loop)
+        check(ok_dot, "the in-order product differs from its loop over k")
+        real_dot = march_body.dot_f32
+        march_body.dot_f32 = dot_f32_in_order
+        try:
+            a.record()
+            ro = batch("march", f=F8_PLAIN, use_kernel=False, return_anchor=True)
+            b.record()
+            torch.cuda.synchronize()
+        finally:
+            march_body.dot_f32 = real_dot
+        order_ms = a.elapsed_time(b)
+    # The plain versions' GEMM picks its summation order by the launch's
+    # shape (the rays a scheduler left live); a last-bit difference in a
+    # coarse level moves a seed, and that ray's march then stops elsewhere
+    # inside the convergence ball (eps 2e-3). With the k sum in the
+    # kernels' order the plain path must give every ray's bits.
+    differ = lambda x, y: ~((x == y) | (x.isnan() & y.isnan())) if x.is_floating_point() else x != y
+    n_diff = {f: int(differ(getattr(rk, f), getattr(ro, f)).sum()) for f in fields}
+    print(f"(a) at F={F8_PLAIN}, kernels vs plain versions with the in-order product "
+          f"({order_ms:.0f} ms; product == its loop over k: {ok_dot}): rays that "
+          f"differ: {n_diff}", flush=True)
+    check(not any(n_diff.values()),
+          f"phase 8's kernel path differs from the plain versions with the kernels' "
+          f"summation order at F={F8_PLAIN}: {n_diff} rays")
+    d_path = march_diff(rk, rp)
+    same = rk.hit == rp.hit
+    both = rk.hit & rp.hit
+    within = dict(
+        depth=((rk.depth - rp.depth).abs()[both] <= MARCH_TOL).float().mean().item(),
+        min_sdf=((rk.min_sdf - rp.min_sdf).abs()[same] <= MARCH_TOL).float().mean().item(),
+        depth_at_min=((rk.depth_at_min - rp.depth_at_min).abs()[same]
+                      <= MARCH_TOL).float().mean().item())
+    d_path.update(within=within, in_order_rays_differing=n_diff,
+                  gemm_ms=gemm_ms, in_order_ms=order_ms)
+    print(f"(a) at F={F8_PLAIN}, kernels vs plain versions with the GEMM ({gemm_ms:.0f} ms): "
+          f"{march_line(d_path)}; within {MARCH_TOL}: " + ", ".join(
+              f"{k} {v:.6f}" for k, v in within.items()), flush=True)
+    check(d_path["agree"] >= PATH_AGREE and max_err(d_path) <= PATH_MAX
+          and all(within[k] >= v for k, v in PATH_WITHIN.items()),
+          f"phase 8's kernel path disagrees with the plain versions at F={F8_PLAIN}: "
+          f"{march_line(d_path)}, within {MARCH_TOL}: {within} (bars: agreement >= "
+          f"{PATH_AGREE}, max |diff| <= {PATH_MAX}, within {MARCH_TOL} on at least "
+          f"{PATH_WITHIN} of the rays)")
+    return dict(rows=rows, launches=launches, k1_multi=dict(
+        ms=km_ms, k1_ms=k1_ms, plain_ms=plain_ms, d=d_multi, bound_ms=b_multi[0],
+        bound_by=b_multi[1], ray_steps=steps, exact=exact),
+        render_depth_ms=dd_ms, path_vs_plain=d_path)
+
+
 def cli_phase(torch, smi):
     """Phase 7: the command-line tasks and the server, in process, on the
     committed torus 8x512 decoder, each into a temporary --out."""
@@ -539,7 +793,7 @@ def cli_phase(torch, smi):
         precise_bias_grads_call, precise_sdg_call,
     )
     from dist_renderer_tpu_torch.tasks import (
-        depth_completion, multiview, pose_refine, render_demo, serve,
+        batched_render, depth_completion, multiview, pose_refine, render_demo, serve,
     )
     from dist_renderer_tpu_torch.tasks.common import add_common_args
 
@@ -602,6 +856,20 @@ def cli_phase(torch, smi):
                   ["--fast", "--img", "128", "--views", "3", "--steps", "3",
                    "--out", out], fits)
         fit_ok("multiview", res, out)
+
+        # config #5 cut to size: 16 latents x 4 views at 256^2 through
+        # render_batched_c2f with the bench proxy, in chunks of 64 frames
+        res = run("batched_render", batched_render.main,
+                  ["--fast", "--pallas", "--proxy", os.path.join(HERE, ".bench_proxy.npz"),
+                   "--stream", "--latents", "16", "--views", "4", "--img", "256",
+                   "--chunk", "64"], ("sphere_trace_persistent",))
+        check(res["hit_frac"] > 0.01 and math.isfinite(res["mean_hit_depth"]),
+              "batched_render rendered almost nothing")
+        times["batched_render_mrays_s"] = res["Mrays_per_s"]
+        times["batched_render_hit_frac"] = res["hit_frac"]
+        print(f"batched_render: {res['Mrays_per_s']} Mrays/s, hit_frac "
+              f"{res['hit_frac']}, {res['seconds']} s for {res['total_rays']} rays, "
+              f"peak {res.get('peak_hbm_gb')} GB  [{smi}]", flush=True)
 
         ap = argparse.ArgumentParser()
         add_common_args(ap)
@@ -924,10 +1192,37 @@ def main():
     check(within >= 0.999, "depth differs from the plain render by > 1e-3 on "
           f"{1 - within:.4%} of common hits (bar: 0.1%)")
 
+    # the same request with polish-verify: the verify stage re-marches band
+    # and unresolved rays only, compose()'s Newton polish finalizes hits
+    cfg_pol = dataclasses.replace(
+        cfg, march=dataclasses.replace(march, proxy_verify_hits="polish"),
+        grad=dataclasses.replace(cfg.grad, polish_iters=2))
+    fac_pol = make_march_factory(params, dcfg, cfg_pol, march_params=pparams,
+                                 march_dcfg=pcfg)
+    render(sdf_fn, lats[0], cam, cfg_pol, fac_pol)  # warm-up
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    pol = render(sdf_fn, lats[0], cam, cfg_pol, fac_pol)
+    b.record()
+    torch.cuda.synchronize()
+    polish_ms = a.elapsed_time(b)
+    polish_agree = (pol.mask == outs[0].mask).float().mean().item()
+    both = pol.mask & outs[0].mask
+    q = quantiles((pol.depth - outs[0].depth).abs()[both])
+    print(f"polish-verify request (proxy_verify_hits='polish', polish_iters=2): "
+          f"{polish_ms:.3f} ms; hit agreement with the march-verify render "
+          f"{polish_agree:.5f}, |depth diff| on {int(both.sum())} common hits p50 "
+          f"{q[0]:.3e} p95 {q[1]:.3e} max {q[2]:.3e}  [{smi}]", flush=True)
+    check(torch.isfinite(pol.depth).all().item() and polish_agree >= 0.99,
+          f"the polish-verify render disagrees with march-verify ({polish_agree:.4f} < 0.99)")
+
     fb = fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, plain_sdf, cfg, cam,
                        lats, latent, counters + (precise_bias_grads_call,), smi)
     g6 = grid_path_phase(torch, dev, params, dcfg, lats, cam, smi, outs[0])
     tasks = cli_phase(torch, smi)
+    b8 = batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi)
+    km = b8["k1_multi"]
 
     src = "dist_renderer_tpu_torch/csrc/"
     kernels = [
@@ -964,6 +1259,12 @@ def main():
              ms=kg[0]["ms"], plain_ms=kg[0]["plain_ms"],
              bound_ms=kg[0]["bound_ms"], bound_by=kg[0]["bound_by"],
              library_ms=None),
+        dict(name="sphere_trace_batched (K1-multi)", route="cuda",
+             source=src + "fused_march.cu",
+             replaces="dist_renderer_tpu/ops/pallas/batched_march.py:371",
+             launches=b8["launches"]["sphere_trace_batched"],
+             max_abs_err=max_err(km["d"]), ms=km["ms"], plain_ms=km["plain_ms"],
+             bound_ms=km["bound_ms"], bound_by=km["bound_by"], library_ms=None),
     ]
     print(json.dumps({"fwd_ms_per_frame": fwd_ms, "plain_fwd_ms": plain_ms,
                       "fwdbwd_ms_per_frame": fb["fwdbwd_ms"],
@@ -981,7 +1282,18 @@ def main():
                                              plain_ms=r["plain_ms"],
                                              ray_steps=r["steps"],
                                              bound_ms=r["bound_ms"]) for r in kg],
-                      "task_ms": tasks, "card": smi}))
+                      "polish_fwd_ms": polish_ms, "polish_hit_agreement": polish_agree,
+                      "task_ms": tasks,
+                      "batched": dict(
+                          frames=F8, modes={k: {kk: vv for kk, vv in r.items()
+                                                if kk != "verify_hits"}
+                                            for k, r in b8["rows"].items()},
+                          launches=b8["launches"],
+                          k1_multi_ms=km["ms"], k1_same_inputs_ms=km["k1_ms"],
+                          k1_multi_plain_ms=km["plain_ms"],
+                          k1_multi_ray_steps=km["ray_steps"],
+                          render_depth_batched_ms=b8["render_depth_ms"]),
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 // The tile march shared by K1 (batched_march.cu: a persistent grid that
-// strides over the tiles, bias bank [total, F_pad]) and K1-grid
-// (fused_march.cu: one block per tile, the folded biases as one column).
-// The two kernels differ only in how their blocks take tiles, so on the
-// same rays they give the same bits.
+// strides over the tiles, bias bank [total, F_pad]), K1-grid and K1-multi
+// (fused_march.cu: one block per tile; K1-grid's folded biases as one
+// column, K1-multi's bank as K1's). The kernels differ only in how their
+// blocks take tiles, so on the same rays they give the same bits.
 //
 // Computes, for one tile of TILE rays: the full bracket-secant sphere
 // trace of each ray (fresh carry, full budget, salvage optional), each

@@ -55,6 +55,28 @@ def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def dot_f32_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """dot_f32 with the k sum taken in order from 0, one rounding per
+    product and per add: the march kernels' order. Put in dot_f32's place,
+    it makes the plain versions give the kernels' bits (a verification
+    aid; no render path calls it). On a CUDA tensor it launches
+    csrc/dot_in_order.cu, on the CPU it loops over k."""
+    if a.is_cuda:
+        from dist_renderer_tpu_torch.ops.kernels.build import load, ptr, stream_of
+
+        a = a.to(torch.float32).contiguous()
+        b = b.to(device=a.device, dtype=torch.float32).contiguous()
+        out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float32,
+                          device=a.device)
+        load().call("drt_dot_in_order", ptr(a), ptr(b), ptr(out), a.shape[0],
+                    a.shape[1], b.shape[1], stream_of(a))
+        return out
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k in range(a.shape[1]):
+        out = out + a[:, k:k + 1] * b[k]
+    return out
+
+
 def decoder_apply(
     params: Params,
     latent: torch.Tensor,
@@ -89,6 +111,54 @@ def decoder_apply(
     if cfg.final_tanh:
         sdf = torch.tanh(sdf)
     return sdf.reshape(pts_shape)
+
+
+def decoder_apply_with_dd(
+    params: Params,
+    latent: torch.Tensor,
+    points: torch.Tensor,
+    dirs: torch.Tensor,
+    cfg: DecoderConfig = DecoderConfig(),
+):
+    """(sdf, directional derivative of sdf along dirs) in one pass: the
+    tangent chain rides the value's forward pass, gated by the shared
+    pre-activations. Both in fp32; the value equals decoder_apply's. (The
+    JAX package takes the value as a bf16x3 split and the tangent in bf16,
+    workarounds for its TPU.)"""
+    pts_shape = points.shape[:-1]
+    x = points.reshape(-1, 3).to(torch.float32)
+    v = dirs.reshape(-1, 3).to(torch.float32)
+    n = x.shape[0]
+    lat = latent.shape[-1]
+    z = latent.reshape(-1, lat).to(torch.float32).expand(n, -1)
+    inp = torch.cat([z, x], dim=-1)
+    # d(inp)/dd along the ray: the latent rows are constant, xyz moves by v
+    t_inp = torch.cat([torch.zeros_like(z), v], dim=-1)
+    h, t = inp, t_inp
+    n_layers = len(params["layers"])
+    for i, layer in enumerate(params["layers"]):
+        if i in cfg.latent_in:
+            h = torch.cat([h, inp], dim=-1)
+            t = torch.cat([t, t_inp], dim=-1)
+        elif cfg.xyz_in_all and 0 < i < n_layers - 1:
+            h = torch.cat([h, x], dim=-1)
+            t = torch.cat([t, v], dim=-1)
+        pre = h @ layer["w"] + layer["b"]
+        t = t @ layer["w"]
+        if i == n_layers - 1:
+            if cfg.use_tanh:
+                pre = torch.tanh(pre)
+                t = t * (1.0 - pre * pre)
+            h = pre
+        else:
+            gate = pre > 0
+            h = torch.relu(pre)
+            t = torch.where(gate, t, torch.zeros_like(t))
+    s, dd = h[..., 0], t[..., 0]
+    if cfg.final_tanh:
+        s = torch.tanh(s)
+        dd = dd * (1.0 - s * s)
+    return s.reshape(pts_shape), dd.reshape(pts_shape)
 
 
 class PreciseSDF:

@@ -1,6 +1,6 @@
-"""Multi-frame march: shared weights + a per-frame bias bank, the
-persistent march kernel (K1) and the coarse-to-fine pipeline that drives
-it (``render_batched_c2f``).
+"""Multi-frame march: shared weights + a per-frame bias bank, the march
+kernels K1 and K1-multi, the rounds scheduler and the coarse-to-fine
+pipeline that drives them (``render_batched_c2f``).
 
 After latent folding the decoder's big weight matrices are latent-
 independent: frames differ only in the per-layer bias vectors
@@ -9,8 +9,10 @@ weights, each ray reading its frame's column of the bias bank.
 
 K1, ``sphere_trace_persistent``, replaces the JAX package's
 ``ops/pallas/batched_march.py::pallas_sphere_trace_persistent``
-(``_make_persistent_kernel``). On a CUDA tensor it launches
-``csrc/batched_march.cu``; on a CPU tensor, or with ``use_kernel=False``,
+(``csrc/batched_march.cu``: a persistent grid striding over 32-ray tiles);
+K1-multi, ``sphere_trace_batched``, replaces ``pallas_sphere_trace_batched``
+(``csrc/fused_march.cu``: one block per tile). On a CUDA tensor each
+wrapper launches its kernel; on a CPU tensor, or with ``use_kernel=False``,
 it runs the plain version (``march_rows_plain``, built on
 ``march_body.march_loop``).
 """
@@ -227,20 +229,41 @@ def pack_rays(origins, dirs, rs: RaySetup) -> torch.Tensor:
 
 
 def march_rows_cuda(shared, bank, rays_per_frame: int, origins, dirs,
-                    rs: RaySetup, march: MarchConfig,
-                    salvage: bool) -> torch.Tensor:
-    """K1 on the card: one launch marches every ray -> [8, N] rows."""
+                    rs: RaySetup, march: MarchConfig, salvage: bool,
+                    persistent: bool = True) -> torch.Tensor:
+    """One launch on the card marches every ray -> [8, N] rows: K1 (the
+    persistent grid) or, with persistent=False, K1-multi (a block per
+    tile)."""
     n = origins.shape[0]
     rays = pack_rays(origins, dirs, rs)
     check_cuda_inputs(shared, bank, rays)
     out = torch.empty((8, n), dtype=torch.float32, device=rays.device)
-    lib = build.load()
-    lib.call("drt_sphere_trace_persistent", build.ptr(rays), n, rays_per_frame,
-             *march_args(shared, bank), march.convergence_eps,
-             march.depth_eps, march.alpha, march.far_margin, march.max_steps,
-             int(salvage), build.ptr(out), build.stream_of(rays))
-    sphere_trace_persistent.launches += 1
+    entry = ("drt_sphere_trace_persistent" if persistent
+             else "drt_sphere_trace_batched")
+    build.load().call(entry, build.ptr(rays), n, rays_per_frame,
+                      *march_args(shared, bank), march.convergence_eps,
+                      march.depth_eps, march.alpha, march.far_margin,
+                      march.max_steps, int(salvage), build.ptr(out),
+                      build.stream_of(rays))
+    if persistent:
+        sphere_trace_persistent.launches += 1
+    else:
+        sphere_trace_batched.launches += 1
     return out
+
+
+def _sphere_trace(shared, bank, frame_of_ray, origins, dirs, march,
+                  init_depth, init_active, salvage, rays_per_frame,
+                  use_kernel, persistent) -> TraceResult:
+    rpf = origins.shape[0] if rays_per_frame is None else rays_per_frame
+    rs = ray_setup(origins, dirs, march, init_depth, init_active)
+    if use_kernel and origins.is_cuda:
+        out = march_rows_cuda(shared, bank, rpf, origins, dirs, rs, march,
+                              salvage, persistent)
+    else:
+        out = march_rows_plain(shared, bank, frame_of_ray, origins, dirs, rs,
+                               march, salvage, rpf >= origins.shape[0])
+    return trace_from_rows(out, rs, origins, dirs, march)
 
 
 def sphere_trace_persistent(
@@ -264,15 +287,40 @@ def sphere_trace_persistent(
     rays one frame) tells the kernel which bank column a ray reads:
     frame = index // rays_per_frame, which must agree with
     ``frame_of_ray``."""
-    rpf = origins.shape[0] if rays_per_frame is None else rays_per_frame
-    rs = ray_setup(origins, dirs, march, init_depth, init_active)
-    if use_kernel and origins.is_cuda:
-        out = march_rows_cuda(shared, bias_bank, rpf, origins, dirs, rs,
-                              march, salvage)
-    else:
-        out = march_rows_plain(shared, bias_bank, frame_of_ray, origins, dirs,
-                               rs, march, salvage, rpf >= origins.shape[0])
-    return trace_from_rows(out, rs, origins, dirs, march)
+    return _sphere_trace(shared, bias_bank, frame_of_ray, origins, dirs,
+                         march, init_depth, init_active, salvage,
+                         rays_per_frame, use_kernel, True)
+
+
+sphere_trace_persistent.launches = 0
+
+
+def sphere_trace_batched(
+    shared: SharedDecoder,
+    bias_bank: torch.Tensor,       # [total, F_pad]
+    frame_of_ray: torch.Tensor,    # [N] int (frame-major, rays_per_frame each)
+    origins: torch.Tensor,         # [N, 3]
+    dirs: torch.Tensor,            # [N, 3]
+    march: MarchConfig,
+    init_depth: Optional[torch.Tensor] = None,
+    init_active: Optional[torch.Tensor] = None,
+    block: int = 512,
+    salvage: bool = True,
+    rays_per_frame: Optional[int] = None,
+    use_kernel: bool = True,
+) -> TraceResult:
+    """K1-multi: K1's contract (``sphere_trace_persistent``) on a grid of
+    one thread block per 32-ray tile (``csrc/fused_march.cu``), the
+    counterpart of the JAX package's ``pallas_sphere_trace_batched``. The
+    two kernels inline one tile march, so on the same rays they give the
+    same bits; its plain version is K1's. salvage=False leaves
+    bracketed-but-unconverged rays at the step cap unresolved."""
+    return _sphere_trace(shared, bias_bank, frame_of_ray, origins, dirs,
+                         march, init_depth, init_active, salvage,
+                         rays_per_frame, use_kernel, False)
+
+
+sphere_trace_batched.launches = 0
 
 
 def trace_from_rows(out: torch.Tensor, rs: RaySetup, origins, dirs,
@@ -290,9 +338,6 @@ def trace_from_rows(out: torch.Tensor, rs: RaySetup, origins, dirs,
         unresolved=out[6] > 0.5, steps_per_ray=steps_i,
         bracketed=out[7] > 0.5,
     )
-
-
-sphere_trace_persistent.launches = 0
 
 
 def pad_frames(o, v, seed, active):
@@ -329,16 +374,18 @@ def batched_trace_padded(
     block: int = 512,
     salvage: bool = True,
     use_kernel: bool = True,
+    persistent: bool = True,
 ) -> TraceResult:
-    """Frame-major multi-frame trace (K1); per-ray fields come back
-    [F, R]. steps_per_ray stays in the padded flat layout. use_kernel=False
+    """Frame-major multi-frame trace; per-ray fields come back [F, R].
+    steps_per_ray stays in the padded flat layout. persistent=True
+    marches on K1, False on K1-multi (the same bits); use_kernel=False
     runs the plain version on any device."""
     f, r = o.shape[0], o.shape[1]
     o_p, v_p, s_p, a_p, frame_of_ray, r_pad = pad_frames(o, v, seed, active)
-    res = sphere_trace_persistent(shared, bank, frame_of_ray, o_p, v_p, march,
-                                  s_p, init_active=a_p, block=block,
-                                  salvage=salvage, rays_per_frame=r_pad,
-                                  use_kernel=use_kernel)
+    trace = sphere_trace_persistent if persistent else sphere_trace_batched
+    res = trace(shared, bank, frame_of_ray, o_p, v_p, march, s_p,
+                init_active=a_p, block=block, salvage=salvage,
+                rays_per_frame=r_pad, use_kernel=use_kernel)
     unflat = lambda x: x.reshape(f, r_pad)[:, :r]
     return TraceResult(
         depth=unflat(res.depth), hit=unflat(res.hit),
@@ -349,20 +396,215 @@ def batched_trace_padded(
     )
 
 
+def render_depth_batched(params: Params, dcfg: DecoderConfig,
+                         latents: torch.Tensor,    # [F, L]
+                         origins: torch.Tensor,    # [F, R, 3] (or [F, 1, 3])
+                         dirs: torch.Tensor,       # [F, R, 3]
+                         march: MarchConfig, block: int = 512,
+                         use_kernel: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched depth and hit [F, R] of F frames: one K1-multi march of
+    every ray from its sphere entry (the JAX package's config-#5 forward
+    path). ``block`` only steered the TPU's scheduling."""
+    f, r = dirs.shape[0], dirs.shape[1]
+    shared = pack_shared(params, dcfg)
+    bank = fold_bias_bank(params, latents, dcfg, shared)
+    res = batched_trace_padded(
+        shared, bank, origins.expand(f, r, 3), dirs, march, None,
+        torch.ones((f, r), dtype=torch.bool, device=dirs.device), block,
+        True, use_kernel, persistent=False)
+    return res.depth, res.hit
+
+
 class StageResult(NamedTuple):
-    """One scheduler pass, every field [F, N] in pixel order."""
+    """A scheduler pass or a whole batched render, every field [F, N] in
+    pixel order. The rounds scheduler fills only the optional fields its
+    flags ask for (each rides its re-pack sorts); the work queue fills
+    them all. ``weak`` marks verify_hits="polish-all"'s weak candidates
+    (finalize_hits_batched's ``weak``)."""
 
     depth: torch.Tensor
     hit: torch.Tensor
     min_sdf: torch.Tensor
-    depth_at_min: torch.Tensor
-    last_sdf: torch.Tensor
-    steps: torch.Tensor
-    unresolved: torch.Tensor
+    depth_at_min: Optional[torch.Tensor] = None
+    last_sdf: Optional[torch.Tensor] = None
+    steps: Optional[torch.Tensor] = None
+    unresolved: Optional[torch.Tensor] = None
+    weak: Optional[torch.Tensor] = None
 
 
 def not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _sort_fields(k: torch.Tensor, fields: dict):
+    """Stable sort of every frame's row of k; the fields ride along."""
+    k_s, idx = torch.sort(k, dim=1, stable=True)
+    return k_s, {nm: torch.gather(a, 1, idx) for nm, a in fields.items()}
+
+
+def _merge_cols(full: torch.Tensor, r: int, part: torch.Tensor) -> torch.Tensor:
+    """full [F, W] with its first r columns replaced by part (out of place)."""
+    return torch.cat([part, full[:, r:]], dim=1) if r < full.shape[1] else part
+
+
+def fine_march_rounds(
+    shared: SharedDecoder,
+    bank: torch.Tensor,
+    origins: torch.Tensor,         # [F, N, 3] or [F, 1, 3] (shared origin)
+    dirs: torch.Tensor,            # [F, N, 3]
+    key: torch.Tensor,             # [F, N] int: 0 rim / 1 interior / 2 skip
+    init_depth: torch.Tensor,      # [F, N] seed (NaN = start at sphere entry)
+    march: MarchConfig,
+    block: int = 512,
+    round_caps: Tuple[int, ...] = (4, 12),
+    diag: Optional[dict] = None,
+    live_frac: int = 2,
+    return_anchor: bool = False,
+    return_steps: bool = False,
+    return_last: bool = False,
+    return_unres: bool = False,
+    difficulty_repack: Optional[bool] = None,
+    use_kernel: bool = True,
+    persistent: bool = True,
+) -> StageResult:
+    """Multi-round straggler-rebinned fine march (the JAX package's
+    ``fine_march_rounds``); outputs in pixel order.
+
+    Every frame's rays are class-sorted once (one stable sort on the key,
+    the per-ray state gathered along). Round i caps every live ray at
+    round_caps[i] steps without salvage; survivors re-pack live-first by
+    difficulty (open, bracketed, dead; with difficulty_repack, default on
+    at F >= 32, refined by the quantized |last SDF sample|), and the last
+    round has the full budget and salvage. Each round re-seeds a fresh
+    carry from the ray's depth. Rounds march a live prefix of each frame:
+    the first N/live_frac columns, then N/4 and N/8, each rounded up to
+    ``block``; where the live rays of some frame overflow a prefix the
+    round marches the full width, so every live ray gets every round's
+    cap and the results are a pure function of each ray's (seed, class,
+    caps), whatever the layout. Those overflow guards are host decisions
+    on the live count (one device sync each). One scatter on the carried
+    pixel index un-sorts.
+
+    Flags pick the optional outputs (each is a payload of every re-pack
+    sort): return_anchor the depth of the min-SDF sample, return_steps
+    the step counts, return_last the last SDF sample and the unresolved
+    flag, return_unres the unresolved flag alone. diag: a dict that
+    receives each round's per-tile residency (max steps over a 32-ray
+    tile); with it every round marches the full width. persistent=False
+    marches every round on K1-multi instead of K1; use_kernel=False runs
+    the plain version."""
+    f, n = key.shape
+    dev = key.device
+    shared_origin = origins.shape[1] == 1
+    pix = torch.arange(n, device=dev).expand(f, n)
+    init0 = dict(vx=dirs[..., 0], vy=dirs[..., 1], vz=dirs[..., 2],
+                 d=init_depth, pix=pix)
+    if not shared_origin:
+        init0.update(ox=origins[..., 0], oy=origins[..., 1], oz=origins[..., 2])
+    if difficulty_repack is None:
+        difficulty_repack = f >= 32
+    carry_lsdf = difficulty_repack or return_last
+    key_s, st0 = _sort_fields(key, init0)
+    st0["live"] = key_s != 2
+    st0["hit"] = torch.zeros((f, n), dtype=torch.bool, device=dev)
+    st0["msdf"] = torch.full((f, n), float("inf"), device=dev)
+    st0["brk"] = torch.zeros((f, n), dtype=torch.bool, device=dev)
+    if return_anchor:
+        st0["dam"] = torch.where(torch.isfinite(st0["d"]), st0["d"], 0.0)
+    if return_steps:
+        st0["stp"] = torch.zeros((f, n), dtype=torch.int32, device=dev)
+    if carry_lsdf:
+        st0["lsdf"] = torch.full((f, n), float("inf"), device=dev)
+    out_fields = (["d", "hit", "msdf", "pix"]
+                  + (["dam"] if return_anchor else [])
+                  + (["stp"] if return_steps else [])
+                  + (["lsdf"] if return_last else [])
+                  + (["live"] if return_last or return_unres else []))
+
+    def fit(bucket: int, width: int, live: torch.Tensor) -> int:
+        """The columns a round marches: the bucket, unless the live rays
+        of some frame overflow it."""
+        if bucket >= width or diag is not None:
+            return width
+        return width if int(live.sum(dim=1).max()) > bucket else bucket
+
+    def run_round(ri, s, r, m, salvage):
+        """March the first r columns (current order); merge back."""
+        v_r = torch.stack([s["vx"][:, :r], s["vy"][:, :r], s["vz"][:, :r]], -1)
+        o_r = (origins.expand(f, r, 3) if shared_origin else torch.stack(
+            [s["ox"][:, :r], s["oy"][:, :r], s["oz"][:, :r]], -1))
+        res = batched_trace_padded(shared, bank, o_r, v_r, m, s["d"][:, :r],
+                                   s["live"][:, :r], block, salvage,
+                                   use_kernel, persistent)
+        if diag is not None:
+            diag[f"fine_r{ri}_block_residency"] = res.steps_per_ray.reshape(
+                -1, TILE).amax(dim=1)
+        s = dict(s)
+        was = s["live"][:, :r]
+        upd = lambda full, part: _merge_cols(full, r, torch.where(was, part, full[:, :r]))
+        if return_anchor:
+            # keyed on the msdf before this round: the anchor of the
+            # round that reached the min
+            s["dam"] = upd(s["dam"], torch.where(
+                res.min_sdf <= s["msdf"][:, :r], res.depth_at_min, s["dam"][:, :r]))
+        s["d"] = upd(s["d"], res.depth)
+        s["hit"] = upd(s["hit"], s["hit"][:, :r] | res.hit)
+        s["msdf"] = upd(s["msdf"], torch.minimum(s["msdf"][:, :r], res.min_sdf))
+        s["brk"] = upd(s["brk"], res.bracketed)
+        if return_steps:
+            r_pad = res.steps_per_ray.shape[0] // f
+            s["stp"] = upd(s["stp"], s["stp"][:, :r]
+                           + res.steps_per_ray.reshape(f, r_pad)[:, :r])
+        if carry_lsdf:
+            s["lsdf"] = upd(s["lsdf"], res.last_sdf)
+        s["live"] = upd(s["live"], res.unresolved)
+        return s
+
+    def repack(s):
+        """Live-first re-pack by remaining work (one payload sort)."""
+        if difficulty_repack:
+            eps = march.convergence_eps
+            bins = torch.tensor([4 * eps, 16 * eps, 64 * eps],
+                                dtype=torch.float32, device=dev)
+            qf = torch.bucketize(torch.nan_to_num(s["lsdf"], posinf=1e9).abs(),
+                                 bins, right=True)
+            k2 = torch.where(~s["live"], 99, torch.where(s["brk"], 4, 0) + qf)
+        else:
+            k2 = torch.where(~s["live"], 99, torch.where(s["brk"], 1, 0))
+        k2_s, out = _sort_fields(k2.to(torch.int32),
+                                 {nm: a for nm, a in s.items() if nm != "live"})
+        out["live"] = k2_s < 99
+        return out
+
+    def rounds(width, st):
+        """Every round and re-pack on the first `width` columns (every
+        live ray lies there); the dead suffix rejoins at the end."""
+        suffix = {nm: st[nm][:, width:] for nm in out_fields}
+        st = {nm: a[:, :width] for nm, a in st.items()}
+        for ri, cap in enumerate(round_caps):
+            m = dataclasses.replace(march, max_steps=min(cap, march.max_steps))
+            bucket = width
+            if ri > 0:
+                st = repack(st)
+                bucket = min(_round_up(max(n // 4, block), block), width)
+            st = run_round(ri, st, fit(bucket, width, st["live"]), m, False)
+        # the final round: the full budget, salvage on
+        st = repack(st)
+        bucket = min(_round_up(max(n // 8, block), block), width)
+        st = run_round(len(round_caps), st, fit(bucket, width, st["live"]),
+                       march, True)
+        return {nm: torch.cat([st[nm], suffix[nm]], dim=1) for nm in out_fields}
+
+    prefix = min(_round_up(max(n // max(live_frac, 1), block), block), n)
+    outd = rounds(fit(prefix, n, st0["live"]), st0)
+    # one un-sort back to pixel order
+    od = {nm: torch.empty_like(a).scatter_(1, outd["pix"], a)
+          for nm, a in outd.items() if nm != "pix"}
+    return StageResult(
+        depth=od["d"], hit=od["hit"], min_sdf=od["msdf"],
+        depth_at_min=od.get("dam"), last_sdf=od.get("lsdf"),
+        steps=od.get("stp"), unresolved=od.get("live"))
 
 
 def render_batched_c2f(
@@ -377,7 +619,13 @@ def render_batched_c2f(
     backoff: float = 0.05,
     coarse_steps: int = 16,
     strides: Tuple[int, ...] = (16, 4),
-    scheduler: str = "auto",
+    round_caps: Tuple[int, ...] = (4, 12),
+    shared_origin: bool = False,
+    live_frac: int = 3,
+    return_anchor: bool = False,
+    return_steps: bool = False,
+    return_last: bool = False,
+    scheduler: str = "rounds",
     queue_caps: Tuple[int, ...] = (6, 16),
     queue_dense_frac: float = 0.5,
     warm=None,
@@ -388,53 +636,77 @@ def render_batched_c2f(
     verify_mode: str = "march",
     verify_band: str = "march",
     verify_hits: str = "march",
+    verify_round_caps: Optional[Tuple[int, ...]] = None,
     verify_gen_caps: Optional[Tuple[int, ...]] = None,
+    difficulty_repack: Optional[bool] = None,
     use_kernel: bool = True,
     packed=None,
+    persistent: bool = True,
 ) -> StageResult:
-    """Coarse-to-fine classified render of F frames: coarse levels (K1),
-    classification (ops/c2f.py), the fine march (K2 work queue) and, with
-    a proxy, the full-decoder verify march (K2 again).
+    """Coarse-to-fine classified render of F frames (the JAX package's
+    ``render_batched_c2f``): coarse levels (K1), classification
+    (ops/c2f.py), the fine march, and with a proxy a full-decoder verify
+    stage. The fine march runs on ``scheduler``: "rounds" (the default,
+    ``fine_march_rounds`` on K1, or on K1-multi with persistent=False),
+    "queue" (K2, one launch schedule equal to one uninterrupted march) or
+    "auto" (the queue at F=1, else rounds). The rounds scheduler fills the
+    optional StageResult fields its return_* flags ask for.
 
     With ``proxy`` the pyramid and the fine march run on the distilled
-    proxy decoder and a verify stage re-marches the full decoder:
-    proxy-hit rays seeded at (proxy depth - proxy_backoff), near-miss band
-    rays (margin < proxy_band) and unresolved rays from the sphere entry
-    (unresolved rays continue from their proxy depth); clear misses keep
-    the proxy's values. Depth and the hit mask are then full-decoder
-    march results.
+    proxy decoder and the verify stage re-marches the full decoder:
+    verify_hits="march" confirms every proxy hit with a march seeded at
+    (proxy depth - proxy_backoff) and re-marches near-miss band rays
+    (margin < proxy_band) from the sphere entry and unresolved rays from
+    their depth; clear misses keep the proxy's values. "polish" re-marches
+    only band and unresolved rays: confident proxy hits keep the proxy's
+    depth, and the caller finalizes them against the full decoder
+    (render()'s compose() demote, or finalize_hits_batched). "polish-all"
+    marches band rays of fine (non-skip) classes not at all: they ride
+    the hit channel as weak candidates seeded at their proxy min-SDF depth
+    (``weak``), for finalize_hits_batched(weak=...).
+    verify_round_caps / verify_gen_caps: the verify stage's cap schedules
+    (default: round_caps / queue_caps).
 
+    shared_origin marks a pinhole layout (one origin per frame); origins
+    of shape [F, 1, 3] mean the same. warm: optional (depth, hitish,
+    anchor, margin), each [F, H*W], from the previous optimizer
+    iteration's trace: the classification comes from them
+    (ops/c2f.py::warm_maps) and the coarse pyramid is skipped. ``packed``
+    optionally carries pre-packed weights, (shared, shared_proxy_or_None),
+    so a caller rendering many frames packs once. persistent=False
+    marches every level and round on K1-multi (the same bits as K1).
     use_kernel=False runs every kernel's plain version (on any device).
-    ``packed`` optionally carries pre-packed weights,
-    ((shared, shared_proxy_or_None)), so a caller rendering many frames
-    packs once. block / proxy_block / queue_dense_frac only steered the
-    TPU's scheduling and have no effect.
-
-    warm: optional (depth, hitish, anchor, margin), each [F, H*W], from
-    the previous optimizer iteration's trace: the classification comes
-    from them (ops/c2f.py::warm_maps) and the coarse pyramid is skipped.
-
-    The port runs the queue scheduler with verify_mode="march",
-    verify_band="march" and verify_hits="march"; the other modes and the
-    rounds scheduler raise NotImplementedError."""
+    block only rounds the rounds scheduler's prefix widths, as in the JAX
+    package; proxy_block and queue_dense_frac only steered the TPU's
+    scheduling and have no effect."""
     from dist_renderer_tpu_torch.ops.c2f import (
         classify_pyramid, plan_from_maps, warm_maps,
     )
     from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
 
+    if verify_mode not in ("march", "cert"):
+        raise ValueError(f"verify_mode must be 'march' or 'cert', got {verify_mode!r}")
+    if verify_band not in ("march", "probe"):
+        raise ValueError(f"verify_band must be 'march' or 'probe', got {verify_band!r}")
+    if verify_hits not in ("march", "polish", "polish-all"):
+        raise ValueError(f"verify_hits must be 'march', 'polish' or 'polish-all', "
+                         f"got {verify_hits!r}")
+    if verify_hits != "march" and (verify_mode != "march" or verify_band != "march"):
+        raise ValueError(
+            "verify_hits='polish' composes only with verify_mode='march' and "
+            "verify_band='march' (the cert/probe paths decide hits in-trace, "
+            "which 'polish' defers to the caller)")
     if verify_mode != "march" or verify_band != "march":
         not_ported(f"verify_mode={verify_mode!r}/verify_band={verify_band!r}",
-                    "A8 (ops/cert.py)")
-    if verify_hits != "march":
-        not_ported(f"verify_hits={verify_hits!r}", "A9")
+                   "A16 (ops/cert.py)")
+    if scheduler not in ("rounds", "queue", "auto"):
+        raise ValueError(f"scheduler must be 'rounds', 'queue' or 'auto', "
+                         f"got {scheduler!r}")
     f = origins.shape[0]
     h, w = img_hw
     n = h * w
     if scheduler == "auto":
         scheduler = "queue" if f == 1 else "rounds"
-    if scheduler != "queue":
-        not_ported(f"the {scheduler!r} fine-march scheduler",
-                    "B (rounds scheduler, F=64 batched)")
 
     if packed is None:
         packed = (pack_shared(params, dcfg),
@@ -452,7 +724,8 @@ def render_batched_c2f(
 
     def trace_level(o_l, v_l, seed, active, stride):
         return batched_trace_padded(shared_m, bank_m, o_l, v_l, coarse_march,
-                                    seed, active, block, True, use_kernel)
+                                    seed, active, block, True, use_kernel,
+                                    persistent)
 
     if warm is not None:
         maps = warm_maps(*warm, img_hw, backoff)
@@ -465,7 +738,7 @@ def render_batched_c2f(
         res = batched_trace_padded(
             shared, bank, o_full, dirs, march, None,
             torch.ones((f, n), dtype=torch.bool, device=dirs.device),
-            block, True, use_kernel)
+            block, True, use_kernel, persistent)
         r_pad = res.steps_per_ray.shape[0] // f
         return StageResult(res.depth, res.hit, res.min_sdf, res.depth_at_min,
                            res.last_sdf,
@@ -473,52 +746,98 @@ def render_batched_c2f(
                            res.unresolved)
 
     key, init_depth, skip = plan_from_maps(maps)
+    o_in = origins[:, :1] if shared_origin else origins
+    verify = proxy is not None
 
+    def fine_stage(sh, bk, key_s, seed_s, want_anchor=False,
+                   want_steps=False, want_last=False, want_unres=False,
+                   caps=None, qcaps=None) -> StageResult:
+        """One scheduler pass; the queue fills every field for free."""
+        if scheduler == "queue":
+            return queue_march(sh, bk, o_in, dirs, key_s, seed_s, march,
+                               gen_caps=qcaps or queue_caps,
+                               use_kernel=use_kernel)
+        return fine_march_rounds(
+            sh, bk, o_in, dirs, key_s, seed_s, march, block=block,
+            round_caps=caps or round_caps,
+            live_frac=live_frac, return_anchor=want_anchor,
+            return_steps=want_steps, return_last=want_last,
+            return_unres=want_unres, difficulty_repack=difficulty_repack,
+            use_kernel=use_kernel, persistent=persistent)
+
+    # polish-all seeds its weak candidates at the proxy's min-SDF depth
+    need_anchor = verify and verify_hits == "polish-all"
     st = merge_skip(
-        queue_march(shared_m, bank_m, o_full, dirs, key, init_depth, march,
-                    gen_caps=queue_caps, use_kernel=use_kernel),
+        fine_stage(shared_m, bank_m, key, init_depth,
+                   want_anchor=return_anchor or need_anchor,
+                   want_steps=return_steps, want_last=return_last,
+                   want_unres=verify),
         skip, maps.anchor.reshape(f, n), maps.margin.reshape(f, n))
-    if proxy is None:
+    if not verify:
         return st
-    key2, seed2 = verify_plan(st, proxy_band, proxy_backoff)
-    v2 = queue_march(shared, bank, o_full, dirs, key2, seed2, march,
-                     gen_caps=verify_gen_caps or queue_caps,
-                     use_kernel=use_kernel)
+
+    key2, seed2 = verify_plan(st, proxy_band, proxy_backoff, verify_hits, skip)
+    v2 = fine_stage(shared, bank, key2, seed2, want_anchor=return_anchor,
+                    want_steps=return_steps, want_last=return_last,
+                    caps=verify_round_caps, qcaps=verify_gen_caps)
     act2 = key2 != 2
-    # non-verified rays (clear misses, skips) keep their proxy values
-    pick = lambda a, b: torch.where(act2, a, b)
-    return StageResult(
+    # non-verified rays keep their incoming values: clear misses and skips
+    # in march mode, and in polish modes the confident proxy hits too,
+    # which must reach the caller's finalize
+    pick = lambda a, b: (None if a is None or b is None
+                         else torch.where(act2, a, b))
+    out = StageResult(
         depth=pick(v2.depth, st.depth), hit=pick(v2.hit, st.hit),
         min_sdf=pick(v2.min_sdf, st.min_sdf),
         depth_at_min=pick(v2.depth_at_min, st.depth_at_min),
-        last_sdf=pick(v2.last_sdf, st.last_sdf),
-        steps=st.steps + pick(v2.steps, torch.zeros_like(st.steps)),
-        unresolved=pick(v2.unresolved, torch.zeros_like(st.unresolved)),
-    )
+        steps=(None if v2.steps is None or st.steps is None
+               else st.steps + torch.where(act2, v2.steps, 0)))
+    if v2.last_sdf is not None and st.last_sdf is not None:
+        out = out._replace(last_sdf=pick(v2.last_sdf, st.last_sdf),
+                           unresolved=act2 & v2.unresolved)
+    if verify_hits == "polish-all":
+        weak = band_rays(st, proxy_band) & ~skip & ~out.hit
+        out = out._replace(depth=torch.where(weak, st.depth_at_min, out.depth),
+                           hit=out.hit | weak, weak=weak)
+    return out
 
 
 def merge_skip(st: StageResult, skip, anchor, margin) -> StageResult:
     """Skip-class rays never marched: their margin, anchor and last sample
     come from the coarse level, and they are not unresolved."""
+    keep = lambda a, b: None if a is None else torch.where(skip, b, a)
     return st._replace(
-        min_sdf=torch.where(skip, margin, st.min_sdf),
-        depth_at_min=torch.where(skip, anchor, st.depth_at_min),
-        last_sdf=torch.where(skip, margin, st.last_sdf),
-        unresolved=st.unresolved & ~skip,
+        min_sdf=keep(st.min_sdf, margin),
+        depth_at_min=keep(st.depth_at_min, anchor),
+        last_sdf=keep(st.last_sdf, margin),
+        unresolved=None if st.unresolved is None else st.unresolved & ~skip,
     )
 
 
-def verify_plan(st: StageResult, proxy_band: float, proxy_backoff: float):
-    """The verify stage's (key, seed) from a proxy stage result: proxy hits
-    re-march seeded at (depth - backoff), a ~2-evaluation confirmation
-    (key 1); unresolved rays continue from their depth and near-miss band
-    rays restart at the sphere entry (key 0); clear misses are skipped."""
-    hitish = st.hit | st.unresolved
-    seeded = st.hit & ~st.unresolved
-    band = (~hitish) & (st.min_sdf < proxy_band)
-    key = torch.where(seeded, 1, torch.where(hitish | band, 0, 2)).to(torch.int32)
-    nan = torch.full_like(st.depth, float("nan"))
-    seed = torch.where(seeded, st.depth - proxy_backoff,
-                       torch.where(st.unresolved, st.depth, nan))
-    return key, seed
+def band_rays(st: StageResult, proxy_band: float) -> torch.Tensor:
+    """Near-miss rays of a proxy stage: neither hit nor unresolved, with
+    a margin under proxy_band."""
+    return ~(st.hit | st.unresolved) & (st.min_sdf < proxy_band)
 
+
+def verify_plan(st: StageResult, proxy_band: float, proxy_backoff: float,
+                verify_hits: str = "march", skip=None):
+    """The verify stage's (key, seed) from a proxy stage result. "march":
+    proxy hits re-march seeded at (depth - backoff), a ~2-evaluation
+    confirmation (key 1); unresolved rays continue from their depth and
+    near-miss band rays restart at the sphere entry (key 0); clear misses
+    are skipped (key 2). "polish": band and unresolved rays only.
+    "polish-all": unresolved rays and band rays of the skip class (whose
+    coarse anchor localizes their dip only to a coarse cell) only."""
+    band = band_rays(st, proxy_band)
+    nan = torch.full_like(st.depth, float("nan"))
+    cont = torch.where(st.unresolved, st.depth, nan)
+    if verify_hits == "polish":
+        key = torch.where(st.unresolved | band, 0, 2)
+        return key.to(torch.int32), cont
+    if verify_hits == "polish-all":
+        key = torch.where(st.unresolved | (band & skip), 0, 2)
+        return key.to(torch.int32), cont
+    seeded = st.hit & ~st.unresolved
+    key = torch.where(seeded, 1, torch.where(st.hit | st.unresolved | band, 0, 2))
+    return key.to(torch.int32), torch.where(seeded, st.depth - proxy_backoff, cont)

@@ -226,7 +226,11 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
     width; misses outside the bucket keep the trace's margin as the value
     with the decoder's gradient at their anchor (LazyMargin); rays that
     never enter the bounding sphere take the geometric distance as the
-    value and keep the margin's gradient."""
+    value and keep the margin's gradient. With a proxy march and
+    ``proxy_verify_hits`` "polish" (or "polish-all") the trace's proxy hits
+    are unverified, and the Newton polish demotes the false ones (the
+    mask is then the trace's hits less those); it needs
+    ``GradConfig(mode="ift", polish_iters >= 2)``."""
     if trace is None:
         trace_fn = march_fn if march_fn is not None else (
             lambda p: sdf_fn(latent.detach(), p))
@@ -237,10 +241,22 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
     if g.mode == "ift" and g.fused_dd:
         not_ported("GradConfig.fused_dd (the fused value + directional "
                    "derivative pass)", "A16")
-    if (cfg.march.proxy_verify_hits in ("polish", "polish-all")
-            and getattr(march_fn, "proxy_march", False)):
-        not_ported("proxy_verify_hits='polish' (the polish demote of proxy "
-                   "false hits)", "A9")
+    # proxy_verify_hits="polish": the proxy trace's confident hits skipped
+    # the verify march, so the composition owns their verdict: the Newton
+    # polish re-anchors depth on the full decoder, and a hit whose polish
+    # walked and ended at a positive value above convergence_eps is a
+    # proxy false hit, demoted to a miss (its margin becomes that value)
+    demote = (cfg.march.proxy_verify_hits in ("polish", "polish-all")
+              and getattr(march_fn, "proxy_march", False))
+    if demote and (g.mode != "ift" or g.polish_iters < 2):
+        raise ValueError(
+            "proxy_verify_hits='polish' requires GradConfig(mode='ift', "
+            "polish_iters >= 2): the demote verdict comes from the "
+            "safeguarded Newton iterations, and mode='last_step' or "
+            "polish_iters=1 runs none of them")
+    # under demote an accepted step must shrink |f| geometrically: equal-|f|
+    # steps through a flat pocket would walk the depth at no cost
+    rho = 0.7 if demote else 1.0
     base = getattr(sdf_fn, "cheap", sdf_fn)
     use_march_g = march_fn is not None and not getattr(
         march_fn, "proxy_march", False)
@@ -250,6 +266,16 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
     sdg = sdf_fn.sdg_builder(g.recompute_block) if use_sdg else None
     min_denom = g.ift_min_denom
     extra = max(g.polish_iters - 1, 0)
+
+    def ift_depth(d0, s, dd, denom, hit, acc_any):
+        """The IFT depth, and the hit mask after the demote: under it a
+        flat-slope ray keeps its seed depth and no depth gradient (an IFT
+        step through the clamped denominator is noise), and a hit whose
+        Newton walked and ended above convergence_eps is a false dip."""
+        if not demote:
+            return d0 - s / denom, hit
+        depth = d0 - torch.where(dd < -min_denom, s, 0.0 * s) / denom
+        return depth, hit & ~(acc_any & (s.detach() > cfg.march.convergence_eps))
 
     def finish(depth, hit, normal_raw):
         depth = torch.where(hit, depth, torch.full_like(depth, cfg.background_depth))
@@ -266,19 +292,22 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
         vc = v.detach()
         s, dd, gr = sdg(latent, o + anchor[:, None] * v, vc)
         denom = torch.clamp(dd, max=-min_denom)
+        acc_any = torch.zeros_like(hit)
         for _ in range(extra):
             ok = hit & (dd < -min_denom)
             d_try = torch.where(ok, d0 - s.detach() / denom, d0)
             p_try = o + torch.where(hit, d_try, anchor)[:, None] * v
             s2, dd2, g2 = sdg(latent, p_try, vc)
-            accept = ok & (s2.detach().abs() <= s.detach().abs())
+            accept = ok & (s2.detach().abs() <= rho * s.detach().abs())
+            acc_any = acc_any | accept
             d0 = torch.where(accept, d_try, d0)
             s = torch.where(accept, s2, s)
             dd = torch.where(accept, dd2, dd)
             gr = torch.where(accept[:, None], g2, gr)
             denom = torch.clamp(dd, max=-min_denom)
-        depth, normal = finish(d0 - s / denom, hit, gr)
-        return depth, s, normal
+        depth, hit = ift_depth(d0, s, dd, denom, hit, acc_any)
+        depth, normal = finish(depth, hit, gr)
+        return depth, s, normal, hit
 
     def compose_xla(o, v, d0, anchor, hit):
         p_surf = o + anchor[:, None] * v
@@ -291,16 +320,19 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
             # extra Newton steps with the frozen denominator, safeguarded:
             # only off the clamp, and only where |f| does not grow
             ok = hit & (dd < -min_denom)
+            acc_any = torch.zeros_like(hit)
             for _ in range(extra):
                 d_try = torch.where(ok, d0 - s.detach() / denom, d0)
                 p_try = o + torch.where(hit, d_try, anchor)[:, None] * v
                 s2 = sdf_fn(latent, p_try)
-                accept = ok & (s2.detach().abs() <= s.detach().abs())
+                accept = ok & (s2.detach().abs() <= rho * s.detach().abs())
+                acc_any = acc_any | accept
                 d0 = torch.where(accept, d_try, d0)
                 s = torch.where(accept, s2, s)
                 p_surf = torch.where(accept[:, None], p_try, p_surf)
                 gr = None  # the normals are taken where the polish ended
-            depth = d0 - s / denom
+            # the slope gate stays frozen at the seed here
+            depth, hit = ift_depth(d0, s, dd, denom, hit, acc_any)
         else:  # "last_step": one unit marching step
             depth = d0 + s
         if cfg.normal_eps > 0.0:
@@ -314,7 +346,7 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
         elif gr is None:
             gr = _spatial_grad(g_fn, p_surf)
         depth, normal = finish(depth, hit, gr)
-        return depth, s, normal
+        return depth, s, normal, hit
 
     compose = compose_sdg if use_sdg else compose_xla
     n = origins.shape[0]
@@ -329,8 +361,8 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
         # hit-first stable order: hits, then misses in pixel order
         order = torch.sort((~trace.hit).to(torch.int32), stable=True).indices
         idx_b = (order[:bucket],)
-        d_b, s_b, n_b = compose(origins[idx_b], dirs[idx_b], d0[idx_b],
-                                anchor[idx_b], trace.hit[idx_b])
+        d_b, s_b, n_b, h_b = compose(origins[idx_b], dirs[idx_b], d0[idx_b],
+                                     anchor[idx_b], trace.hit[idx_b])
         # misses outside the bucket keep the margin the march recorded,
         # with the decoder's gradient at their anchor; the bucket's rays
         # take the precise value (scatters out of place, for autograd)
@@ -350,8 +382,11 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
                            device=d_b.device).index_put(idx_b, d_b)
         normal = torch.zeros((n, 3), dtype=n_b.dtype,
                              device=n_b.device).index_put(idx_b, n_b)
+        # the rays outside the bucket are misses whenever it is used
+        mask = torch.zeros_like(trace.hit).index_put(idx_b, h_b)
     else:
-        depth, min_sdf, normal = compose(origins, dirs, d0, anchor, trace.hit)
+        depth, min_sdf, normal, mask = compose(origins, dirs, d0, anchor,
+                                               trace.hit)
 
     # rays that never enter the bounding sphere: the geometric margin as
     # the value, the decoder eval's gradient kept (it pulls back a shape
@@ -361,7 +396,7 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
     t_c = torch.clamp(-dot3(o_c, v_c), min=0.0)
     geo = geo_margin(o_c, v_c, t_c, cfg.march)
     min_sdf = torch.where(enters, min_sdf, geo + min_sdf - min_sdf.detach())
-    return RenderOutput(depth=depth, mask=trace.hit, normal=normal,
+    return RenderOutput(depth=depth, mask=mask, normal=normal,
                         min_sdf=min_sdf, points=origins + depth[:, None] * dirs,
                         trace=trace)
 
@@ -494,15 +529,20 @@ def make_march_factory(params, dcfg: DecoderConfig, cfg: RenderConfig,
                 params, dcfg, z[None], origins[None, :1], dirs[None], img_hw,
                 march, strides=march.c2f_strides,
                 coarse_steps=march.c2f_coarse_steps,
-                backoff=march.c2f_backoff, scheduler=march.scheduler,
-                queue_caps=march.queue_caps,
+                backoff=march.c2f_backoff, shared_origin=True,
+                return_anchor=True, return_steps=True, return_last=True,
+                scheduler=march.scheduler, queue_caps=march.queue_caps,
                 queue_dense_frac=march.queue_dense_frac,
                 warm=None if warm is None else tuple(a[None] for a in warm),
                 proxy=proxy, proxy_backoff=march.proxy_backoff,
                 proxy_band=march.proxy_band,
                 verify_mode=march.proxy_verify_mode,
                 verify_band=march.proxy_verify_band,
+                # "polish-all" is a batched trace + finalize contract (its
+                # weak candidates need finalize_hits_batched); a frame
+                # maps it to "polish" and compose() finalizes the hits
                 verify_hits="polish" if vh == "polish-all" else vh,
+                verify_round_caps=march.proxy_verify_caps,
                 verify_gen_caps=march.proxy_verify_caps_queue,
                 proxy_block=march.proxy_block_width,
                 use_kernel=use_kernel, packed=packed,
@@ -520,6 +560,91 @@ def make_march_factory(params, dcfg: DecoderConfig, cfg: RenderConfig,
         return mf
 
     return factory
+
+
+@torch.no_grad()
+def finalize_hits_batched(
+    params,
+    dcfg: DecoderConfig,
+    latents: torch.Tensor,         # [F, L]
+    origins: torch.Tensor,         # [F, N, 3] (or [F, 1, 3])
+    dirs: torch.Tensor,            # [F, N, 3]
+    depth: torch.Tensor,           # [F, N] trace depth (proxy-valued hits)
+    hit: torch.Tensor,             # [F, N] trace hit flags (unverified)
+    msdf: torch.Tensor,            # [F, N] trace min-SDF margins
+    *,
+    convergence_eps: float,
+    background_depth: float = 10.0,
+    ift_min_denom: float = 1e-2,
+    polish_iters: int = 2,
+    compact_frac: int = 4,
+    weak: Optional[torch.Tensor] = None,   # [F, N] polish-all candidates
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-decoder hit finalize for a trace of render_batched_c2f(
+    verify_hits="polish" or "polish-all"), whose confident proxy hits
+    carry proxy depth and an unverified flag: compose()'s demote, frame
+    by frame, on the trace alone.
+
+    Each hit takes polish_iters - 1 safeguarded Newton steps on the fp32
+    value and directional derivative (decoder_apply_with_dd): a step only
+    on a real front-facing slope (dd < -ift_min_denom), accepted only
+    where |f| shrinks by 0.7, and the final extrapolation only on a real
+    slope. A hit whose Newton walked and ended at f > convergence_eps is a
+    proxy false hit and is demoted; a stalled one keeps the proxy verdict.
+    A ``weak`` candidate (a polish-all band ray on the hit channel) keeps
+    the hit only if its final f is within convergence_eps.
+
+    Returns (depth, hit, msdf): hits carry re-anchored depth (background
+    where demoted) and their polished value as the margin; every ray that
+    is not a hit keeps its trace depth and margin. When every frame's hits
+    fit an N // compact_frac bucket (one host decision on the largest
+    per-frame hit count) only a hit-first bucket of each frame is
+    evaluated, else every ray; the two give the same result. (The JAX
+    package's bucketed branch also resets the depth of misses to the
+    background and overwrites the margins of the misses that pad the
+    bucket; its full-width branch does neither.)"""
+    from dist_renderer_tpu_torch.models.decoder import decoder_apply_with_dd
+
+    set_fp32_matmul()
+    f, n = depth.shape
+    bucket = max(n // compact_frac, 1)
+    origins = origins.expand(f, n, 3)
+    if weak is None:
+        weak = torch.zeros_like(hit)
+
+    def polish(z, o, v, d, h, w):
+        fdd = lambda p: decoder_apply_with_dd(params, z, p, v, dcfg)
+        s, dd = fdd(o + d[:, None] * v)
+        denom = torch.clamp(dd, max=-ift_min_denom)
+        acc_any = torch.zeros_like(h)
+        for _ in range(max(polish_iters - 1, 0)):
+            ok = h & (dd < -ift_min_denom)
+            d_try = torch.where(ok, d - s / denom, d)
+            s2, dd2 = fdd(o + d_try[:, None] * v)
+            accept = ok & (s2.abs() <= 0.7 * s.abs())
+            acc_any = acc_any | accept
+            d = torch.where(accept, d_try, d)
+            s = torch.where(accept, s2, s)
+            dd = torch.where(accept, dd2, dd)
+            denom = torch.clamp(dd, max=-ift_min_denom)
+        d_fin = d - torch.where(dd < -ift_min_denom, s, torch.zeros_like(s)) / denom
+        h_new = h & ~((acc_any | w) & (s > convergence_eps))
+        d_fin = torch.where(h_new, d_fin, torch.full_like(d_fin, background_depth))
+        return d_fin, h_new, s
+
+    bucketed = int(hit.sum(dim=1).max()) <= bucket
+    outs = []
+    for i in range(f):
+        d, h, m = depth[i], hit[i], msdf[i]
+        sel = (torch.sort((~h).to(torch.int32), stable=True).indices[:bucket]
+               if bucketed else torch.arange(n, device=d.device))
+        hs = h[sel]
+        d_f, h_f, s_f = polish(latents[i], origins[i][sel], dirs[i][sel], d[sel],
+                               hs, weak[i][sel])
+        outs.append((d.index_put((sel,), torch.where(hs, d_f, d[sel])),
+                     h.index_put((sel,), h_f),
+                     m.index_put((sel,), torch.where(hs, s_f, m[sel]))))
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 class SDFRenderer:

@@ -25,6 +25,12 @@ request latent) and reports:
     python -m dist_renderer_tpu_torch.profile_render [--requests 5]
                                                      [--out FILE.json]
 
+With ``--batched [MODE ...]`` it instead splits one batch of bench.py's
+batched step (F=64 frames of the same cell on render_batched_c2f's
+rounds scheduler, verify_hits MODE, the finalize in polish modes) by
+stage: the coarse levels, the proxy and verify stages with each round's
+K1 launch and each sort, the finalize, and the glue.
+
 Needs one CUDA card. Prints a table, and with ``--out`` writes the
 numbers as JSON to that file.
 """
@@ -77,6 +83,134 @@ def bench_setup(dev, img=512, seed=0):
                                  march_dcfg=pcfg)
     return (make_precise_sdf(params, dcfg), factory, z, cam, cfg,
             {"decoder": (params, dcfg), "proxy": (pparams, pcfg)})
+
+
+def batched_setup(dev, frames=64, img=512, seed=9):
+    """bench.py's batched step on the bench cell: ``frames`` latents (the
+    bench latent + 0.001 jitter each, from ``seed``), one pinhole camera,
+    the proxy with its margins, verify caps (2, 4, 12), 50 steps. Returns
+    (batch, latents, packed) where batch(verify_hits, f=frames,
+    persistent=True, use_kernel=True, **kw) renders the first f frames
+    through render_batched_c2f on the rounds scheduler and, in the polish
+    modes, finalizes them (finalize_hits_batched, the weak mask in
+    polish-all), as bench.py's timed step does."""
+    import torch
+
+    from dist_renderer_tpu_torch.ops import renderer
+    from dist_renderer_tpu_torch.ops.camera import pixel_rays
+    from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+
+    _, _, _, cam, cfg, decs = bench_setup(dev, img)
+    (params, dcfg), proxy = decs["decoder"], decs["proxy"]
+    latent = bench_latent(dev)
+    march = cfg.march
+    origins, dirs = pixel_rays(cam, img, img)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    lats = latent[None] + 0.001 * torch.randn((frames, latent.shape[0]),
+                                              generator=gen).to(dev)
+    ob = origins[None, :1].expand(frames, 1, 3)
+    vb = dirs[None].expand(frames, img * img, 3)
+    packed = (bm.pack_shared(params, dcfg), bm.pack_shared(*proxy))
+
+    @torch.no_grad()
+    def batch(vh, f=frames, persistent=True, use_kernel=True, **kw):
+        st = bm.render_batched_c2f(
+            params, dcfg, lats[:f], ob[:f], vb[:f], (img, img), march,
+            proxy=proxy, proxy_backoff=march.proxy_backoff,
+            proxy_band=march.proxy_band, verify_hits=vh,
+            verify_round_caps=march.proxy_verify_caps,
+            proxy_block=march.proxy_block_width, shared_origin=True,
+            packed=packed, persistent=persistent, use_kernel=use_kernel, **kw)
+        if vh == "march":
+            return st
+        d, h, m = renderer.finalize_hits_batched(
+            params, dcfg, lats[:f], ob[:f], vb[:f], st.depth, st.hit, st.min_sdf,
+            convergence_eps=march.convergence_eps,
+            background_depth=cfg.background_depth,
+            ift_min_denom=cfg.grad.ift_min_denom, polish_iters=2,
+            compact_frac=3 if vh == "polish-all" else 4, weak=st.weak)
+        return st._replace(depth=d, hit=h, min_sdf=m)
+
+    return batch, lats, packed
+
+
+def bench_latent(dev):
+    from dist_renderer_tpu_torch.models.pretrain import load_params_npz
+
+    return load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)[1]
+
+
+def batched_split(dev, verify_hits: str, frames: int, reps: int):
+    """One batch of bench.py's batched step split by stage, CUDA events
+    around every call: the coarse levels' K1 launches, each fine stage
+    (the proxy's and the verify stage's fine_march_rounds) with its K1
+    launches per round and its sorts (the class sort and the re-packs),
+    the finalize; glue is the rest. Medians over ``reps`` batches after a
+    warm-up."""
+    import torch
+
+    from dist_renderer_tpu_torch.ops import renderer
+    from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+
+    batch, _, packed = batched_setup(dev, frames)
+    batch(verify_hits)
+    torch.cuda.synchronize()
+    stack, calls, restore = [], [], []
+
+    def wrap(module, attr, label):
+        fn = getattr(module, attr)
+
+        def timed(*args, **kwargs):
+            name = label(args)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            stack.append(name)
+            a.record()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                b.record()
+                stack.pop()
+                calls.append((name, a, b))
+
+        timed.launches = getattr(fn, "launches", 0)
+        setattr(module, attr, timed)
+        restore.append((module, attr, fn))
+
+    inside = lambda: stack[-1] if stack else "coarse levels"
+    wrap(bm, "fine_march_rounds", lambda a: (
+        "proxy stage" if a[0] is packed[1] else "verify stage"))
+    wrap(bm, "batched_trace_padded", lambda a: f"{inside()}: K1 rounds")
+    wrap(bm, "_sort_fields", lambda a: f"{inside()}: sorts")
+    wrap(renderer, "finalize_hits_batched", lambda a: "finalize")
+    totals, stages, counts = [], {}, {}
+    try:
+        for _ in range(reps):
+            calls.clear()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            batch(verify_hits)
+            b.record()
+            torch.cuda.synchronize()
+            totals.append(a.elapsed_time(b))
+            per = {}
+            for name, ea, eb in calls:
+                if name.endswith("K1 rounds") and name.startswith("coarse"):
+                    name = "coarse levels (K1)"
+                per.setdefault(name, []).append(ea.elapsed_time(eb))
+            for name, ms in per.items():
+                stages.setdefault(name, []).append(sum(ms))
+                counts[name] = [round(m, 3) for m in ms]
+    finally:
+        for module, attr, fn in restore:
+            setattr(module, attr, fn)
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    stage_ms = {k: med(v) for k, v in stages.items()}
+    top = [k for k in stage_ms if ":" not in k]
+    stage_ms["glue"] = med(totals) - sum(stage_ms[k] for k in top)
+    return dict(verify_hits=verify_hits, frames=frames, batch_ms=med(totals),
+                all_ms=totals, stage_ms=stage_ms, calls_ms=counts)
 
 
 def macs_per_eval(shared) -> int:
@@ -168,10 +302,17 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--out", help="JSON file for the numbers")
+    ap.add_argument("--batched", nargs="*", default=None,
+                    choices=["march", "polish", "polish-all"],
+                    help="instead: split one batch of bench.py's batched step "
+                    "(F=--frames) by stage, for each verify_hits mode given")
+    ap.add_argument("--frames", type=int, default=64)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
+    if args.batched is not None:
+        return batched_main(args)
     from dist_renderer_tpu_torch.models.decoder import set_fp32_matmul
     from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
     from dist_renderer_tpu_torch.ops.kernels import queue_march as qm
@@ -284,6 +425,36 @@ def main(argv=None):
     print(f"\nbackward beyond the forward {fb['backward_ms']:.3f} ms/frame: K4 "
           f"{fb['stage_ms'].get('sdg backward (K4)', 0.0):.3f}, autograd glue "
           f"{fb['autograd_glue_ms']:.3f}")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+        print(f"wrote {args.out}")
+    return 0
+
+
+def batched_main(args) -> int:
+    import torch
+
+    from dist_renderer_tpu_torch.models.decoder import set_fp32_matmul
+
+    set_fp32_matmul()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    result = dict(card=smi, batched={})
+    print(f"card: {smi}")
+    for vh in args.batched or ["march", "polish", "polish-all"]:
+        r = batched_split(torch.device("cuda", 0), vh, args.frames, args.requests)
+        result["batched"][vh] = r
+        print(f"\nverify_hits={vh!r}: one batch of {r['frames']} frames "
+              f"{r['batch_ms']:.1f} ms (median of {args.requests}, "
+              f"{[round(m, 1) for m in r['all_ms']]}), "
+              f"{r['batch_ms'] / r['frames']:.3f} ms/frame; stages (median ms, per frame):")
+        for name, ms in r["stage_ms"].items():
+            calls = r["calls_ms"].get(name)
+            print(f"  {name:28s} {ms:10.1f} {ms / r['frames']:8.3f}"
+                  + (f"  calls {calls}" if calls and len(calls) > 1 else ""))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

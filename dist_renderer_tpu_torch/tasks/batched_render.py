@@ -1,0 +1,211 @@
+"""Batched category-scale rendering: many latents x many views (config #5
+of BASELINE.json: 1k latents x 16 views at 512^2), each (latent, view)
+pair one frame.
+
+    python -m dist_renderer_tpu_torch.tasks.batched_render --pallas --latents 16 --views 4 --img 128
+
+--pallas streams the frames in chunks through the multi-frame
+coarse-to-fine render (render_batched_c2f: the rounds scheduler on the
+march kernels); without it every frame goes through render_rays. Under
+--verify-hits polish or polish-all each chunk's hits are finalized against
+the full decoder (finalize_hits_batched) before they are counted. The JAX
+package's --scan (its chunk loop as one on-device lax.map) is not ported:
+it measured slower there than the host loop of per-chunk launches kept
+here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
+from dist_renderer_tpu_torch.models.folded import make_point_fn
+from dist_renderer_tpu_torch.ops.camera import pixel_rays
+from dist_renderer_tpu_torch.ops.renderer import finalize_hits_batched, render_rays
+from dist_renderer_tpu_torch.tasks.common import (
+    add_common_args, load_task_decoder, make_render_cfg, ring_cameras,
+    synchronize, task_device,
+)
+
+
+def latent_draws(n: int, size: int, device) -> torch.Tensor:
+    """[n, size] standard-normal latent offsets from a fixed seed."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    return torch.randn((n, size), generator=gen).to(device)
+
+
+def pick_chunk(args, n_frames: int) -> int:
+    """Frames per launch: a multiple of --views dividing latents*views, so
+    frame i of every chunk pairs with view i % views (default: the largest
+    such count <= 128)."""
+    if args.chunk is not None:
+        if args.chunk % args.views or n_frames % args.chunk:
+            raise SystemExit(f"--chunk {args.chunk} must be a multiple of --views "
+                             f"({args.views}) dividing latents*views ({n_frames})")
+        return args.chunk
+    chunk = min(128 - 128 % args.views if args.views <= 128 else args.views,
+                n_frames)
+    while chunk > args.views and n_frames % chunk:
+        chunk -= args.views
+    return chunk
+
+
+def main(argv=None):
+    """Prints and returns the result line: Mrays/s and hit_frac."""
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_common_args(ap)
+    ap.add_argument("--latents", type=int, default=16)
+    ap.add_argument("--views", type=int, default=4)
+    ap.add_argument("--latent-noise", type=float, default=0.05)
+    ap.add_argument("--pallas", action="store_true",
+                    help="the multi-frame coarse-to-fine path on the march "
+                    "kernels (render_batched_c2f)")
+    ap.add_argument("--stream", action="store_true",
+                    help="with --pallas: reduce each chunk to a hit count and "
+                    "a depth sum instead of keeping every depth map (1k "
+                    "latents x 16 views at 512^2 is 16.8 GB of depth)")
+    ap.add_argument("--proxy", default=None,
+                    help="a distilled proxy npz (models/proxy.py): the march "
+                    "runs the proxy and a full-decoder verify stage re-derives "
+                    "depth and hits")
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="frames per launch on the --pallas path (a multiple "
+                    "of --views dividing latents*views; default: the largest "
+                    "such count <= 128)")
+    ap.add_argument("--verify-hits", default="march",
+                    choices=["march", "polish", "polish-all"],
+                    help="with --proxy: the verify stage's treatment of proxy "
+                    "hits (render_batched_c2f's verify_hits); the polish modes "
+                    "finalize every chunk's hits against the full decoder")
+    args = ap.parse_args(argv)
+
+    dev = task_device(args)
+    params, base_latent, dcfg = load_task_decoder(args)
+    cfg = make_render_cfg(args)
+    cams = ring_cameras(args.img, args.views, device=dev)
+    rays = [pixel_rays(c, args.img, args.img) for c in cams]
+    origins = torch.stack([r[0] for r in rays])    # [views, N, 3]
+    dirs = torch.stack([r[1] for r in rays])
+    latents = base_latent[None] + args.latent_noise * latent_draws(
+        args.latents, base_latent.shape[0], dev)
+    n_frames = args.latents * args.views
+    extra = {}
+
+    if args.pallas:
+        from dist_renderer_tpu_torch.ops.kernels.batched_march import (
+            pack_shared, render_batched_c2f,
+        )
+
+        chunk = pick_chunk(args, n_frames)
+        reps = (chunk + args.views - 1) // args.views
+        # ring cameras are pinholes: one origin per view
+        o_chunk = origins[:, :1].repeat(reps, 1, 1)[:chunk]
+        v_chunk = dirs.repeat(reps, 1, 1)[:chunk]
+        m = cfg.march
+        proxy = None
+        pbo, pband = m.proxy_backoff, m.proxy_band
+        if args.proxy:
+            from dist_renderer_tpu_torch.models.proxy import (
+                load_proxy_meta, load_proxy_npz, proxy_march_margins,
+            )
+            proxy = load_proxy_npz(args.proxy, dev)
+            # the verify margins follow this proxy's measured error
+            meta = load_proxy_meta(args.proxy)
+            if meta:
+                pbo, pband = proxy_march_margins(meta, m.convergence_eps)
+        vh = args.verify_hits
+        packed = (pack_shared(params, dcfg),
+                  None if proxy is None else pack_shared(*proxy))
+
+        @torch.no_grad()
+        def render_chunk(lat_f):
+            st = render_batched_c2f(
+                params, dcfg, lat_f, o_chunk, v_chunk, (args.img, args.img), m,
+                shared_origin=True, proxy=proxy, proxy_backoff=pbo,
+                proxy_band=pband, verify_mode=m.proxy_verify_mode,
+                verify_band=m.proxy_verify_band, verify_hits=vh,
+                verify_round_caps=m.proxy_verify_caps,
+                verify_gen_caps=m.proxy_verify_caps_queue,
+                proxy_block=m.proxy_block_width, packed=packed)
+            if proxy is None or vh == "march":
+                return st.depth, st.hit
+            # the trace's confident proxy hits are unverified until here
+            d, h, _ = finalize_hits_batched(
+                params, dcfg, lat_f, o_chunk, v_chunk, st.depth, st.hit,
+                st.min_sdf, convergence_eps=m.convergence_eps,
+                background_depth=cfg.background_depth,
+                ift_min_denom=cfg.grad.ift_min_denom,
+                polish_iters=max(cfg.grad.polish_iters, 2),
+                compact_frac=3 if vh == "polish-all" else 4, weak=st.weak)
+            return d, h
+
+        lat_frames = latents.repeat_interleave(args.views, dim=0)
+        chunks = [lat_frames[s:s + chunk] for s in range(0, n_frames, chunk)]
+        if args.stream:
+            def render_batch():
+                dsum = torch.zeros((), dtype=torch.float64, device=dev)
+                hits = torch.zeros((), dtype=torch.int64, device=dev)
+                for lat_c in chunks:
+                    d, h = render_chunk(lat_c)
+                    dsum += torch.where(h, d, 0.0).sum(dtype=torch.float64)
+                    hits += h.sum()
+                return float(dsum), int(hits)
+        else:
+            def render_batch():
+                ds, hs = zip(*(render_chunk(lat_c) for lat_c in chunks))
+                return torch.cat(ds), torch.cat(hs)
+        extra["chunk_frames"] = chunk
+    else:
+        sdf_fn = make_precise_sdf(params, dcfg)
+
+        @torch.no_grad()
+        def render_batch():
+            ds, hs = [], []
+            for z in latents:
+                mf = make_point_fn(params, z, dcfg, cfg.dtype)
+                for o, v in zip(origins, dirs):
+                    out = render_rays(sdf_fn, z, o, v, cfg, mf)
+                    ds.append(out.depth)
+                    hs.append(out.mask)
+            return torch.stack(ds), torch.stack(hs)
+
+    # a warm-up on the card (the kernels build at their first launch); the
+    # CPU has nothing to warm
+    warm = dev.type == "cuda"
+    if args.pallas and args.stream:
+        # warm up on one chunk; the timed region streams every chunk
+        if warm:
+            render_chunk(chunks[0])
+            synchronize(dev)
+        t0 = time.perf_counter()
+        dsum, hits = render_batch()
+        dt = time.perf_counter() - t0
+    else:
+        if warm:
+            render_batch()
+            synchronize(dev)
+        t0 = time.perf_counter()
+        depth, mask = render_batch()
+        synchronize(dev)
+        dt = time.perf_counter() - t0
+        hits = int(mask.sum())
+        dsum = float(torch.where(mask, depth, 0.0).sum(dtype=torch.float64))
+    n_rays = n_frames * args.img * args.img
+    extra.update(hit_frac=round(hits / n_rays, 4),
+                 mean_hit_depth=round(dsum / max(hits, 1), 4))
+    if dev.type == "cuda":
+        extra["peak_hbm_gb"] = round(torch.cuda.max_memory_allocated(dev) / 2**30, 2)
+    result = {"latents": args.latents, "views": args.views, "img": args.img,
+              "total_rays": n_rays, "seconds": round(dt, 3),
+              "Mrays_per_s": round(n_rays / dt / 1e6, 2), "devices": 1, **extra}
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

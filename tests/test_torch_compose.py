@@ -398,7 +398,7 @@ def _brender(params, z, ob, vb, warm=None):
     return render_batched_c2f(params_from_numpy(params), DecoderConfig(**WARM_DEC),
                               torch.tensor(z)[None], ob, vb, (IMG, IMG),
                               MarchConfig(**WARM_MARCH), strides=(4,),
-                              coarse_steps=12, warm=warm)
+                              coarse_steps=12, scheduler="queue", warm=warm)
 
 
 def _jax_normal(seed, shape):

@@ -73,6 +73,14 @@ def k_order(monkeypatch):
     monkeypatch.setattr(rc, "dot_f32", _dot_k_order)
 
 
+def _same(a, b) -> bool:
+    """Equal bits, NaN where NaN (never-marched rays keep a NaN seed)."""
+    if a.is_floating_point():
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+            a.nan_to_num(0.0), b.nan_to_num(0.0))
+    return torch.equal(a, b)
+
+
 def _scene(dev, img=32, frames=2, seed=0):
     """Bench proxy + jittered latents, rays of `frames` views with a
     seeded subset of seeds and inactive rays."""
@@ -139,7 +147,7 @@ def test_cuda_k2_equals_k1_exactly(caps, k_order):
     r_pad = ref.steps_per_ray.shape[0] // o.shape[0]
     assert torch.equal(q.steps, ref.steps_per_ray.reshape(o.shape[0], r_pad)[:, :o.shape[1]])
     for a, b in zip(q, plain):
-        assert torch.equal(a, b)
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 K3_ARCHS = [
@@ -567,11 +575,208 @@ def test_cpu_tensors_take_the_k1_grid_plain_version_uncounted():
         assert torch.equal(getattr(a, name), getattr(b, name)), name
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("salvage", [True, False])
+def test_cuda_k1_multi_matches_plain(salvage, k_order):
+    """K1-multi against its in-order plain version (K1's) bit for bit,
+    over two frames of seeded and inactive rays."""
+    dev = _device()
+    shared, bank, o, v, key, seed_d = _scene(dev)
+    run = lambda k: bm.batched_trace_padded(shared, bank, o, v, MARCH, seed_d,
+                                            key != 2, salvage=salvage,
+                                            use_kernel=k, persistent=False)
+    n0, n1 = bm.sphere_trace_batched.launches, bm.sphere_trace_persistent.launches
+    out = run(True)
+    ref = run(False)
+    assert bm.sphere_trace_batched.launches == n0 + 1
+    assert bm.sphere_trace_persistent.launches == n1
+    torch.cuda.synchronize()
+    assert out.hit.sum() > 100
+    for name in TRACE_FIELDS:
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["proxy", "bench"])
+def test_cuda_k1_multi_equals_k1(which):
+    """K1-multi and K1 inline one tile march: the same bits on the same
+    rays of several frames, and render_depth_batched is K1-multi's march
+    of every ray from its sphere entry."""
+    dev = _device()
+    shared, bank, o, v, key, seed_d = _scene(dev, frames=3, seed=4)
+    params, dcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"), dev)
+    if which == "bench":
+        params, _ = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+        dcfg = DecoderConfig()
+        shared = bm.pack_shared(params, dcfg)
+    _, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    lat = torch.stack([z0, z0 + 0.001, z0 - 0.001])
+    bank = bm.fold_bias_bank(params, lat, dcfg, shared)
+    for salvage in (True, False):
+        a, b = (bm.batched_trace_padded(shared, bank, o, v, MARCH, seed_d, key != 2,
+                                        salvage=salvage, persistent=p)
+                for p in (False, True))
+        torch.cuda.synchronize()
+        for name in TRACE_FIELDS:
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+    n0 = bm.sphere_trace_batched.launches
+    d, h = bm.render_depth_batched(params, dcfg, lat, o, v, MARCH)
+    assert bm.sphere_trace_batched.launches == n0 + 1
+    ref = bm.batched_trace_padded(shared, bank, o, v, MARCH, None,
+                                  torch.ones_like(key, dtype=torch.bool))
+    assert torch.equal(d, ref.depth) and torch.equal(h, ref.hit) and h.sum() > 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("persistent", [True, False])
+def test_cuda_fine_march_rounds_matches_plain(persistent, k_order):
+    """The rounds scheduler with every round on K1 (or K1-multi) equals its
+    run on the in-order plain version, every output field."""
+    dev = _device()
+    shared, bank, o, v, key, seed_d = _scene(dev, img=64, seed=5)
+    kw = dict(live_frac=3, return_anchor=True, return_steps=True,
+              return_last=True, difficulty_repack=True)
+    counter = bm.sphere_trace_persistent if persistent else bm.sphere_trace_batched
+    n0 = counter.launches
+    out = bm.fine_march_rounds(shared, bank, o[:, :1], v, key, seed_d, MARCH,
+                               persistent=persistent, **kw)
+    assert counter.launches == n0 + 3
+    ref = bm.fine_march_rounds(shared, bank, o[:, :1], v, key, seed_d, MARCH,
+                               use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert out.hit.sum() > 100
+    for name in ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf", "steps",
+                 "unresolved"):
+        assert _same(getattr(out, name), getattr(ref, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("verify_hits", ["march", "polish", "polish-all"])
+def test_cuda_batched_render_matches_plain(verify_hits, k_order):
+    """render_batched_c2f on the rounds scheduler with the proxy (the bench
+    decoder verified through its proxy), two frames: the kernels' trace
+    equals the in-order plain versions' bit for bit, weak mask included;
+    finalize_hits_batched then runs on the card."""
+    from dist_renderer_tpu_torch.ops.renderer import finalize_hits_batched
+
+    dev = _device()
+    params, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    proxy = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"), dev)
+    img = 32
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img),
+                            device=dev)
+    o, v = pixel_rays(cam, img, img)
+    lat = torch.stack([z0, z0 + 0.001])
+    outs = [bm.render_batched_c2f(
+        params, DecoderConfig(), lat, o[None, :1].expand(2, 1, 3),
+        v[None].expand(2, -1, -1), (img, img), MARCH, proxy=proxy,
+        shared_origin=True, verify_hits=verify_hits, verify_round_caps=(2, 4, 12),
+        return_anchor=True, return_steps=True, return_last=True, use_kernel=k)
+        for k in (True, False)]
+    torch.cuda.synchronize()
+    for name in ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf", "steps",
+                 "unresolved", "weak"):
+        a, b = getattr(outs[0], name), getattr(outs[1], name)
+        assert (a is None and b is None) or _same(a, b), name
+    a = outs[0]
+    d, h, m = finalize_hits_batched(params, DecoderConfig(), lat, o[None, :1],
+                                    v[None].expand(2, -1, -1), a.depth, a.hit,
+                                    a.min_sdf, convergence_eps=MARCH.convergence_eps,
+                                    weak=a.weak)
+    assert d.is_cuda and h.sum() > 100 and (h <= a.hit).all()
+    assert torch.isfinite(d).all() and torch.isfinite(m[h]).all()
+
+
+DOT_SHAPES = [(1000, 515, 70), (4096, 3, 512), (65, 512, 1), (1, 17, 64), (0, 8, 8)]
+
+
+def _dot_operands(n, k, m, dev, seed):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.randn((n, k), generator=gen).to(dev)
+    b = torch.randn((m, k), generator=gen).to(dev).t()   # not contiguous
+    return a, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", range(len(DOT_SHAPES)))
+def test_cuda_dot_in_order_equals_the_loop(shape):
+    """decoder.dot_f32_in_order's kernel gives the loop over k's bits, on
+    fp32 values that are not bf16-valued too (one rounding per product
+    and per add, in k order)."""
+    from dist_renderer_tpu_torch.models.decoder import dot_f32_in_order
+
+    dev = _device()
+    a, b = _dot_operands(*DOT_SHAPES[shape], dev, shape)
+    out = dot_f32_in_order(a, b)
+    torch.cuda.synchronize()
+    assert out.shape == (a.shape[0], b.shape[1]) and out.is_cuda
+    assert torch.equal(out, _dot_k_order(a, b))
+
+
+@pytest.mark.gpu
+def test_cuda_batched_render_matches_in_order_plain(monkeypatch):
+    """chip_smoke.py's witness at a small size: render_batched_c2f (march
+    verify, the bench decoder through its proxy) equals its plain versions
+    bit for bit with decoder.dot_f32_in_order in dot_f32's place."""
+    from dist_renderer_tpu_torch.models.decoder import dot_f32_in_order
+
+    dev = _device()
+    params, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    proxy = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"), dev)
+    img = 48
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img),
+                            device=dev)
+    o, v = pixel_rays(cam, img, img)
+    lat = torch.stack([z0, z0 + 0.001, z0 - 0.001])
+    kw = dict(proxy=proxy, shared_origin=True, verify_round_caps=(2, 4, 12),
+              return_anchor=True)
+    run = lambda k: bm.render_batched_c2f(
+        params, DecoderConfig(), lat, o[None, :1].expand(3, 1, 3),
+        v[None].expand(3, -1, -1), (img, img), MARCH, use_kernel=k, **kw)
+    out = run(True)
+    monkeypatch.setattr(march_body, "dot_f32", dot_f32_in_order)
+    ref = run(False)
+    torch.cuda.synchronize()
+    assert out.hit.sum() > 500
+    for name in ("depth", "hit", "min_sdf", "depth_at_min"):
+        assert _same(getattr(out, name), getattr(ref, name)), name
+
+
+def test_cpu_dot_in_order_is_the_loop():
+    """On CPU tensors decoder.dot_f32_in_order is the loop over k: the
+    test's own loop's bits, within fp32 rounding of the GEMM."""
+    from dist_renderer_tpu_torch.models.decoder import dot_f32_in_order
+
+    for i, shape in enumerate(DOT_SHAPES):
+        a, b = _dot_operands(*shape, torch.device("cpu"), i)
+        out = dot_f32_in_order(a, b)
+        assert torch.equal(out, _dot_k_order(a, b))
+        torch.testing.assert_close(out, a @ b, rtol=1e-5, atol=1e-4)
+
+
+def test_cpu_tensors_take_the_k1_multi_plain_version_uncounted():
+    """On CPU tensors K1-multi's wrapper and render_depth_batched run the
+    plain version (K1's) and count no launch."""
+    dev = torch.device("cpu")
+    shared, bank, o, v, key, seed_d = _scene(dev, img=16)
+    n0 = (bm.sphere_trace_batched.launches, bm.sphere_trace_persistent.launches)
+    a = bm.batched_trace_padded(shared, bank, o, v, MARCH, seed_d, key != 2,
+                                persistent=False)
+    b = bm.batched_trace_padded(shared, bank, o, v, MARCH, seed_d, key != 2)
+    params, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"))
+    _, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"))
+    bm.render_depth_batched(params, pcfg, torch.stack([z0, z0]), o, v, MARCH)
+    assert n0 == (bm.sphere_trace_batched.launches, bm.sphere_trace_persistent.launches)
+    for name in TRACE_FIELDS:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
 def test_kernel_build_is_keyed_by_source_hash():
     h = build.source_hash()
     assert len(h) == 16 and h == build.source_hash()
     names = {os.path.basename(p) for p in build._sources()}
     assert {"march_body.cuh", "batched_march.cu", "queue_march.cu",
-            "recompute.cu", "fused_march.cu", "sphere_trace.cuh"} <= names
+            "recompute.cu", "fused_march.cu", "sphere_trace.cuh",
+            "dot_in_order.cu"} <= names
     assert "-use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

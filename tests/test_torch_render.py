@@ -161,13 +161,13 @@ def test_sdf_renderer_and_plain_switch_agree():
 
 
 def test_unported_modes_raise():
+    """What is still unported raises NotImplementedError naming its
+    ROADMAP item; the polish demote's guard raises ValueError."""
     proxy, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"))
     z = torch.zeros(2, pcfg.latent_size)
     o = torch.zeros(2, 1, 3)
     v = torch.ones(2, 16, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_batched_c2f(proxy, pcfg, z, o, v, (4, 4), MarchConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
         render_batched_c2f(proxy, pcfg, z[:1], o[:1], v[:1], (4, 4), MarchConfig(),
                            verify_mode="cert")
     cam = Camera.looking_at((0.0, 0.0, -2.5), focal=20.0, img_hw=(8, 8))
@@ -176,7 +176,7 @@ def test_unported_modes_raise():
                RenderConfig(img_h=8, img_w=8, grad=GradConfig(mode="ift",
                                                              fused_dd=True)))
     vh = MarchConfig(coarse_to_fine=True, proxy_verify_hits="polish")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="polish_iters"):
         render(make_precise_sdf(proxy, pcfg), z[0], cam,
                RenderConfig(img_h=8, img_w=8, march=vh, use_pallas=True),
                make_march_factory(proxy, pcfg, RenderConfig(use_pallas=True),
