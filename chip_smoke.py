@@ -17,12 +17,17 @@ coarse-to-fine pipeline, three forward and three fwd+bwd requests, held
 against the plain versions, and one request through c2f_plan's coarse
 levels; the command-line tasks (render_demo, depth_completion,
 pose_refine with warm starts, multiview, batched_render) and the render
-server, in process, on the committed torus 8x512 decoder; and last
+server, in process, on the committed torus 8x512 decoder; then
 bench.py's batched headline: 64 frames of the bench cell through
 render_batched_c2f on the rounds scheduler in the three verify modes,
 with the multi-frame grid march (K1-multi) held to K1 and to its plain
-version. Prints the timings, one JSON line of per-kernel results, the
-card's name and power limit, and last a JSON status line.
+version; and last the bulk point eval (K5) against its plain version,
+mesh extraction of the bench shape through it at 128^3 and 256^3, and
+the color render (SDFRendererColor with the differentiable color head)
+at 512x512, forward and backward, against the plain versions. The CLIs
+also extract meshes (--mesh) and run evaluate. Prints the timings, one
+JSON line of per-kernel results, the card's name and power limit, and
+last a JSON status line.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -780,6 +785,286 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
         render_depth_ms=dd_ms, path_vs_plain=d_path)
 
 
+K5_POINTS = 262_144   # phase 9 (a): seeded points in [-1, 1]^3
+K5_IN_ORDER = 65_536  # of those, held to the in-order plain version
+# Phase 9 (a), K5 against its plain version with the card's GEMM: the
+# least share of points within 1e-5 and the largest |diff|. Read on an
+# H100: every point equal. The bars allow what two summation orders gave
+# on the CPU (tests/test_torch_mlp_eval.py): >= 99.7% within 1e-5, max
+# 3.0e-3 (a flipped bf16 activation rounding).
+K5_WITHIN, K5_MAX = 0.99, 5e-3
+MESH_RES = (128, 256)
+
+
+def k5_bytes(n, packed, out_rows):
+    """K5's traffic: [N, 3] points in, [N, out_rows] out, the weights and
+    the folded biases once."""
+    return 4 * (3 + out_rows) * n + 2 * packed.shared.flat.numel() + 4 * packed.bias.numel()
+
+
+def k5_macs(shared, out_rows):
+    """Multiply-adds of one K5 evaluation: the march's, with out_rows
+    outputs of the last layer."""
+    in_last = shared.table[-4]
+    return macs_per_eval(shared) + (out_rows - 1) * in_last
+
+
+def bf16_chain(torch, params, cfg, latent):
+    """The library yardstick for K5: the folded decoder as a chain of bf16
+    torch.nn.functional.linear calls (cuBLAS, tensor cores), the xyz
+    columns concatenated to a layer's input where it takes them. It
+    computes K5's function up to bf16 rounding of sums and biases; the
+    port never calls it."""
+    from dist_renderer_tpu_torch.models.folded import fold_latent
+
+    F = torch.nn.functional
+    layers = []
+    for l in fold_latent(params, latent, cfg):
+        w = l.wx if l.wh is None else (l.wh if l.wx is None else torch.cat([l.wh, l.wx]))
+        layers.append((w.T.contiguous().to(torch.bfloat16), l.b.to(torch.bfloat16),
+                       l.wh is not None and l.wx is not None))
+
+    def run(pts, out_rows):
+        x = pts.to(torch.bfloat16)
+        h = None
+        for i, (w, b, cat) in enumerate(layers):
+            inp = x if h is None else (torch.cat([h, x], dim=-1) if cat else h)
+            h = F.linear(inp, w, b)
+            if i < len(layers) - 1:
+                h = torch.relu(h)
+        out = h[:, :out_rows].float()
+        return torch.tanh(out) if cfg.final_tanh else out
+
+    return run
+
+
+def k5_phase(torch, dev, params, dcfg, latent, cam, smi):
+    """Phase 9: K5 and the paths through it. (a) K5 against its plain
+    version on 262,144 seeded points, the bench decoder (1 row) and the
+    default 8x512 color decoder (3 rows): the GEMM's differences, and bit
+    for bit with the in-order product on 65,536 of them; times beside a
+    chain of bf16 F.linear calls. (b) Mesh extraction of the bench shape
+    through make_pallas_point_fn + extract_mesh at 128^3 and 256^3, the K5
+    grid against the plain grid, the K5 mesh against the precise sdf's at
+    128^3. (c) SDFRendererColor on the K1-grid path at 512^2 with the
+    differentiable color head: fwd and fwd+bwd of a photometric L1, RGB
+    against the plain versions (bit for bit with the in-order product),
+    gradients to both latents against the plain versions."""
+    import numpy as np
+
+    from dist_renderer_tpu_torch.config import GradConfig, MarchConfig, RenderConfig
+    from dist_renderer_tpu_torch.eval.chamfer import chamfer_distance
+    from dist_renderer_tpu_torch.eval.mesh import assemble_mesh, extract_mesh, sdf_grid
+    from dist_renderer_tpu_torch.eval.native import load_library
+    from dist_renderer_tpu_torch.models.color_decoder import (
+        init_color_params, make_color_config,
+    )
+    from dist_renderer_tpu_torch.models.decoder import dot_f32_in_order, make_precise_sdf
+    from dist_renderer_tpu_torch.models.folded import fold_latent
+    from dist_renderer_tpu_torch.ops.kernels import march_body, recompute
+    from dist_renderer_tpu_torch.ops.kernels.fused_march import pack_folded, sphere_trace_grid
+    from dist_renderer_tpu_torch.ops.kernels.mlp_eval import make_pallas_point_fn, point_eval
+    from dist_renderer_tpu_torch.ops.kernels.recompute import (
+        make_color_vjp, precise_bias_grads_call, precise_sdg_call,
+    )
+    from dist_renderer_tpu_torch.ops.renderer import SDFRenderer, SDFRendererColor
+
+    def in_order(fn):
+        """fn() with the plain versions' products summed in k order."""
+        real = march_body.dot_f32, recompute.dot_f32
+        march_body.dot_f32 = recompute.dot_f32 = dot_f32_in_order
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        finally:
+            march_body.dot_f32, recompute.dot_f32 = real
+
+    def host_ms(fn, reps=1):
+        """(last output, median ms) of fn() ending in a synchronize."""
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return out, sorted(ms)[len(ms) // 2]
+
+    print(f"\n== phase 9: K5 (bulk point eval), mesh extraction, the color render ==")
+    ccfg = make_color_config()
+    gen = torch.Generator().manual_seed(SEED + 11)
+    cparams = init_color_params(gen, ccfg, dev)
+    z_tex = (0.3 * torch.randn(ccfg.latent_size, generator=gen)).to(dev)
+    z_tgt = (0.3 * torch.randn(ccfg.latent_size, generator=gen)).to(dev)
+
+    # (a) K5 against its plain version
+    gen = torch.Generator().manual_seed(SEED + 12)
+    pts = (torch.rand((K5_POINTS, 3), generator=gen) * 2.0 - 1.0).to(dev)
+    rows_a = []
+    for name, p_, c_, z_, r in (("sdf", params, dcfg, latent, 1),
+                                ("color", cparams, ccfg, z_tex, 3)):
+        packed = pack_folded(fold_latent(p_, z_, c_), c_)
+        run = lambda k, x=pts: point_eval(packed, x, out_rows=r, use_kernel=k)
+        out_k, out_p = run(True), run(False)
+        head = pts[:K5_IN_ORDER].contiguous()
+        exact = torch.equal(out_k[:K5_IN_ORDER], in_order(lambda: run(False, head)))
+        err = (out_k - out_p).abs().reshape(K5_POINTS, -1).amax(dim=1)
+        chain = bf16_chain(torch, p_, c_, z_)
+        lib_err = (chain(pts, r).reshape(out_k.shape) - out_k).abs().max().item()
+        row = dict(case=name, out_rows=r, n=K5_POINTS, exact=exact,
+                   max=err.max().item(), within=(err <= 1e-5).float().mean().item(),
+                   ms=cuda_ms(lambda: run(True)), plain_ms=cuda_ms(lambda: run(False)),
+                   library_ms=cuda_ms(lambda: chain(pts, r)), library_max=lib_err)
+        row["bound_ms"], row["bound_by"] = bound(K5_POINTS * k5_macs(packed.shared, r),
+                                                 k5_bytes(K5_POINTS, packed, r))
+        rows_a.append(row)
+        print(f"K5 ({name}, {r} row{'s' if r > 1 else ''}) {K5_POINTS} points: vs plain "
+              f"(GEMM) max |diff| {row['max']:.3e}, within 1e-5 {row['within']:.6f}; == "
+              f"in-order plain on {K5_IN_ORDER} bit for bit: {exact}; {row['ms']:.3f} ms vs "
+              f"plain {row['plain_ms']:.3f} ms, bf16 F.linear chain {row['library_ms']:.3f} "
+              f"ms (max |diff| {lib_err:.2e}); bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']})  [{smi}]", flush=True)
+    for row in rows_a:
+        check(row["exact"], f"K5 ({row['case']}) differs from its in-order plain version")
+        check(row["within"] >= K5_WITHIN and row["max"] <= K5_MAX,
+              f"K5 ({row['case']}) disagrees with its plain version (bars: within 1e-5 "
+              f"on >= {K5_WITHIN} of points, max |diff| <= {K5_MAX})")
+
+    # (b) mesh extraction of the bench shape through K5
+    fn = make_pallas_point_fn(params, latent, dcfg)
+    plain_fn = make_pallas_point_fn(params, latent, dcfg, use_kernel=False)
+    precise = make_precise_sdf(params, dcfg)
+    route = "native" if load_library() is not None else "numpy"
+    rows_b, mesh_launches = [], 0
+    for res in MESH_RES:
+        point_eval.launches = 0
+        (verts, faces), total_ms = host_ms(lambda: extract_mesh(fn, res, device=dev))
+        launches = point_eval.launches
+        mesh_launches += launches
+        grid_k, grid_ms = host_ms(lambda: sdf_grid(fn, res, device=dev),
+                                  3 if res <= 128 else 1)
+        (_, _, rt), asm_ms = host_ms(lambda: assemble_mesh(grid_k))
+        grid_p, plain_ms = host_ms(lambda: sdf_grid(plain_fn, res, device=dev))
+        d = np.abs(grid_k - grid_p)
+        row = dict(res=res, verts=len(verts), faces=len(faces), launches=launches,
+                   total_ms=total_ms, grid_ms=grid_ms, assembly_ms=asm_ms, route=rt,
+                   plain_grid_ms=plain_ms, max=float(d.max()),
+                   sign_agree=float((np.sign(grid_k) == np.sign(grid_p)).mean()))
+        if res == MESH_RES[0]:
+            # against the mesh of the precise sdf (fp32 decoder) on the same grid
+            pv, pf, _ = assemble_mesh(sdf_grid(lambda p: precise(latent, p), res,
+                                               device=dev))
+            a, b = (torch.as_tensor(v, device=dev) for v in (verts, pv))
+            row.update(precise_verts=len(pv),
+                       chamfer_euclid=float(chamfer_distance(a, b, squared=False)[2]),
+                       chamfer_sq=float(chamfer_distance(a, b)[2]),
+                       spacing=2.0 / (res - 1))
+        rows_b.append(row)
+        print(f"mesh {res}^3 through K5: {row['verts']} verts, {row['faces']} faces; "
+              f"extract_mesh {total_ms:.1f} ms ({launches} K5 launches); sdf_grid "
+              f"{grid_ms:.1f} ms, triangle assembly ({rt}) {asm_ms:.1f} ms; plain grid "
+              f"{plain_ms:.1f} ms, max |diff| {row['max']:.3e}, sign agreement "
+              f"{row['sign_agree']:.7f}" + (
+                  f"; vs the precise sdf's mesh ({row['precise_verts']} verts): "
+                  f"chamfer mean euclidean (sum of both ways) {row['chamfer_euclid']:.3e}, "
+                  f"squared {row['chamfer_sq']:.3e}, grid spacing {row['spacing']:.4f}"
+                  if "chamfer_euclid" in row else "") + f"  [{smi}]", flush=True)
+    check(route == rows_b[0]["route"], "the triangle route changed between calls")
+    for row in rows_b:
+        check(row["launches"] == row["res"], f"extract_mesh at {row['res']}^3 made "
+              f"{row['launches']} K5 launches, not one per x-slab")
+        check(row["verts"] > 1000 and row["faces"] > 1000,
+              f"the {row['res']}^3 mesh is (almost) empty")
+        check(row["sign_agree"] >= 0.9999 and row["max"] <= K5_MAX,
+              f"the K5 grid at {row['res']}^3 disagrees with the plain grid")
+    # bf16 noise (~2e-3 in the value) moves a vertex along its grid edge by
+    # ~2e-3 / |grad f|, far inside the 2 / (R - 1) spacing. Measured on an
+    # H100 at 128^3: 2.0e-3 as the two-way mean euclidean distance, 0.13 of
+    # the spacing; bar, a quarter of the spacing
+    check(rows_b[0]["chamfer_euclid"] <= 0.25 * rows_b[0]["spacing"],
+          f"the K5 mesh is farther from the precise sdf's than a quarter of the "
+          f"grid spacing: {rows_b[0]['chamfer_euclid']:.3e}")
+
+    # (c) the color render on the K1-grid path
+    cfg = RenderConfig(
+        march=MarchConfig(max_steps=50, convergence_eps=2e-3, depth_eps=5e-4),
+        grad=GradConfig(mode="ift", compact_frac=4, recompute="pallas"),
+        compute_dtype="bfloat16", use_pallas=True)
+    rk = SDFRendererColor(SDFRenderer(params, cam.K, (IMG, IMG), decoder_cfg=dcfg,
+                                      cfg=cfg), make_color_vjp(cparams, ccfg))
+    rp = SDFRendererColor(SDFRenderer(params, cam.K, (IMG, IMG), decoder_cfg=dcfg,
+                                      cfg=cfg, use_kernel=False),
+                          make_color_vjp(cparams, ccfg, use_kernel=False))
+    counters = (sphere_trace_grid, precise_sdg_call, precise_bias_grads_call, point_eval)
+    with torch.no_grad():
+        _, target = rk.render_color(latent, z_tgt, cam.R, cam.T)
+
+    def grads(r):
+        leaves = [latent.clone().requires_grad_(True), z_tex.clone().requires_grad_(True)]
+        out, rgb = r.render_color(leaves[0], leaves[1], cam.R, cam.T)
+        return (out, rgb) + torch.autograd.grad((rgb - target).abs().mean(), leaves)
+
+    def timed3(fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        outs, ms = [], []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            outs.append(fn())
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return outs[0], sorted(ms)[1], ms, {c.__name__: c.launches for c in counters}
+
+    with torch.no_grad():
+        (out_f, rgb_f), fwd_ms, fwd_all, fwd_l = timed3(
+            lambda: rk.render_color(latent, z_tex, cam.R, cam.T))
+    gk, fb_ms, fb_all, fb_l = timed3(lambda: grads(rk))
+    hit_frac = out_f.mask.float().mean().item()
+    print(f"color render fwd ms/frame (median of 3, CUDA events) {fwd_ms:.3f}, all "
+          f"{[round(m, 3) for m in fwd_all]}, launches {fwd_l}; fwd+bwd (photometric L1 "
+          f"to shape and texture latents) {fb_ms:.3f}, all {[round(m, 3) for m in fb_all]}, "
+          f"launches {fb_l}; hit_frac {hit_frac:.4f}  [{smi}]", flush=True)
+    for name in ("sphere_trace_grid", "precise_sdg_call", "point_eval"):
+        check(fwd_l[name] > 0, f"the color render never launched {name}")
+    for name in ("precise_bias_grads_call", "point_eval"):
+        check(fb_l[name] > 0, f"the color render's fwd+bwd never launched {name}")
+    check(hit_frac > 0.05 and bool(torch.isfinite(rgb_f).all())
+          and rgb_f.shape == (IMG, IMG, 3), "the color render is empty, not finite "
+          "or of the wrong shape")
+    check(bool((rgb_f.reshape(-1, 3)[~out_f.mask] == 0).all()), "a miss has a color")
+    with torch.no_grad():
+        _, rgb_o = in_order(lambda: rp.render_color(latent, z_tex, cam.R, cam.T))
+    rgb_exact = torch.equal(rgb_f, rgb_o)
+    t0 = time.perf_counter()
+    gp = grads(rp)
+    torch.cuda.synchronize()
+    plain_fb_ms = 1e3 * (time.perf_counter() - t0)
+    diffs = {name: grad_diff(a, b) for name, a, b in zip(("shape latent", "texture latent"),
+                                                         gk[2:], gp[2:])}
+    rgb_gemm = (gk[1] - gp[1]).abs().max().item()
+    print(f"color render vs plain versions: RGB == in-order plain bit for bit: {rgb_exact}; "
+          f"max |RGB diff| with the GEMM {rgb_gemm:.3e}; gradients ({plain_fb_ms:.0f} ms "
+          "plain): " + "; ".join(f"{k} cos {d['cos']:.7f} relative L2 {d['rel']:.3e}"
+                                 for k, d in diffs.items()), flush=True)
+    check(rgb_exact, "the color render's RGB differs from the in-order plain versions'")
+    check(all(torch.isfinite(g).all().item() for g in gk[2:]),
+          "a color-render gradient is not finite")
+    for k, d in diffs.items():
+        check(d["cos"] >= GRAD_COS and d["rel"] <= GRAD_REL,
+              f"the {k} gradient of the color render differs from the plain versions' "
+              f"(bars: cos >= {GRAD_COS}, relative L2 <= {GRAD_REL})")
+    launches = mesh_launches + fwd_l["point_eval"] + fb_l["point_eval"]
+    return dict(a=rows_a, mesh=rows_b, route=route, launches=launches,
+                color=dict(fwd_ms=fwd_ms, fwdbwd_ms=fb_ms, plain_fwdbwd_ms=plain_fb_ms,
+                           hit_frac=hit_frac, rgb_exact=rgb_exact, rgb_gemm_max=rgb_gemm,
+                           grads={k: d for k, d in diffs.items()}))
+
+
 def cli_phase(torch, smi):
     """Phase 7: the command-line tasks and the server, in process, on the
     committed torus 8x512 decoder, each into a temporary --out."""
@@ -793,7 +1078,8 @@ def cli_phase(torch, smi):
         precise_bias_grads_call, precise_sdg_call,
     )
     from dist_renderer_tpu_torch.tasks import (
-        batched_render, depth_completion, multiview, pose_refine, render_demo, serve,
+        batched_render, depth_completion, evaluate, multiview, pose_refine,
+        render_demo, serve,
     )
     from dist_renderer_tpu_torch.tasks.common import add_common_args
 
@@ -826,20 +1112,37 @@ def cli_phase(torch, smi):
         print(f"{name}: losses {[round(x, 6) for x in hist]}; ms/step median "
               f"{times[name]:.1f}  [{smi}]")
 
+    def obj_counts(path):
+        """(vertices, faces) of an OBJ the --mesh flag wrote."""
+        check(os.path.exists(path), f"no mesh at {path}")
+        with open(path) as f:
+            lines = f.read().splitlines()
+        return (sum(l.startswith("v ") for l in lines),
+                sum(l.startswith("f ") for l in lines))
+
     fits = ("precise_sdg_call", "precise_bias_grads_call")
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "demo")
         ms = run("render_demo", render_demo.main,
-                 ["--fast", "--img", "256", "--views", "2", "--out", out])
+                 ["--fast", "--img", "256", "--views", "2", "--mesh", "--out", out])
         check(all(os.path.exists(os.path.join(out, f"view{i:02d}.png"))
                   for i in range(2)), "render_demo wrote no views")
         times["render_demo"] = ms[-1]
-        print(f"render_demo: ms per view {[round(m, 1) for m in ms]}  [{smi}]")
+        nv, nf = obj_counts(os.path.join(out, "shape.obj"))
+        check(nv > 1000 and nf > 1000, "render_demo --mesh wrote an (almost) empty mesh")
+        print(f"render_demo: ms per view {[round(m, 1) for m in ms]}; --mesh "
+              f"{render_demo.MESH_RES}^3: {nv} verts, {nf} faces  [{smi}]")
 
         out = os.path.join(tmp, "depth")
         res = run("depth_completion", depth_completion.main,
-                  ["--fast", "--img", "256", "--steps", "5", "--out", out], fits)
+                  ["--fast", "--img", "256", "--steps", "5", "--mesh", "--mesh-res",
+                   "128", "--out", out], fits)
         fit_ok("depth_completion", res, out)
+        nv, nf = obj_counts(os.path.join(out, "fitted.obj"))
+        check(math.isfinite(res.metrics["chamfer"]), "depth_completion's chamfer is not finite")
+        times["depth_completion_chamfer"] = res.metrics["chamfer"]
+        print(f"depth_completion --mesh --mesh-res 128: {nv} verts, {nf} faces; "
+              f"chamfer-sq vs the hidden shape {res.metrics['chamfer']:.3e}")
 
         out = os.path.join(tmp, "pose")
         # the pose gradient reaches the points through K3's spatial
@@ -853,9 +1156,25 @@ def cli_phase(torch, smi):
 
         out = os.path.join(tmp, "mv")
         res = run("multiview", multiview.main,
-                  ["--fast", "--img", "128", "--views", "3", "--steps", "3",
+                  ["--fast", "--img", "128", "--views", "3", "--steps", "3", "--mesh",
                    "--out", out], fits)
         fit_ok("multiview", res, out)
+        nv, nf = obj_counts(os.path.join(out, "reconstructed.obj"))
+        print(f"multiview --mesh: {nv} verts, {nf} faces")
+
+        # the chamfer of the torus decoder against the analytic torus, mesh-
+        # based (96^3 through the precise sdf, native surface sampling), and
+        # the render-space metrics over 4 ring views
+        t0 = time.perf_counter()
+        agg = run("evaluate", evaluate.main,
+                  ["--mesh-based", "--image-metrics", "--instances", "1", "--img", "128",
+                   "--out", os.path.join(tmp, "eval")])
+        times["evaluate_s"] = time.perf_counter() - t0
+        times["evaluate"] = agg
+        check(all(math.isfinite(v) for k, v in agg.items() if k.endswith(("mean", "median")))
+              and agg["chamfer_sym_mean"] < 0.05 and agg["silhouette_iou_mean"] > 0.8,
+              f"evaluate's metrics are off: {agg}")
+        print(f"evaluate: {agg}  [{smi}]", flush=True)
 
         # config #5 cut to size: 16 latents x 4 views at 256^2 through
         # render_batched_c2f with the bench proxy, in chunks of 64 frames
@@ -1223,6 +1542,8 @@ def main():
     tasks = cli_phase(torch, smi)
     b8 = batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi)
     km = b8["k1_multi"]
+    k9 = k5_phase(torch, dev, params, dcfg, latent, cam, smi)
+    k5 = k9["a"][0]
 
     src = "dist_renderer_tpu_torch/csrc/"
     kernels = [
@@ -1265,6 +1586,11 @@ def main():
              launches=b8["launches"]["sphere_trace_batched"],
              max_abs_err=max_err(km["d"]), ms=km["ms"], plain_ms=km["plain_ms"],
              bound_ms=km["bound_ms"], bound_by=km["bound_by"], library_ms=None),
+        dict(name="point_eval (K5)", route="cuda", source=src + "point_eval.cu",
+             replaces="dist_renderer_tpu/ops/pallas/mlp_eval.py:61",
+             launches=k9["launches"], max_abs_err=max(r["max"] for r in k9["a"]),
+             ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
+             bound_by=k5["bound_by"], library_ms=k5["library_ms"]),
     ]
     print(json.dumps({"fwd_ms_per_frame": fwd_ms, "plain_fwd_ms": plain_ms,
                       "fwdbwd_ms_per_frame": fb["fwdbwd_ms"],
@@ -1293,6 +1619,10 @@ def main():
                           k1_multi_plain_ms=km["plain_ms"],
                           k1_multi_ray_steps=km["ray_steps"],
                           render_depth_batched_ms=b8["render_depth_ms"]),
+                      "k5": dict(cases=[{k: v for k, v in r.items() if k != "exact"}
+                                        for r in k9["a"]],
+                                 mesh=k9["mesh"], triangle_route=k9["route"],
+                                 color=k9["color"]),
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,3 +6,6 @@ rewritten by hand for NVIDIA Hopper (``ops/kernels/`` wrappers,
 from dist_renderer_tpu_torch.config import (  # noqa: F401
     DecoderConfig, GradConfig, MarchConfig, RenderConfig,
 )
+from dist_renderer_tpu_torch.ops.renderer import (  # noqa: F401
+    SDFRenderer, SDFRendererColor, render, render_color_rays, render_rays,
+)

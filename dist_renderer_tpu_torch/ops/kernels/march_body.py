@@ -67,8 +67,11 @@ def rows_from_carry(c: Carry) -> torch.Tensor:
                         torch.maximum(c.act, c.unres), brk])
 
 
-def mlp_apply(layers, p: torch.Tensor, final_tanh: bool) -> torch.Tensor:
-    """One folded-MLP eval at bf16-rounded positions p [N, 3] -> sdf [N].
+def mlp_apply(layers, p: torch.Tensor, final_tanh: bool,
+              out_rows: int = 1) -> torch.Tensor:
+    """One folded-MLP eval at bf16-rounded positions p [N, 3] -> sdf [N]
+    (out_rows == 1), else the last layer's first out_rows outputs
+    [N, out_rows] (an RGB head: 3).
 
     layers: per layer (wh [in_p, out_p] or None, wx [3, out_p] or None,
     bias [N or 1, out_p]), weights bf16-valued fp32."""
@@ -83,8 +86,8 @@ def mlp_apply(layers, p: torch.Tensor, final_tanh: bool) -> torch.Tensor:
             acc = xz if acc is None else acc + xz
         acc = acc + bias
         h = round_bf16(torch.relu(acc)) if li < n_layers - 1 else acc
-    sdf = h[:, 0]
-    return torch.tanh(sdf) if final_tanh else sdf
+    out = h[:, 0] if out_rows == 1 else h[:, :out_rows]
+    return torch.tanh(out) if final_tanh else out
 
 
 def march_loop(mlp: Callable[[torch.Tensor], torch.Tensor],

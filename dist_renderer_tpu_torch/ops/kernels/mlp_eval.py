@@ -1,0 +1,107 @@
+"""Bulk point evaluation of the latent-folded decoder (K5): mesh-extraction
+SDF grids, color lookups, the forward of the differentiable color head.
+
+K5, ``point_eval``, replaces the JAX package's
+``ops/pallas/mlp_eval.py::pallas_point_eval`` (a loop-free
+``march_body.mlp_apply`` per 512-point block). On a CUDA tensor it
+launches ``csrc/point_eval.cu``, which runs the march's MLP body
+(``march_body.cuh``'s ``mlp_tile``) once per 32-point tile; on a CPU
+tensor, or with ``use_kernel=False``, it runs the plain version,
+``march_body.mlp_apply`` on the folded layers. The numerics are the
+march's (bf16 positions and weights, fp32 accumulation, one bf16 rounding
+per activation), so a mesh extracted through K5 is the surface the march
+sees; its ~2e-3 bf16 noise is far below the 2/res spacing of any
+practical grid.
+
+``make_pallas_point_fn`` and ``make_pallas_color_fn`` keep the JAX
+package's names: a latent bound into point functions through K5.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dist_renderer_tpu_torch.config import DecoderConfig
+from dist_renderer_tpu_torch.models.decoder import Params, round_bf16
+from dist_renderer_tpu_torch.models.folded import fold_latent
+from dist_renderer_tpu_torch.ops.kernels import build
+from dist_renderer_tpu_torch.ops.kernels.batched_march import (
+    check_cuda_inputs, march_args, plain_layers,
+)
+from dist_renderer_tpu_torch.ops.kernels.fused_march import PackedFolded, pack_folded
+from dist_renderer_tpu_torch.ops.kernels.march_body import mlp_apply
+
+_FRAME0 = torch.zeros((1,), dtype=torch.int64)  # the folded biases' one column
+
+
+def point_eval_plain(packed: PackedFolded, points: torch.Tensor,
+                     out_rows: int = 1) -> torch.Tensor:
+    """The plain PyTorch version of K5 (see point_eval)."""
+    layers = plain_layers(packed.shared, packed.bias, _FRAME0, True)
+    return mlp_apply(layers, round_bf16(points.to(torch.float32)),
+                     packed.shared.final_tanh, out_rows)
+
+
+def point_eval(packed: PackedFolded, points: torch.Tensor, block: int = 512,
+               out_rows: int = 1, use_kernel: bool = True) -> torch.Tensor:
+    """Evaluate a packed folded decoder at points [N, 3] fp32 -> [N] fp32
+    (out_rows == 1), or its first out_rows outputs [N, out_rows] (3 for an
+    RGB head). Forward only: no gradient reaches the points. A CUDA tensor
+    launches K5; a CPU tensor, or use_kernel=False, runs the plain
+    version. ``block`` (the TPU kernel's block width) has no effect: the
+    CUDA grid is one block per 32-point tile."""
+    if out_rows not in (1, 3):
+        raise ValueError(f"out_rows must be 1 or 3, got {out_rows}")
+    if points.ndim != 2 or points.shape[1] != 3:
+        raise ValueError(f"points must be [N, 3], got {tuple(points.shape)}")
+    points = points.detach()
+    if not (use_kernel and points.is_cuda):
+        return point_eval_plain(packed, points, out_rows)
+    n = points.shape[0]
+    check_cuda_inputs(packed.shared, packed.bias, points)
+    shape = (n,) if out_rows == 1 else (n, out_rows)
+    out = torch.empty(shape, dtype=torch.float32, device=points.device)
+    build.load().call("drt_point_eval", build.ptr(points), n,
+                      *march_args(packed.shared, packed.bias), out_rows,
+                      build.ptr(out), build.stream_of(points))
+    point_eval.launches += 1
+    return out
+
+
+point_eval.launches = 0
+
+
+def _flat_points(points: torch.Tensor) -> torch.Tensor:
+    return points.reshape(-1, 3).to(torch.float32).contiguous()
+
+
+def make_pallas_point_fn(params: Params, latent: torch.Tensor,
+                         cfg: DecoderConfig = DecoderConfig(), block: int = 512,
+                         use_kernel: bool = True):
+    """(points [..., 3]) -> sdf [...] through K5, the latent folded in
+    once: a forward-only drop-in for models.folded.make_point_fn's
+    function. use_kernel=False runs K5's plain version."""
+    packed = pack_folded(fold_latent(params, latent.detach(), cfg), cfg)
+
+    def point_fn(points):
+        return point_eval(packed, _flat_points(points), block,
+                          use_kernel=use_kernel).reshape(points.shape[:-1])
+
+    return point_fn
+
+
+def make_pallas_color_fn(params: Params, latent: torch.Tensor,
+                         cfg: DecoderConfig, block: int = 512,
+                         use_kernel: bool = True):
+    """(points [..., 3]) -> RGB [..., 3] in [0, 1] through K5 (3 output
+    rows, the sigmoid applied outside): a forward-only drop-in for
+    models.color_decoder.color_apply with a bound latent. For a
+    differentiable color head use recompute.make_color_vjp."""
+    packed = pack_folded(fold_latent(params, latent.detach(), cfg), cfg)
+
+    def color_fn(points):
+        logits = point_eval(packed, _flat_points(points), block, out_rows=3,
+                            use_kernel=use_kernel)
+        return torch.sigmoid(logits).reshape(points.shape[:-1] + (3,))
+
+    return color_fn

@@ -23,6 +23,9 @@ Rounding points (the JAX kernel's):
 (``precise_sdg_plain``, ``precise_bias_grads_plain``, which share the
 forward and the reverse sweep as the kernels do) on a CPU tensor or with
 ``use_kernel=False``.
+
+``make_color_vjp`` is the differentiable color head: K5 (mlp_eval.py)
+forward, K4 backward with 3 seed rows.
 """
 
 from __future__ import annotations
@@ -454,3 +457,67 @@ def make_precise_sdg(params: Params, cfg: DecoderConfig, block: int = 512,
                                  block, use_kernel)
 
     return sdg
+
+
+class _ColorVJP(torch.autograd.Function):
+    """(latent, points) -> RGB: K5 forward (3 rows, then the sigmoid), K4
+    backward (the sigmoid's preactivation cotangents as 3 seed rows)."""
+
+    @staticmethod
+    def forward(ctx, latent, points, params, cfg, shared, packed, block,
+                use_kernel):
+        from dist_renderer_tpu_torch.models.folded import fold_latent
+        from dist_renderer_tpu_torch.ops.kernels.fused_march import pack_folded
+        from dist_renderer_tpu_torch.ops.kernels.mlp_eval import point_eval
+
+        folded = pack_folded(fold_latent(params, latent.detach(), cfg), cfg, shared)
+        rgb = torch.sigmoid(point_eval(folded, points.contiguous(), block,
+                                       out_rows=3, use_kernel=use_kernel))
+        ctx.save_for_backward(latent, points, rgb)
+        ctx.params, ctx.cfg, ctx.packed = params, cfg, packed
+        ctx.block, ctx.use_kernel = block, use_kernel
+        return rgb
+
+    @staticmethod
+    def backward(ctx, ct):
+        latent, points, rgb = ctx.saved_tensors
+        ct_pre = ct * rgb * (1.0 - rgb)  # the sigmoid's derivative
+        biases = fold_bias_precise(ctx.params, latent, ctx.cfg, ctx.packed)
+        us, gx = precise_bias_grads_call(
+            ctx.packed, biases, points.contiguous(), ct_pre, ctx.block,
+            use_kernel=ctx.use_kernel, scalar_chain=False, want_gx=True)
+        gz = (latent_grad(ctx.packed, us).reshape(latent.shape)
+              if ctx.needs_input_grad[0] else None)
+        gp = gx if ctx.needs_input_grad[1] else None
+        return gz, gp, None, None, None, None, None, None
+
+
+def make_color_vjp(params: Params, cfg: DecoderConfig, block: int = 512,
+                   use_kernel: bool = True):
+    """(latent [L], points [N, 3]) -> RGB [N, 3] with a backward: the
+    differentiable color head (photometric losses reach the texture latent
+    and, through the surface points, the geometry and the pose).
+
+    Forward: K5 with 3 output rows and the sigmoid outside, bf16 like the
+    march. Backward: one K4 sweep seeded by the sigmoid's preactivation
+    cotangents (scalar_chain=False), giving the latent's bias-path
+    gradient and the points' gradient together. The decoder parameters
+    get no gradient. The head must end in a sigmoid, not a tanh
+    (models/color_decoder.py's convention). use_kernel=False runs both
+    kernels' plain versions; a CPU tensor runs them regardless."""
+    if cfg.final_tanh or cfg.use_tanh:
+        raise ValueError("make_color_vjp expects a sigmoid-output head "
+                         "(final_tanh=False, use_tanh=False)")
+    from dist_renderer_tpu_torch.ops.kernels.batched_march import pack_shared
+
+    shared = pack_shared(params, cfg)
+    packed = pack_precise(params, cfg)
+
+    def rgb_fn(latent, points):
+        if latent.ndim != 1:
+            raise ValueError("make_color_vjp folds one latent per call (got "
+                             f"shape {tuple(latent.shape)})")
+        return _ColorVJP.apply(latent, points, params, cfg, shared, packed,
+                               block, use_kernel)
+
+    return rgb_fn

@@ -29,6 +29,10 @@ the point function. The precise value comes from the fused recompute
 kernel (K3, backward K4) under ``GradConfig(mode="ift",
 recompute="pallas")``, else from ``sdf_fn`` by autograd.
 
+``render_color_rays`` and ``SDFRendererColor`` texture a render with a
+color decoder at the surface points (K5 forward, K4 backward through
+``recompute.make_color_vjp``).
+
 ``use_pallas`` means what it means in the JAX package (route the march
 through the fused kernels). Whether a kernel runs or its plain PyTorch
 version is the separate ``use_kernel`` choice of the march factory and of
@@ -401,6 +405,22 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
                         trace=trace)
 
 
+def render_color_rays(sdf_fn, color_fn, latent: torch.Tensor,
+                      latent_color: torch.Tensor, origins: torch.Tensor,
+                      dirs: torch.Tensor, cfg: RenderConfig, march_fn=None,
+                      init_depth: Optional[torch.Tensor] = None
+                      ) -> Tuple[RenderOutput, torch.Tensor]:
+    """Textured render of a flat ray batch: render_rays, then the color
+    decoder ``color_fn(latent_color, points)`` at the surface points (the
+    reference's SDFRenderer_color.render_color); misses are 0. The RGB
+    [N, 3] carries gradients to both latents and, through the surface
+    points' depth, to the geometry and the pose."""
+    out = render_rays(sdf_fn, latent, origins, dirs, cfg, march_fn, init_depth)
+    rgb = color_fn(latent_color, out.points)
+    rgb = torch.where(out.mask[:, None], rgb, torch.zeros_like(rgb))
+    return out, rgb
+
+
 def warm_from_trace(trace: TraceResult) -> Tuple[torch.Tensor, ...]:
     """The warm-start state (depth, hitish, anchor, margin) the next
     optimizer iteration's render classifies from instead of the coarse
@@ -693,3 +713,29 @@ class SDFRenderer:
 
     def render_silhouette(self, latent, R, T) -> torch.Tensor:
         return self.render(latent, R, T).min_sdf
+
+
+class SDFRendererColor:
+    """Wrapper mirroring the reference's ``SDFRenderer_color``: an
+    SDFRenderer's geometry and march, textured by ``color_fn(latent_color,
+    points) -> RGB`` (``recompute.make_color_vjp`` for the differentiable
+    color head)."""
+
+    def __init__(self, sdf_renderer: SDFRenderer, color_fn):
+        self.base = sdf_renderer
+        self.color_fn = color_fn
+
+    def render_color(self, latent, latent_color, R, T):
+        """-> (the flat RenderOutput, RGB [H, W, 3]); differentiable to
+        both latents and to R and T where they require grad."""
+        base, cfg = self.base, self.base.cfg
+        set_fp32_matmul()
+        cam = Camera(K=base.K, R=base._tensor(R), T=base._tensor(T))
+        origins, dirs = pixel_rays(cam, cfg.img_h, cfg.img_w)
+        z = base._tensor(latent)
+        march_fn = (base.march_fn_factory(z.detach())
+                    if base.march_fn_factory is not None else None)
+        out, rgb = render_color_rays(base.sdf_fn, self.color_fn, z,
+                                     base._tensor(latent_color), origins, dirs,
+                                     cfg, march_fn)
+        return out, rgb.reshape(cfg.img_h, cfg.img_w, 3)

@@ -62,6 +62,21 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
                     help="fit the fallback decoder instead of loading its cache")
 
 
+def analytic_shape(name: str):
+    """The analytic shape behind --shape: the fitted decoders' target and
+    evaluate's ground truth, as (latent, points) -> sdf."""
+    from dist_renderer_tpu_torch.models.analytic import (
+        round_union, sphere_sdf, torus_sdf,
+    )
+
+    return {
+        "sphere": sphere_sdf(0.5),
+        "torus": torus_sdf(0.5, 0.18),
+        "union": round_union(
+            torus_sdf(0.55, 0.18), sphere_sdf(0.35, (0.0, 0.25, 0.0)), 0.08),
+    }[name]
+
+
 def task_device(args) -> torch.device:
     """The CUDA card, or the CPU with --cpu. No card without --cpu raises."""
     if args.cpu:

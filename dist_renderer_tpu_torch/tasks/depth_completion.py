@@ -16,6 +16,10 @@ import os
 import torch
 
 from dist_renderer_tpu_torch.config import OptimConfig
+from dist_renderer_tpu_torch.eval.chamfer import (
+    chamfer_distance, sample_surface_points,
+)
+from dist_renderer_tpu_torch.eval.mesh import extract_mesh, save_obj
 from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
 from dist_renderer_tpu_torch.models.folded import make_point_fn
 from dist_renderer_tpu_torch.ops.kernels.batched_march import not_ported
@@ -29,6 +33,8 @@ from dist_renderer_tpu_torch.tasks.common import (
 from dist_renderer_tpu_torch.utils import losses as L
 from dist_renderer_tpu_torch.utils.optim import fit
 from dist_renderer_tpu_torch.utils.viz import MetricsLogger, save_render_panel
+
+CHAMFER_SAMPLES = 20000  # surface samples per shape for --mesh's chamfer
 
 
 def main(argv=None):
@@ -46,7 +52,8 @@ def main(argv=None):
     ap.add_argument("--w-reg", type=float, default=1e-4)
     ap.add_argument("--vis-every", type=int, default=0)
     ap.add_argument("--mesh", action="store_true",
-                    help="extract the fitted shape's mesh (not ported)")
+                    help="extract the fitted shape's mesh, with the chamfer "
+                    "against the hidden complete shape")
     ap.add_argument("--mesh-res", type=int, default=128)
     ap.add_argument("--warm", type=int, default=0,
                     help="warm-start refresh period N: reuse each "
@@ -56,8 +63,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.data:
         not_ported("depth_completion --data (data/datasets.py)", "A10")
-    if args.mesh:
-        not_ported("depth_completion --mesh (mesh extraction)", "A12")
 
     dev = task_device(args)
     params, gt_latent, dcfg = load_task_decoder(args)
@@ -133,6 +138,22 @@ def main(argv=None):
     print(f"final: loss {float(res.loss_history[-1]):.5f}  full-depth L1 "
           f"{err:.5f}  |z - z_gt| {lat_err:.4f}  ms/step (median) "
           f"{res.metrics['ms_per_step']:.1f}")
+
+    if args.mesh:
+        # the fitted shape's mesh, and its chamfer against the hidden
+        # complete shape (surface samples of both SDFs)
+        fitted = lambda p: sdf_fn(res.variables, p)
+        verts, faces = extract_mesh(fitted, resolution=args.mesh_res, device=dev)
+        obj = os.path.join(args.out, "fitted.obj")
+        save_obj(obj, verts, faces)
+        pa = sample_surface_points(fitted, CHAMFER_SAMPLES,
+                                   torch.Generator().manual_seed(0), device=dev)
+        pb = sample_surface_points(lambda p: sdf_fn(gt_latent, p), CHAMFER_SAMPLES,
+                                   torch.Generator().manual_seed(1), device=dev)
+        ch = float(chamfer_distance(pa, pb)[2])
+        res.metrics["chamfer"] = ch
+        print(f"mesh: {len(verts)} verts {len(faces)} faces -> {obj}  "
+              f"chamfer-sq vs GT {ch:.2e}")
     logger.close()
     return res
 

@@ -18,6 +18,7 @@ import os
 import torch
 
 from dist_renderer_tpu_torch.config import OptimConfig
+from dist_renderer_tpu_torch.eval.mesh import extract_mesh, save_obj
 from dist_renderer_tpu_torch.models.color_decoder import (
     color_apply, init_color_params, make_color_config,
 )
@@ -50,13 +51,11 @@ def main(argv=None):
     ap.add_argument("--w-photo", type=float, default=1.0)
     ap.add_argument("--w-reg", type=float, default=1e-4)
     ap.add_argument("--mesh", action="store_true",
-                    help="extract the reconstructed mesh (not ported)")
+                    help="extract the reconstructed mesh")
     ap.add_argument("--mesh-res", type=int, default=128)
     args = ap.parse_args(argv)
     if args.data:
         not_ported("multiview --data (data/datasets.py)", "A10")
-    if args.mesh:
-        not_ported("multiview --mesh (mesh extraction)", "A12")
 
     dev = task_device(args)
     params, gt_latent, dcfg = load_task_decoder(args)
@@ -126,6 +125,12 @@ def main(argv=None):
           f"{summary['ms_per_step']:.1f}")
     with open(os.path.join(args.out, "summary.json"), "w") as fh:
         json.dump(summary, fh)
+    if args.mesh:
+        verts, faces = extract_mesh(lambda p: sdf_fn(res.variables, p),
+                                    resolution=args.mesh_res, device=dev)
+        obj = os.path.join(args.out, "reconstructed.obj")
+        save_obj(obj, verts, faces)
+        print(f"mesh: {len(verts)} verts {len(faces)} faces -> {obj}")
     logger.close()
     return res
 

@@ -10,15 +10,17 @@ import argparse
 import os
 import time
 
+from dist_renderer_tpu_torch.eval.mesh import extract_mesh, save_obj
 from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
 from dist_renderer_tpu_torch.models.folded import make_point_fn
-from dist_renderer_tpu_torch.ops.kernels.batched_march import not_ported
 from dist_renderer_tpu_torch.ops.renderer import render
 from dist_renderer_tpu_torch.tasks.common import (
     add_common_args, default_camera, load_task_decoder, make_render_cfg,
     synchronize, task_device,
 )
 from dist_renderer_tpu_torch.utils.viz import save_render_panel
+
+MESH_RES = 128  # --mesh's grid resolution
 
 
 def main(argv=None):
@@ -28,8 +30,6 @@ def main(argv=None):
     ap.add_argument("--views", type=int, default=1)
     ap.add_argument("--mesh", action="store_true", help="also extract an .obj")
     args = ap.parse_args(argv)
-    if args.mesh:
-        not_ported("render_demo --mesh (mesh extraction)", "A12")
 
     dev = task_device(args)
     params, latent, dcfg = load_task_decoder(args)
@@ -49,6 +49,13 @@ def main(argv=None):
         path = os.path.join(args.out, f"view{i:02d}.png")
         save_render_panel(path, out)
         print(f"view {i}: {times[-1]:.1f} ms, {int(out.mask.sum())} hit px -> {path}")
+
+    if args.mesh:
+        verts, faces = extract_mesh(lambda p: sdf_fn(latent, p),
+                                    resolution=MESH_RES, device=dev)
+        obj = os.path.join(args.out, "shape.obj")
+        save_obj(obj, verts, faces)
+        print(f"mesh: {len(verts)} verts, {len(faces)} faces -> {obj}")
     return times
 
 

@@ -777,6 +777,136 @@ def test_kernel_build_is_keyed_by_source_hash():
     names = {os.path.basename(p) for p in build._sources()}
     assert {"march_body.cuh", "batched_march.cu", "queue_march.cu",
             "recompute.cu", "fused_march.cu", "sphere_trace.cuh",
-            "dot_in_order.cu"} <= names
+            "dot_in_order.cu", "point_eval.cu"} <= names
     assert "-use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def _k5_case(out_rows, dev, seed=0):
+    """The bench 8x512 decoder at its latent (1 row), or the default 8x512
+    color decoder from a seeded torch.Generator at a seeded texture
+    latent (3 rows): (params, cfg, latent, packed K5 layout)."""
+    from dist_renderer_tpu_torch.models.color_decoder import (
+        init_color_params, make_color_config,
+    )
+
+    if out_rows == 1:
+        params, z = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+        cfg = DecoderConfig()
+    else:
+        cfg = make_color_config()
+        gen = torch.Generator().manual_seed(seed)
+        params = init_color_params(gen, cfg, dev)
+        z = (0.3 * torch.randn(cfg.latent_size, generator=gen)).to(dev)
+    return params, cfg, z, fm.pack_folded(fold_latent(params, z, cfg), cfg)
+
+
+def _points(n, dev, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.uniform(-1.0, 1.0, (n, 3)), dtype=torch.float32,
+                           device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 33, 100_000])
+@pytest.mark.parametrize("out_rows", [1, 3])
+def test_cuda_k5_matches_in_order_plain(out_rows, n, k_order):
+    """K5 against its plain version with the in-order product, bit for bit,
+    on ragged and whole tiles; a second launch gives the same bits."""
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+
+    dev = _device()
+    _, _, _, packed = _k5_case(out_rows, dev)
+    pts = _points(n, dev, n)
+    n0 = mlp_eval.point_eval.launches
+    out = mlp_eval.point_eval(packed, pts, out_rows=out_rows)
+    again = mlp_eval.point_eval(packed, pts, out_rows=out_rows)
+    assert mlp_eval.point_eval.launches == n0 + 2
+    ref = mlp_eval.point_eval(packed, pts, out_rows=out_rows, use_kernel=False)
+    assert mlp_eval.point_eval.launches == n0 + 2
+    torch.cuda.synchronize()
+    assert out.shape == ((n,) if out_rows == 1 else (n, out_rows))
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_cuda_color_vjp_matches_plain(k_order):
+    """make_color_vjp on the card (K5 forward, K4 backward with 3 seed
+    rows) against its plain versions: RGB and the points' gradient bit for
+    bit, the texture latent's (a sum over points in fp64, in another
+    order) within relative L2 1e-6."""
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+
+    dev = _device()
+    params, cfg, z, _ = _k5_case(3, dev, seed=1)
+    pts = _points(5000, dev, 7) * 0.6
+    w = _points(5000, dev, 8)
+
+    def run(k):
+        zz, pp = z.clone().requires_grad_(True), pts.clone().requires_grad_(True)
+        rgb = rc.make_color_vjp(params, cfg, use_kernel=k)(zz, pp)
+        return (rgb,) + torch.autograd.grad((w * rgb).sum(), (zz, pp))
+
+    n0 = (mlp_eval.point_eval.launches, rc.precise_bias_grads_call.launches)
+    rgb, gz, gp = run(True)
+    assert (mlp_eval.point_eval.launches, rc.precise_bias_grads_call.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    rgb_p, gz_p, gp_p = run(False)
+    torch.cuda.synchronize()
+    assert torch.equal(rgb, rgb_p) and torch.equal(gp, gp_p)
+    rel = ((gz.double() - gz_p.double()).norm() / gz_p.double().norm()).item()
+    assert rel <= 1e-6, rel
+    assert torch.isfinite(gz).all() and gz.norm() > 0
+
+
+@pytest.mark.gpu
+def test_cuda_color_render_matches_plain(k_order):
+    """SDFRendererColor on the K1-grid path (K1-grid, K3, K5; backward K4)
+    against the plain versions: RGB bit for bit; the gradients to the
+    shape and texture latents within relative L2 1e-5."""
+    dev = _device()
+    params, z = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    cparams, ccfg, zt, _ = _k5_case(3, dev, seed=2)
+    img = 48
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img),
+                            device=dev)
+    cfg = RenderConfig(march=MARCH, grad=GradConfig(mode="ift", compact_frac=4),
+                       compute_dtype="bfloat16", use_pallas=True)
+    from dist_renderer_tpu_torch.ops.renderer import SDFRendererColor
+
+    def run(k):
+        r = SDFRenderer(params, cam.K, (img, img), cfg=cfg, use_kernel=k)
+        rcol = SDFRendererColor(r, rc.make_color_vjp(cparams, ccfg, use_kernel=k))
+        leaves = [z.clone().requires_grad_(True), zt.clone().requires_grad_(True)]
+        out, rgb = rcol.render_color(leaves[0], leaves[1], cam.R, cam.T)
+        return (out, rgb) + torch.autograd.grad(rgb.abs().mean(), leaves)
+
+    out, rgb, g_z, g_t = run(True)
+    out_p, rgb_p, g_zp, g_tp = run(False)
+    torch.cuda.synchronize()
+    assert out.mask.sum() > 200
+    assert torch.equal(rgb, rgb_p)
+    for a, b in ((g_z, g_zp), (g_t, g_tp)):
+        rel = ((a.double() - b.double()).norm() / b.double().norm()).item()
+        assert rel <= 1e-5, rel
+
+
+def test_cpu_tensors_take_the_k5_plain_version_uncounted():
+    """On CPU tensors K5's wrapper, the point and color functions and the
+    color head's backward run the plain versions and count no launch."""
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+
+    dev = torch.device("cpu")
+    params, cfg, z, packed = _k5_case(3, dev)
+    pts = _points(100, dev, 0)
+    n0 = (mlp_eval.point_eval.launches, rc.precise_bias_grads_call.launches)
+    out = mlp_eval.point_eval(packed, pts, out_rows=3)
+    assert torch.equal(out, mlp_eval.point_eval_plain(packed, pts, 3))
+    fn = mlp_eval.make_pallas_color_fn(params, z, cfg)
+    assert torch.equal(fn(pts), torch.sigmoid(out))
+    zz = z.clone().requires_grad_(True)
+    rc.make_color_vjp(params, cfg)(zz, pts).sum().backward()
+    assert zz.grad is not None and torch.isfinite(zz.grad).all()
+    assert n0 == (mlp_eval.point_eval.launches, rc.precise_bias_grads_call.launches)
