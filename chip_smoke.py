@@ -21,7 +21,11 @@ server, in process, on the committed torus 8x512 decoder; then
 bench.py's batched headline: 64 frames of the bench cell through
 render_batched_c2f on the rounds scheduler in the three verify modes,
 with the multi-frame grid march (K1-multi) held to K1 and to its plain
-version; and last the bulk point eval (K5) against its plain version,
+version, and with the certification path (verify_mode="cert" and the
+hybrid, on the banked point eval K6, which phase 3 holds against its
+plain version, as phases 4 and 8 do at their own shapes, and phase 4
+serves once each); and last the bulk point
+eval (K5) against its plain version,
 mesh extraction of the bench shape through it at 128^3 and 256^3, and
 the color render (SDFRendererColor with the differentiable color head)
 at 512x512, forward and backward, against the plain versions. The CLIs
@@ -539,11 +543,21 @@ F8 = 64        # frames per batch in phase 8 (bench.py's batched headline)
 F8_PLAIN = 4   # frames of phase 8's kernel-vs-plain comparison
 # Phase 8's whole path at F=4 against the plain versions with their GEMM:
 # the least share of hits agreeing, and of rays within MARCH_TOL per field,
-# and the largest |diff|. Set from the first readings on an H100 (agreement
-# 1.00000; within: depth 0.999949, min_sdf 0.999989, depth_at_min 0.999738;
-# max 6.1e-3, 3.5e-3, 6.8e-3); with the in-order product every ray is equal.
+# and the largest |diff|. Set from readings on an H100, (a): agreement
+# 1.00000; within: depth 0.999949, min_sdf 0.999989, depth_at_min
+# 0.999738; max 6.1e-3, 3.5e-3, 6.8e-3. (d) cert, three sets of frames
+# (seeds 9, 11, 12): agreement 1.00000; within: depth 0.991793 / 0.992994
+# / 0.989310, min_sdf 0.999352 / 0.999233 / 0.999214, depth_at_min
+# 0.998046 / 0.998536 / 0.997766; max 9.8e-3. A certified depth is the
+# secant through probes at the proxy depth +- backoff, which the bf16x2
+# split places to ~1e-5, so a proxy depth that the GEMM's summation order
+# moves by a last bit moves it too, where (a)'s verify march absorbs it:
+# every ray outside MARCH_TOL had a proxy depth that moved (1785, 1518,
+# 2326 of 1785, 1518, 2326), which the check holds. With the in-order
+# product every ray is equal in both.
 PATH_AGREE = 0.9999
-PATH_WITHIN = dict(depth=0.9999, min_sdf=0.9999, depth_at_min=0.9995)
+PATH_WITHIN = dict(a=dict(depth=0.9999, min_sdf=0.9999, depth_at_min=0.9995),
+                   d=dict(depth=0.98, min_sdf=0.998, depth_at_min=0.995))
 PATH_MAX = 2e-2
 
 
@@ -561,13 +575,18 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
     on the rounds scheduler, verify_hits (a) "march", (b) "polish" and (c)
     "polish-all", the two polish modes with finalize_hits_batched (and
     (c) its weak mask) in the timed region; (a) again with every level and
-    round on K1-multi; render_depth_batched at F=64. Then, outside the
-    counted run: K1-multi against K1 and against its plain version on the
-    verify stage's first round at F=64, render_depth_batched against K1,
-    and the kernel path against the plain versions at F=4."""
+    round on K1-multi; (d) verify_mode="cert" and (e) the hybrid
+    (verify_band="probe"), the certification on K6, whose calls in the
+    warm-up batch of (d) and (e) are held against its plain version;
+    render_depth_batched at F=64. Then, outside the counted run: K1-multi
+    against K1 and against its plain version on the verify stage's first
+    round at F=64, render_depth_batched against K1, and the kernel path of
+    (a) and of (d) against the plain versions at F=4 ((d) on three sets of
+    frames)."""
     import types
 
     from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
     from dist_renderer_tpu_torch.profile_render import batched_setup
 
     print(f"\n== phase 8: the batched headline, F={F8} x {IMG}x{IMG}, rounds ==")
@@ -577,9 +596,12 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
     ob = origins[None, :1].expand(F8, 1, 3)
     vb = dirs[None].expand(F8, n, 3)
 
-    def timed(fn, reps=3):
-        """(last output, median ms of reps after a warm-up), CUDA events."""
-        out = fn()
+    def timed(fn, reps=3, warm_up=lambda fn: fn()):
+        """(last output, median ms of reps after a warm-up), CUDA events;
+        warm_up(fn) runs the warm-up. Peak memory counts from the reps."""
+        out = warm_up(fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         ms = []
         for _ in range(reps):
             a = torch.cuda.Event(enable_timing=True)
@@ -591,16 +613,30 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
             ms.append(a.elapsed_time(b))
         return out, sorted(ms)[len(ms) // 2], ms
 
-    counters = (bm.sphere_trace_persistent, bm.sphere_trace_batched)
+    counters = (bm.sphere_trace_persistent, bm.sphere_trace_batched,
+                mlp_eval.point_eval_banked)
     for c in counters:
         c.launches = 0
     rows = {}
     outs = {}
+    k6_rows = {}
+
+    def k6_held_at(name):
+        """The warm-up of (d) or (e), its K6 calls held against the plain
+        version (k6_capture, k6_held): K6 at the shapes of F=64."""
+        def run(fn):
+            out, calls = k6_capture(torch, fn)
+            k6_rows[name] = k6_held(torch, calls, f"({name}) at F={F8}")
+            return out
+        return run
+
     with torch.no_grad():
         for name, vh, pers in (("a", "march", True), ("b", "polish", True),
-                               ("c", "polish-all", True), ("a_multi", "march", False)):
-            torch.cuda.reset_peak_memory_stats(dev)
-            out, ms, all_ms = timed(lambda: batch(vh, persistent=pers))
+                               ("c", "polish-all", True), ("a_multi", "march", False),
+                               ("d", "cert", True), ("e", "hybrid", True)):
+            out, ms, all_ms = timed(lambda: batch(vh, persistent=pers),
+                                    **(dict(warm_up=k6_held_at(name))
+                                       if name in ("d", "e") else {}))
             peak = torch.cuda.max_memory_allocated(dev) / 2**30
             outs[name] = out
             check(torch.isfinite(out.depth).all().item()
@@ -611,8 +647,8 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
             rows[name] = dict(verify_hits=vh, persistent=pers, ms=ms, all_ms=all_ms,
                               ms_per_frame=ms / F8, mrays_s=F8 * n / ms / 1e3,
                               hit_frac=hf, peak_gib=peak)
-            print(f"({name}) verify_hits={vh!r}{'' if pers else ', every level and round on K1-multi'}"
-                  f"{', finalize in the timed region' if vh != 'march' else ''}: "
+            print(f"({name}) verify mode {vh!r}{'' if pers else ', every level and round on K1-multi'}"
+                  f"{', finalize in the timed region' if vh.startswith('polish') else ''}: "
                   f"{rows[name]['mrays_s']:.3f} Mrays/s, {ms / F8:.3f} ms/frame "
                   f"(median of 3 batches, {[round(m, 1) for m in all_ms]} ms), "
                   f"hit_frac {hf:.4f}, peak memory {peak:.2f} GiB  [{smi}]", flush=True)
@@ -632,9 +668,9 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
           and torch.equal(outs["a"].hit, outs["a_multi"].hit),
           "(a) on K1-multi differs from (a) on K1")
 
-    # flips of the polish modes against march-verify, depth on common hits
+    # flips of the other modes against march-verify, depth on common hits
     ha = outs["a"].hit
-    for name in ("b", "c"):
+    for name in ("b", "c", "d", "e"):
         o = outs[name]
         flips = (o.hit != ha)
         both = o.hit & ha
@@ -707,26 +743,18 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
                    True, True)
         torch.cuda.synchronize()
     dd_exact = torch.equal(dd_out[0], ref.depth) and torch.equal(dd_out[1], ref.hit)
+    del ref
     print(f"render_depth_batched at F={F8} (K1-multi, every ray from its sphere entry): "
           f"{dd_ms:.1f} ms, hit_frac {dd_out[1].float().mean().item():.4f}; == K1 bit "
           f"for bit: {dd_exact}", flush=True)
     check(dd_exact, "render_depth_batched differs from K1 on the same rays")
 
-    # the kernel path against the plain versions at F=4, march-verify: with
-    # the GEMM, and with the in-order product in its place
+    # the kernel path against the plain versions at F=4, (a) march-verify
+    # and (d) cert: with the GEMM, and with the in-order product in its place
     from dist_renderer_tpu_torch.models.decoder import dot_f32_in_order
-    from dist_renderer_tpu_torch.ops.kernels import march_body
 
     fields = ("depth", "hit", "min_sdf", "depth_at_min")
     with torch.no_grad():
-        rk = batch("march", f=F8_PLAIN, return_anchor=True)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        rp = batch("march", f=F8_PLAIN, use_kernel=False, return_anchor=True)
-        b.record()
-        torch.cuda.synchronize()
-        gemm_ms = a.elapsed_time(b)
         # the in-order product against a loop over k, bit for bit
         gen = torch.Generator(device="cpu").manual_seed(SEED + 10)
         bf = lambda *sh: torch.randn(sh, generator=gen).to(torch.bfloat16).float().to(dev)
@@ -737,52 +765,101 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
                 loop = loop + x[:, k:k + 1] * w[k]
             ok_dot &= torch.equal(dot_f32_in_order(x, w), loop)
         check(ok_dot, "the in-order product differs from its loop over k")
-        real_dot = march_body.dot_f32
-        march_body.dot_f32 = dot_f32_in_order
-        try:
-            a.record()
-            ro = batch("march", f=F8_PLAIN, use_kernel=False, return_anchor=True)
-            b.record()
-            torch.cuda.synchronize()
-        finally:
-            march_body.dot_f32 = real_dot
-        order_ms = a.elapsed_time(b)
     # The plain versions' GEMM picks its summation order by the launch's
     # shape (the rays a scheduler left live); a last-bit difference in a
     # coarse level moves a seed, and that ray's march then stops elsewhere
     # inside the convergence ball (eps 2e-3). With the k sum in the
     # kernels' order the plain path must give every ray's bits.
     differ = lambda x, y: ~((x == y) | (x.isnan() & y.isnan())) if x.is_floating_point() else x != y
-    n_diff = {f: int(differ(getattr(rk, f), getattr(ro, f)).sum()) for f in fields}
-    print(f"(a) at F={F8_PLAIN}, kernels vs plain versions with the in-order product "
-          f"({order_ms:.0f} ms; product == its loop over k: {ok_dot}): rays that "
-          f"differ: {n_diff}", flush=True)
-    check(not any(n_diff.values()),
-          f"phase 8's kernel path differs from the plain versions with the kernels' "
-          f"summation order at F={F8_PLAIN}: {n_diff} rays")
-    d_path = march_diff(rk, rp)
-    same = rk.hit == rp.hit
-    both = rk.hit & rp.hit
-    within = dict(
-        depth=((rk.depth - rp.depth).abs()[both] <= MARCH_TOL).float().mean().item(),
-        min_sdf=((rk.min_sdf - rp.min_sdf).abs()[same] <= MARCH_TOL).float().mean().item(),
-        depth_at_min=((rk.depth_at_min - rp.depth_at_min).abs()[same]
-                      <= MARCH_TOL).float().mean().item())
-    d_path.update(within=within, in_order_rays_differing=n_diff,
-                  gemm_ms=gemm_ms, in_order_ms=order_ms)
-    print(f"(a) at F={F8_PLAIN}, kernels vs plain versions with the GEMM ({gemm_ms:.0f} ms): "
-          f"{march_line(d_path)}; within {MARCH_TOL}: " + ", ".join(
-              f"{k} {v:.6f}" for k, v in within.items()), flush=True)
-    check(d_path["agree"] >= PATH_AGREE and max_err(d_path) <= PATH_MAX
-          and all(within[k] >= v for k, v in PATH_WITHIN.items()),
-          f"phase 8's kernel path disagrees with the plain versions at F={F8_PLAIN}: "
-          f"{march_line(d_path)}, within {MARCH_TOL}: {within} (bars: agreement >= "
-          f"{PATH_AGREE}, max |diff| <= {PATH_MAX}, within {MARCH_TOL} on at least "
-          f"{PATH_WITHIN} of the rays)")
+    from dist_renderer_tpu_torch.ops import cert as cert_mod
+
+    def proxy_depth_of(fn):
+        """(fn(), the proxy depth certify_hits_batched was given, or None)."""
+        seen, real_cert = [], cert_mod.certify_hits_batched
+
+        def spy(*a, **kw):
+            seen.append(a[4].clone())
+            return real_cert(*a, **kw)
+
+        cert_mod.certify_hits_batched = spy
+        try:
+            return fn(), (seen[0] if seen else None)
+        finally:
+            cert_mod.certify_hits_batched = real_cert
+
+    def gemm_vs_plain(name, run, label):
+        """The kernel path against the plain versions with the GEMM, on
+        run(use_kernel); under cert, the rays outside MARCH_TOL in depth
+        counted with those whose proxy depth (the probes' anchor) moved."""
+        with torch.no_grad():
+            rk, pk = run(True)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            rp, pp = run(False)
+            b.record()
+            torch.cuda.synchronize()
+            gemm_ms = a.elapsed_time(b)
+        d_path = march_diff(rk, rp)
+        same = rk.hit == rp.hit
+        both = rk.hit & rp.hit
+        within = dict(
+            depth=((rk.depth - rp.depth).abs()[both] <= MARCH_TOL).float().mean().item(),
+            min_sdf=((rk.min_sdf - rp.min_sdf).abs()[same] <= MARCH_TOL).float().mean().item(),
+            depth_at_min=((rk.depth_at_min - rp.depth_at_min).abs()[same]
+                          <= MARCH_TOL).float().mean().item())
+        d_path.update(within=within, gemm_ms=gemm_ms)
+        note = ""
+        if pk is not None:
+            out = both & ((rk.depth - rp.depth).abs() > MARCH_TOL)
+            moved = differ(pk, pp)
+            d_path.update(outside=int(out.sum()), outside_proxy_moved=int((out & moved).sum()),
+                          proxy_moved=int(moved.sum()))
+            note = (f"; of the {d_path['outside']} common hits outside {MARCH_TOL} in depth, "
+                    f"{d_path['outside_proxy_moved']} have a proxy depth that differs "
+                    f"({d_path['proxy_moved']} rays' proxy depths differ)")
+        print(f"({name}) at F={F8_PLAIN}, {label}, kernels vs plain versions with the GEMM "
+              f"({gemm_ms:.0f} ms): {march_line(d_path)}; within {MARCH_TOL}: " + ", ".join(
+                  f"{k} {v:.6f}" for k, v in within.items()) + note, flush=True)
+        check(d_path["agree"] >= PATH_AGREE and max_err(d_path) <= PATH_MAX
+              and all(within[k] >= v for k, v in PATH_WITHIN[name].items())
+              and d_path.get("outside") == d_path.get("outside_proxy_moved"),
+              f"phase 8's kernel path ({name}, {label}) disagrees with the plain versions "
+              f"at F={F8_PLAIN}: {march_line(d_path)}, within {MARCH_TOL}: {within} (bars: "
+              f"agreement >= {PATH_AGREE}, max |diff| <= {PATH_MAX}, within {MARCH_TOL} "
+              f"on at least {PATH_WITHIN[name]} of the rays, and under cert only rays "
+              f"whose proxy depth moved outside it)")
+        return d_path
+
+    paths = {}
+    for name, mode in (("a", "march"), ("d", "cert")):
+        with torch.no_grad():
+            rk = batch(mode, f=F8_PLAIN, return_anchor=True)
+            t0 = time.perf_counter()
+            ro = in_order(lambda: batch(mode, f=F8_PLAIN, use_kernel=False,
+                                        return_anchor=True))
+            order_ms = 1e3 * (time.perf_counter() - t0)
+        n_diff = {f: int(differ(getattr(rk, f), getattr(ro, f)).sum()) for f in fields}
+        del rk, ro
+        print(f"({name}) at F={F8_PLAIN}, kernels vs plain versions with the in-order "
+              f"product ({order_ms:.0f} ms; product == its loop over k: {ok_dot}): rays "
+              f"that differ: {n_diff}", flush=True)
+        check(not any(n_diff.values()),
+              f"phase 8's kernel path ({name}) differs from the plain versions with the "
+              f"kernels' summation order at F={F8_PLAIN}: {n_diff} rays")
+        paths[name] = gemm_vs_plain(name, lambda k: proxy_depth_of(lambda: batch(
+            mode, f=F8_PLAIN, use_kernel=k, return_anchor=True)), f"seed {SEED + 9}")
+        paths[name].update(in_order_rays_differing=n_diff, in_order_ms=order_ms)
+    # (d)'s share within MARCH_TOL on two more sets of frames (other jitter)
+    paths["d_more"] = []
+    for seed in (SEED + 11, SEED + 12):
+        batch_s, _, _ = batched_setup(dev, F8_PLAIN, IMG, seed)
+        paths["d_more"].append(gemm_vs_plain("d", lambda k: proxy_depth_of(lambda: batch_s(
+            "cert", use_kernel=k, return_anchor=True)), f"seed {seed}"))
     return dict(rows=rows, launches=launches, k1_multi=dict(
         ms=km_ms, k1_ms=k1_ms, plain_ms=plain_ms, d=d_multi, bound_ms=b_multi[0],
         bound_by=b_multi[1], ray_steps=steps, exact=exact),
-        render_depth_ms=dd_ms, path_vs_plain=d_path)
+        render_depth_ms=dd_ms, path_vs_plain=paths, k6=k6_rows)
 
 
 K5_POINTS = 262_144   # phase 9 (a): seeded points in [-1, 1]^3
@@ -807,6 +884,24 @@ def k5_macs(shared, out_rows):
     outputs of the last layer."""
     in_last = shared.table[-4]
     return macs_per_eval(shared) + (out_rows - 1) * in_last
+
+
+def in_order(fn):
+    """fn() with the plain versions' products summed in k order
+    (decoder.dot_f32_in_order, the kernels' order), synchronized."""
+    import torch
+
+    from dist_renderer_tpu_torch.models.decoder import dot_f32_in_order
+    from dist_renderer_tpu_torch.ops.kernels import march_body, recompute
+
+    real = march_body.dot_f32, recompute.dot_f32
+    march_body.dot_f32 = recompute.dot_f32 = dot_f32_in_order
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    finally:
+        march_body.dot_f32, recompute.dot_f32 = real
 
 
 def bf16_chain(torch, params, cfg, latent):
@@ -838,6 +933,163 @@ def bf16_chain(torch, params, cfg, latent):
     return run
 
 
+def k6_macs(shared):
+    """Multiply-adds of one K6 evaluation: the march's, plus the x-products
+    of the positions' low halves."""
+    t = shared.table
+    rows = [t[i:i + 5] for i in range(0, len(t), 5)]
+    lo = sum(3 * (1 if li == len(rows) - 1 else r[0])
+             for li, r in enumerate(rows) if r[3] >= 0)
+    return macs_per_eval(shared) + lo
+
+
+def k6_bytes(n, n_blocks, shared, bank):
+    """K6's traffic: [n, 3] points, n active flags and the block frames in,
+    [n] values out, the weights and the bias bank once."""
+    return 4 * 4 * n + n + 4 * n_blocks + 2 * shared.flat.numel() + 4 * bank.numel()
+
+
+def k6_chain(torch, shared, bank):
+    """The library yardstick for K6: the shared decoder as a chain of bf16
+    torch.nn.functional.linear calls (cuBLAS, tensor cores) on the points of
+    the live tiles, the positions' high and low halves each through the x
+    weights, each point's bias gathered from its frame's bank column. It
+    computes K6's function up to bf16 rounding of sums and biases; the
+    port never calls it."""
+    F = torch.nn.functional
+
+    def run(pts, frame):
+        hi = pts.to(torch.bfloat16)
+        lo = (pts - hi.float()).to(torch.bfloat16)
+        h = None
+        last = len(shared.offsets) - 1
+        for li, (wh, wx, (off, out_p)) in enumerate(zip(shared.whT, shared.wxT,
+                                                        shared.offsets)):
+            acc = bank[off:off + out_p].T[frame].to(torch.bfloat16)
+            if wh is not None:
+                acc = acc + F.linear(h, wh)
+            if wx is not None:
+                acc = acc + F.linear(hi, wx[:, :3]) + F.linear(lo, wx[:, :3])
+            h = torch.relu(acc) if li < last else acc
+        out = h[:, 0].float()
+        return torch.tanh(out) if shared.final_tanh else out
+
+    return run
+
+
+def k6_row(torch, dev, smi):
+    """Phase 3's K6 row: the certification probes (a and b, hit-first
+    buckets, dead suffixes) of phase 8's verify_mode="cert" batch cut to
+    F8_PLAIN frames, on the bench decoder: K6 against its plain version
+    with the GEMM (active lanes within K5's bars, dead tiles equal) and
+    with the in-order product (bit for bit), timed beside its plain
+    version and a bf16 F.linear chain on the live tiles' points."""
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+    from dist_renderer_tpu_torch.profile_render import batched_setup
+
+    batch, _, _ = batched_setup(dev, F8_PLAIN, IMG, SEED + 9)
+    seen, real = [], mlp_eval.point_eval_banked
+
+    def spy(*a, **kw):
+        if not seen:
+            seen.append((a, kw))
+        return real(*a, **kw)
+
+    # the wrapper counts on its module-level name; these launches do not
+    # count for the main path (the real counter is left as it was)
+    spy.launches = 0
+    mlp_eval.point_eval_banked = spy
+    try:
+        batch("cert")
+    finally:
+        mlp_eval.point_eval_banked = real
+    (shared, bank, fob, pts, act), kw = seen[0]
+    block = kw["block"]
+    run = lambda k: real(shared, bank, fob, pts, act, block=block, use_kernel=k)
+    out_k, out_p = run(True), run(False)
+    exact = torch.equal(out_k, in_order(lambda: run(False)))
+    live = mlp_eval._live_tiles(act)
+    err = (out_k - out_p).abs()[act]
+    n_eval = int(live.sum())
+    chain = k6_chain(torch, shared, bank)
+    frame = fob.to(torch.int64).repeat_interleave(block)
+    pts_l, frame_l = pts[live], frame[live]
+    lib_err = (chain(pts_l, frame_l) - out_k[live]).abs().max().item()
+    row = dict(n=pts.shape[0], evaluated=n_eval, active=int(act.sum()), exact=exact,
+               dead_equal=bool((out_k[~live] == out_p[~live]).all()),
+               max=err.max().item(), within=(err <= 1e-5).float().mean().item(),
+               ms=cuda_ms(lambda: run(True)), plain_ms=cuda_ms(lambda: run(False)),
+               library_ms=cuda_ms(lambda: chain(pts_l, frame_l)), library_max=lib_err)
+    row["bound_ms"], row["bound_by"] = bound(n_eval * k6_macs(shared),
+                                             k6_bytes(row["n"], fob.numel(), shared, bank))
+    print(f"K6 banked point eval, phase 8's cert probes at F={F8_PLAIN} ({row['n']} "
+          f"lanes, {row['active']} active, {n_eval} evaluated in live tiles): vs plain "
+          f"(GEMM) on active lanes max |diff| {row['max']:.3e}, within 1e-5 "
+          f"{row['within']:.6f}, dead tiles equal {row['dead_equal']}; == in-order plain "
+          f"bit for bit: {exact}; {row['ms']:.3f} ms vs plain {row['plain_ms']:.3f} ms, "
+          f"bf16 F.linear chain {row['library_ms']:.3f} ms (max |diff| {lib_err:.2e}); "
+          f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
+          f"{row['bound_ms'] / row['ms']:.1%})  [{smi}]", flush=True)
+    check(exact, "K6 differs from its in-order plain version")
+    check(row["dead_equal"] and row["within"] >= K5_WITHIN and row["max"] <= K5_MAX,
+          f"K6 disagrees with its plain version (bars: within 1e-5 on >= {K5_WITHIN} "
+          f"of active lanes, max |diff| <= {K5_MAX}, dead tiles equal)")
+    return row
+
+
+def k6_capture(torch, fn):
+    """fn() with every call of the K6 wrapper kept: (args, kwargs, output),
+    cloned. The wrapper counts its launches on its module-level name, here
+    the spy, which hands them on to the real counter: the calls count as
+    the path's own."""
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+
+    calls, real = [], mlp_eval.point_eval_banked
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        real.launches += spy.launches
+        spy.launches = 0
+        calls.append(([x.clone() if torch.is_tensor(x) else x for x in a], dict(kw),
+                      out.clone()))
+        return out
+
+    spy.launches = 0
+    mlp_eval.point_eval_banked = spy
+    try:
+        out = fn()
+    finally:
+        mlp_eval.point_eval_banked = real
+    return out, calls
+
+
+def k6_held(torch, calls, where):
+    """K6's outputs of a path's calls (k6_capture) against its plain
+    version with the GEMM on the same inputs: active lanes within K5's
+    bars, every point of a dead tile equal (3e38). Returns the worst."""
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+
+    check(len(calls) > 0, f"{where}: no K6 call to hold against its plain version")
+    res = dict(calls=len(calls), lanes=0, max=0.0, within=1.0, dead_equal=True)
+    for (shared, bank, fob, pts, act), kw, out in calls:
+        plain = mlp_eval.point_eval_banked_plain(
+            shared, bank, fob, pts, act, kw.get("block", 512), kw.get("precise_x", True))
+        live = mlp_eval._live_tiles(act)
+        err = (out - plain).abs()[act]
+        res["lanes"] += pts.shape[0]
+        res["max"] = max(res["max"], err.max().item() if err.numel() else 0.0)
+        res["within"] = min(res["within"], (err <= 1e-5).float().mean().item()
+                            if err.numel() else 1.0)
+        res["dead_equal"] &= bool((out[~live] == plain[~live]).all())
+    print(f"K6 on {where}: {res['calls']} calls, {res['lanes']} lanes, vs plain (GEMM) "
+          f"on active lanes max |diff| {res['max']:.3e}, within 1e-5 {res['within']:.6f} "
+          f"(least of the calls), dead tiles equal {res['dead_equal']}", flush=True)
+    check(res["dead_equal"] and res["within"] >= K5_WITHIN and res["max"] <= K5_MAX,
+          f"K6 disagrees with its plain version on {where} (bars: within 1e-5 on >= "
+          f"{K5_WITHIN} of active lanes, max |diff| <= {K5_MAX}, dead tiles equal)")
+    return res
+
+
 def k5_phase(torch, dev, params, dcfg, latent, cam, smi):
     """Phase 9: K5 and the paths through it. (a) K5 against its plain
     version on 262,144 seeded points, the bench decoder (1 row) and the
@@ -859,26 +1111,14 @@ def k5_phase(torch, dev, params, dcfg, latent, cam, smi):
     from dist_renderer_tpu_torch.models.color_decoder import (
         init_color_params, make_color_config,
     )
-    from dist_renderer_tpu_torch.models.decoder import dot_f32_in_order, make_precise_sdf
+    from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
     from dist_renderer_tpu_torch.models.folded import fold_latent
-    from dist_renderer_tpu_torch.ops.kernels import march_body, recompute
     from dist_renderer_tpu_torch.ops.kernels.fused_march import pack_folded, sphere_trace_grid
     from dist_renderer_tpu_torch.ops.kernels.mlp_eval import make_pallas_point_fn, point_eval
     from dist_renderer_tpu_torch.ops.kernels.recompute import (
         make_color_vjp, precise_bias_grads_call, precise_sdg_call,
     )
     from dist_renderer_tpu_torch.ops.renderer import SDFRenderer, SDFRendererColor
-
-    def in_order(fn):
-        """fn() with the plain versions' products summed in k order."""
-        real = march_body.dot_f32, recompute.dot_f32
-        march_body.dot_f32 = recompute.dot_f32 = dot_f32_in_order
-        try:
-            out = fn()
-            torch.cuda.synchronize()
-            return out
-        finally:
-            march_body.dot_f32, recompute.dot_f32 = real
 
     def host_ms(fn, reps=1):
         """(last output, median ms) of fn() ending in a synchronize."""
@@ -1065,6 +1305,17 @@ def k5_phase(torch, dev, params, dcfg, latent, cam, smi):
                            grads={k: d for k, d in diffs.items()}))
 
 
+# Phase 7's --mesh fits: steps at lr 5e-2 from the zero latent, and the bar
+# on depth_completion's chamfer-sq against the hidden shape: about twice
+# the first reading on an H100, 0.258 after 8 steps (0.345, 0.262 and
+# 0.301 after 4, 6 and 12; PERF.md). Multiview weights its photometric
+# term 0.1: at 1.0 it holds the fit at the empty zero-latent shape (an
+# empty mesh after 4-12 steps on an H100; 27,874 and 108,275 verts after
+# 6 and 10 at 0.1)
+DC_STEPS, MV_STEPS = 8, 10
+DC_CHAMFER_MAX = 0.5
+
+
 def cli_phase(torch, smi):
     """Phase 7: the command-line tasks and the server, in process, on the
     committed torus 8x512 decoder, each into a temporary --out."""
@@ -1133,16 +1384,22 @@ def cli_phase(torch, smi):
         print(f"render_demo: ms per view {[round(m, 1) for m in ms]}; --mesh "
               f"{render_demo.MESH_RES}^3: {nv} verts, {nf} faces  [{smi}]")
 
+        # the --mesh fits start from the zero latent, whose shape is empty:
+        # at lr 5e-2 a few steps grow the surface
         out = os.path.join(tmp, "depth")
         res = run("depth_completion", depth_completion.main,
-                  ["--fast", "--img", "256", "--steps", "5", "--mesh", "--mesh-res",
-                   "128", "--out", out], fits)
+                  ["--fast", "--img", "256", "--steps", str(DC_STEPS), "--lr", "5e-2",
+                   "--mesh", "--mesh-res", "128", "--out", out], fits)
         fit_ok("depth_completion", res, out)
         nv, nf = obj_counts(os.path.join(out, "fitted.obj"))
-        check(math.isfinite(res.metrics["chamfer"]), "depth_completion's chamfer is not finite")
         times["depth_completion_chamfer"] = res.metrics["chamfer"]
+        times["depth_completion_mesh"] = (nv, nf)
         print(f"depth_completion --mesh --mesh-res 128: {nv} verts, {nf} faces; "
-              f"chamfer-sq vs the hidden shape {res.metrics['chamfer']:.3e}")
+              f"chamfer-sq vs the hidden shape {res.metrics['chamfer']:.3e} (bar "
+              f"{DC_CHAMFER_MAX:.1e})")
+        check(nv > 1000 and nf > 1000, "depth_completion --mesh wrote an (almost) empty mesh")
+        check(res.metrics["chamfer"] <= DC_CHAMFER_MAX,
+              f"depth_completion's chamfer {res.metrics['chamfer']:.3e} > {DC_CHAMFER_MAX}")
 
         out = os.path.join(tmp, "pose")
         # the pose gradient reaches the points through K3's spatial
@@ -1156,11 +1413,13 @@ def cli_phase(torch, smi):
 
         out = os.path.join(tmp, "mv")
         res = run("multiview", multiview.main,
-                  ["--fast", "--img", "128", "--views", "3", "--steps", "3", "--mesh",
-                   "--out", out], fits)
+                  ["--fast", "--img", "128", "--views", "3", "--steps", str(MV_STEPS),
+                   "--lr", "5e-2", "--w-photo", "0.1", "--mesh", "--out", out], fits)
         fit_ok("multiview", res, out)
         nv, nf = obj_counts(os.path.join(out, "reconstructed.obj"))
+        times["multiview_mesh"] = (nv, nf)
         print(f"multiview --mesh: {nv} verts, {nf} faces")
+        check(nv > 1000 and nf > 1000, "multiview --mesh wrote an (almost) empty mesh")
 
         # the chamfer of the torus decoder against the analytic torus, mesh-
         # based (96^3 through the precise sdf, native surface sampling), and
@@ -1233,6 +1492,7 @@ def main():
         batched_trace_padded, fold_bias_bank, merge_skip, pack_shared,
         sphere_trace_persistent, verify_plan,
     )
+    from dist_renderer_tpu_torch.ops.kernels.mlp_eval import point_eval_banked
     from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
     from dist_renderer_tpu_torch.ops.kernels.recompute import (
         fold_bias_precise, latent_grad, pack_precise, precise_bias_grads_call,
@@ -1433,6 +1693,7 @@ def main():
           f"K3 {t_k3:.3f} vs plain {t_k3p:.3f}", flush=True)
     with torch.no_grad():
         kg = k1_grid_phase(torch, dev, params, dcfg, latent, cfg, origins, dirs)
+        k6 = k6_row(torch, dev, smi)
     # bounds at these shapes and this run's active ray-steps
     b_k1 = bound(sum(lv[3] for lv in k1_levels) * macs_per_eval(shared_p),
                  sum(march_bytes(lv[4], shared_p, bank_p) for lv in k1_levels))
@@ -1536,6 +1797,43 @@ def main():
     check(torch.isfinite(pol.depth).all().item() and polish_agree >= 0.99,
           f"the polish-verify render disagrees with march-verify ({polish_agree:.4f} < 0.99)")
 
+    # the same request with the certification path (ops/cert.py on K6):
+    # verify_mode="cert", and the hybrid (verify_band="probe")
+    verify4 = {}
+    for name, mk in (("cert", dict(proxy_verify_mode="cert")),
+                     ("hybrid", dict(proxy_verify_band="probe"))):
+        cfg_v = dataclasses.replace(cfg, march=dataclasses.replace(march, **mk))
+        fac_v = make_march_factory(params, dcfg, cfg_v, march_params=pparams,
+                                   march_dcfg=pcfg)
+        # the warm-up's K6 calls, held against the plain version at F=1
+        _, k6_calls = k6_capture(torch, lambda: render(sdf_fn, lats[0], cam, cfg_v, fac_v))
+        torch.cuda.synchronize()
+        k6_f1 = k6_held(torch, k6_calls, f"phase 4's {name} request (F=1)")
+        del k6_calls
+        point_eval_banked.launches = 0
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out_v = render(sdf_fn, lats[0], cam, cfg_v, fac_v)
+        b.record()
+        torch.cuda.synchronize()
+        n_k6 = point_eval_banked.launches
+        agree_v = (out_v.mask == outs[0].mask).float().mean().item()
+        both = out_v.mask & outs[0].mask
+        q = quantiles((out_v.depth - outs[0].depth).abs()[both])
+        verify4[name] = dict(ms=a.elapsed_time(b), agree=agree_v, k6_launches=n_k6,
+                             depth_p50=q[0], depth_p95=q[1], depth_max=q[2],
+                             k6_vs_plain=k6_f1)
+        print(f"{name} request ({mk}): {verify4[name]['ms']:.3f} ms, {n_k6} K6 launches; "
+              f"hit agreement with the march-verify render {agree_v:.5f}, |depth diff| "
+              f"on {int(both.sum())} common hits p50 {q[0]:.3e} p95 {q[1]:.3e} max "
+              f"{q[2]:.3e}  [{smi}]", flush=True)
+        check(n_k6 > 0, f"the {name} request never launched point_eval_banked")
+        check(all(torch.isfinite(getattr(out_v, k)).all().item()
+                  for k in ("depth", "normal", "min_sdf")), f"non-finite {name} render")
+        check(agree_v >= 0.99, f"the {name} render disagrees with march-verify "
+              f"({agree_v:.4f} < 0.99)")
+
     fb = fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, plain_sdf, cfg, cam,
                        lats, latent, counters + (precise_bias_grads_call,), smi)
     g6 = grid_path_phase(torch, dev, params, dcfg, lats, cam, smi, outs[0])
@@ -1591,6 +1889,11 @@ def main():
              launches=k9["launches"], max_abs_err=max(r["max"] for r in k9["a"]),
              ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
              bound_by=k5["bound_by"], library_ms=k5["library_ms"]),
+        dict(name="point_eval_banked (K6)", route="cuda", source=src + "point_eval.cu",
+             replaces="dist_renderer_tpu/ops/pallas/mlp_eval.py:154",
+             launches=b8["launches"]["point_eval_banked"], max_abs_err=k6["max"],
+             ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
+             bound_by=k6["bound_by"], library_ms=k6["library_ms"]),
     ]
     print(json.dumps({"fwd_ms_per_frame": fwd_ms, "plain_fwd_ms": plain_ms,
                       "fwdbwd_ms_per_frame": fb["fwdbwd_ms"],
@@ -1609,6 +1912,8 @@ def main():
                                              ray_steps=r["steps"],
                                              bound_ms=r["bound_ms"]) for r in kg],
                       "polish_fwd_ms": polish_ms, "polish_hit_agreement": polish_agree,
+                      "cert_requests": verify4,
+                      "k6": {k: v for k, v in k6.items() if k != "exact"},
                       "task_ms": tasks,
                       "batched": dict(
                           frames=F8, modes={k: {kk: vv for kk, vv in r.items()
@@ -1618,7 +1923,12 @@ def main():
                           k1_multi_ms=km["ms"], k1_same_inputs_ms=km["k1_ms"],
                           k1_multi_plain_ms=km["plain_ms"],
                           k1_multi_ray_steps=km["ray_steps"],
-                          render_depth_batched_ms=b8["render_depth_ms"]),
+                          render_depth_batched_ms=b8["render_depth_ms"],
+                          k6_vs_plain=b8["k6"],
+                          path_within={k: v["within"] for k, v in
+                                       b8["path_vs_plain"].items() if k != "d_more"},
+                          d_more_within=[p["within"] for p in
+                                         b8["path_vs_plain"]["d_more"]]),
                       "k5": dict(cases=[{k: v for k, v in r.items() if k != "exact"}
                                         for r in k9["a"]],
                                  mesh=k9["mesh"], triangle_route=k9["route"],

@@ -1,7 +1,7 @@
 // The march step and the latent-folded MLP shared by the march kernels:
 // sphere_trace.cuh (K1, the persistent march, and K1-grid, the grid
 // march) and queue_march.cu (K2, the work-queue generations). The MLP
-// (mlp_tile) also serves the bulk point eval, point_eval.cu (K5).
+// (mlp_tile) also serves the point evals of point_eval.cu (K5, K6).
 //
 // Counterpart of the JAX package's ops/pallas/march_body.py (mlp_apply,
 // march_loop). Both kernels march TILE rays per thread block; the block
@@ -114,9 +114,14 @@ __device__ __forceinline__ float round_bf16(float x) {
 // fp32) -> s_out [OUT_ROWS][TILE], the last layer's first OUT_ROWS output
 // rows (each through the final tanh when the decoder has one). The march
 // reads row 0, the SDF; the bulk point eval (point_eval.cu) 1 or 3 rows.
+// SPLIT_X (the banked point eval, K6): s_x holds [6][TILE], the positions'
+// bf16 high halves in rows 0-2 and their bf16 low halves in rows 3-5, and
+// every x-product runs on each half, the two fp32 sums added before the
+// layer's hidden product is (march_body.py's p8_lo). The march and K5
+// instantiate SPLIT_X=false, whose code is the one-half product alone.
 // s_h holds two [max_width][TILE] bf16 buffers. Every thread of the block
 // must call it; it ends with a barrier.
-template <int OUT_ROWS>
+template <int OUT_ROWS, bool SPLIT_X = false>
 static __device__ void mlp_tile(const Decoder& dec,
                          const __nv_bfloat16* __restrict__ W,
                          const float* __restrict__ bank, int bank_stride,
@@ -165,7 +170,12 @@ static __device__ void mlp_tile(const Decoder& dec,
           const float x0 = s_x[r], x1 = s_x[TILE + r], x2 = s_x[2 * TILE + r];
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
-            const float xz = fmaf(wx[2][i], x2, fmaf(wx[1][i], x1, wx[0][i] * x0));
+            float xz = fmaf(wx[2][i], x2, fmaf(wx[1][i], x1, wx[0][i] * x0));
+            if constexpr (SPLIT_X) {
+              const float l0 = s_x[3 * TILE + r], l1 = s_x[4 * TILE + r],
+                          l2 = s_x[5 * TILE + r];
+              xz = xz + fmaf(wx[2][i], l2, fmaf(wx[1][i], l1, wx[0][i] * l0));
+            }
             acc[i][j] = wh_off >= 0 ? acc[i][j] + xz : xz;
           }
         }

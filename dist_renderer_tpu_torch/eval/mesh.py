@@ -42,9 +42,12 @@ _CUBE = np.array(
 
 def default_device() -> torch.device:
     """Where grid and sample points are made when the caller names no
-    device: the CUDA card when there is one (as JAX's default backend is
-    its accelerator), else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device: the current CUDA card. Without a card it raises: an entry point
+    runs on the CPU only when the caller asks for it with device="cpu"."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is available: pass device='cpu' to "
+                           "evaluate on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 @torch.no_grad()

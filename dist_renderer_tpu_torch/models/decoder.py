@@ -7,7 +7,10 @@ Precision: the JAX package's precise value path uses a bf16x3 split
 (``_matmul_split``) because fp32 products were not available on its TPU
 compile service. Its counterpart here is a plain fp32 product with TF32
 switched off (``torch.backends.*.allow_tf32 = False``, set by
-``decoder_apply``'s callers through ``set_fp32_matmul``).
+``decoder_apply``'s callers through ``set_fp32_matmul``). The one
+exception is ``decoder_apply_with_dd``, the hit finalize's evaluation,
+which keeps the JAX package's roundings: its value and slope decide
+which proxy hits are demoted, and an fp32 pass demotes other rays.
 """
 
 from __future__ import annotations
@@ -113,6 +116,29 @@ def decoder_apply(
     return sdf.reshape(pts_shape)
 
 
+def _dot_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [N, K] @ b [K, M] on bf16-rounded operands with fp32 sums (the
+    JAX package's bf16 dot with an fp32 result): one bf16 GEMM with an
+    fp32 output on the card, the rounded operands' fp32 product on the
+    CPU (exact products; the two differ in the order of the sums)."""
+    if a.is_cuda:
+        return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                        out_dtype=torch.float32)
+    return round_bf16(a) @ round_bf16(b)
+
+
+def _matmul_split(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h @ w + b from three bf16 products with fp32 sums, x = xh + xl and
+    W = Wh + Wl split at bf16: xh@Wh + xh@Wl + xl@Wh (the xl@Wl term,
+    O(2^-16) relative, is dropped), as the JAX package's
+    ``_matmul_split``."""
+    xh = round_bf16(h)
+    xl = h - xh
+    wh = round_bf16(w)
+    wl = w - wh
+    return _dot_bf16(xh, wh) + _dot_bf16(xh, wl) + _dot_bf16(xl, wh) + b
+
+
 def decoder_apply_with_dd(
     params: Params,
     latent: torch.Tensor,
@@ -122,9 +148,10 @@ def decoder_apply_with_dd(
 ):
     """(sdf, directional derivative of sdf along dirs) in one pass: the
     tangent chain rides the value's forward pass, gated by the shared
-    pre-activations. Both in fp32; the value equals decoder_apply's. (The
-    JAX package takes the value as a bf16x3 split and the tangent in bf16,
-    workarounds for its TPU.)"""
+    pre-activations. The roundings are the JAX package's: the value takes
+    the bf16x3 split (``_matmul_split``) on the layers that read the
+    input and one bf16 product (``_dot_bf16``) on the hidden ones, the
+    tangent one bf16 product per layer; every sum is fp32."""
     pts_shape = points.shape[:-1]
     x = points.reshape(-1, 3).to(torch.float32)
     v = dirs.reshape(-1, 3).to(torch.float32)
@@ -143,8 +170,11 @@ def decoder_apply_with_dd(
         elif cfg.xyz_in_all and 0 < i < n_layers - 1:
             h = torch.cat([h, x], dim=-1)
             t = torch.cat([t, v], dim=-1)
-        pre = h @ layer["w"] + layer["b"]
-        t = t @ layer["w"]
+        if i == 0 or i in cfg.latent_in:
+            pre = _matmul_split(h, layer["w"], layer["b"])
+        else:
+            pre = _dot_bf16(h, layer["w"]) + layer["b"]
+        t = _dot_bf16(t, layer["w"])
         if i == n_layers - 1:
             if cfg.use_tanh:
                 pre = torch.tanh(pre)

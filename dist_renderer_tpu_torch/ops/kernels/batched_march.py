@@ -633,6 +633,7 @@ def render_batched_c2f(
     proxy_backoff: float = 0.015,
     proxy_band: float = 0.02,
     proxy_block: Optional[int] = None,
+    proxy_band_w: float = 0.02,
     verify_mode: str = "march",
     verify_band: str = "march",
     verify_hits: str = "march",
@@ -664,6 +665,13 @@ def render_batched_c2f(
     marches band rays of fine (non-skip) classes not at all: they ride
     the hit channel as weak candidates seeded at their proxy min-SDF depth
     (``weak``), for finalize_hits_batched(weak=...).
+    verify_mode="cert" certifies proxy hits with two full-decoder probes
+    and a regula-falsi round instead of the seeded march (ops/cert.py, on
+    K6); verify_band="probe" gives band rays of fine classes a 3-probe
+    parabola of half-width proxy_band_w at their proxy min-SDF depth
+    instead of the re-march, under either verify_mode (with "march", the
+    hybrid). Demoted hits, promoted band rays and bucket overflow re-march
+    seeded; certified and probed rays take 3 steps.
     verify_round_caps / verify_gen_caps: the verify stage's cap schedules
     (default: round_caps / queue_caps).
 
@@ -696,9 +704,6 @@ def render_batched_c2f(
             "verify_hits='polish' composes only with verify_mode='march' and "
             "verify_band='march' (the cert/probe paths decide hits in-trace, "
             "which 'polish' defers to the caller)")
-    if verify_mode != "march" or verify_band != "march":
-        not_ported(f"verify_mode={verify_mode!r}/verify_band={verify_band!r}",
-                   "A16 (ops/cert.py)")
     if scheduler not in ("rounds", "queue", "auto"):
         raise ValueError(f"scheduler must be 'rounds', 'queue' or 'auto', "
                          f"got {scheduler!r}")
@@ -765,8 +770,9 @@ def render_batched_c2f(
             return_unres=want_unres, difficulty_repack=difficulty_repack,
             use_kernel=use_kernel, persistent=persistent)
 
-    # polish-all seeds its weak candidates at the proxy's min-SDF depth
-    need_anchor = verify and verify_hits == "polish-all"
+    # band probing and polish-all's weak candidates need the proxy's
+    # min-SDF depth
+    need_anchor = verify and (verify_band == "probe" or verify_hits == "polish-all")
     st = merge_skip(
         fine_stage(shared_m, bank_m, key, init_depth,
                    want_anchor=return_anchor or need_anchor,
@@ -776,11 +782,19 @@ def render_batched_c2f(
     if not verify:
         return st
 
-    key2, seed2 = verify_plan(st, proxy_band, proxy_backoff, verify_hits, skip)
+    cert = None
+    if verify_mode == "cert" or verify_band == "probe":
+        cert, key2, seed2 = cert_plan(
+            shared, bank, o_in, dirs, st, skip, march, proxy_band, proxy_backoff,
+            proxy_band_w, verify_mode, verify_band == "probe", block, use_kernel)
+    else:
+        key2, seed2 = verify_plan(st, proxy_band, proxy_backoff, verify_hits, skip)
     v2 = fine_stage(shared, bank, key2, seed2, want_anchor=return_anchor,
                     want_steps=return_steps, want_last=return_last,
                     caps=verify_round_caps, qcaps=verify_gen_caps)
     act2 = key2 != 2
+    if cert is not None:
+        return merge_cert(st, v2, act2, *cert)
     # non-verified rays keep their incoming values: clear misses and skips
     # in march mode, and in polish modes the confident proxy hits too,
     # which must reach the caller's finalize
@@ -799,6 +813,81 @@ def render_batched_c2f(
         weak = band_rays(st, proxy_band) & ~skip & ~out.hit
         out = out._replace(depth=torch.where(weak, st.depth_at_min, out.depth),
                            hit=out.hit | weak, weak=weak)
+    return out
+
+
+def cert_plan(shared, bank, o_in, dirs, st: StageResult, skip, march: MarchConfig,
+              proxy_band: float, proxy_backoff: float, band_w: float,
+              verify_mode: str, probe_band: bool, block: int, use_kernel: bool):
+    """The verify stage of verify_mode="cert" or verify_band="probe"
+    (ops/cert.py on K6) -> ((CertResult, probed_miss), key2, seed2).
+    verify_mode="march" with probe_band is the hybrid: an all-False
+    hit set makes every proxy hit "demoted", i.e. re-marched seeded at
+    (depth - backoff), the march mode's treatment. Only band rays of fine
+    classes are probed: a skip-class ray's anchor comes from a coarse
+    level, which places its dip only to a coarse cell, so skip band rays
+    keep the entry-seeded re-march. Demoted and overflowing hits and
+    promoted band rays re-march seeded (key 1); unresolved rays continue
+    from their depth and band rays left to the march start at the sphere
+    entry (key 0); every other ray is skipped (key 2)."""
+    from dist_renderer_tpu_torch.ops import cert as cert_mod
+
+    seeded = st.hit & ~st.unresolved
+    band = band_rays(st, proxy_band)
+    probeable = band & ~skip
+    cert = cert_mod.certify_hits_batched(
+        shared, bank, o_in, dirs, st.depth,
+        seeded if verify_mode == "cert" else torch.zeros_like(seeded), march,
+        delta=proxy_backoff, block=block,
+        # band-only probing fits a tighter bucket: band rays are a few % of N
+        bucket_frac=4 if verify_mode == "cert" else 8,
+        band=probeable if probe_band else None,
+        anchor=st.depth_at_min if probe_band else None, band_w=band_w,
+        # the dip estimate carries up to ~2x the proxy's field error: promote
+        # whatever lies within backoff (~ its error p99) of zero
+        promote_eps=proxy_backoff, use_kernel=use_kernel)
+    hit_over = cert.overflow & seeded
+    demoted = seeded & ~cert.certified & ~hit_over
+    if probe_band:
+        band_over = cert.overflow & probeable
+        probed_miss = probeable & ~band_over & ~cert.promoted
+        band_march = band_over | (band & skip)
+    else:
+        probed_miss = torch.zeros_like(band)
+        band_march = band
+    refit = hit_over | demoted | cert.promoted
+    key2 = torch.where(refit, 1, torch.where(st.unresolved | band_march, 0, 2))
+    nan = torch.full_like(st.depth, float("nan"))
+    seed2 = torch.where(cert.promoted, cert.band_tmin - proxy_backoff,
+                        torch.where(hit_over | demoted, st.depth - proxy_backoff,
+                                    torch.where(st.unresolved, st.depth, nan)))
+    return (cert, probed_miss), key2.to(torch.int32), seed2
+
+
+def merge_cert(st: StageResult, v2: StageResult, act2, cert, probed_miss) -> StageResult:
+    """The verify stage's result under cert/probe: re-marched rays take
+    the march's values; certified hits the secant depth and the inside
+    probe's value (alone: a proxy running minimum would keep proxy error
+    on a full-decoder answer); probed band misses the dip estimate and its
+    depth; both count 3 steps. No ray left out of the re-march is
+    unresolved."""
+    certified = cert.certified
+    pick = lambda a, b, c, d: torch.where(act2, a, torch.where(certified, b, torch.where(
+        probed_miss, c, d)))
+    out = StageResult(
+        depth=torch.where(act2, v2.depth, torch.where(certified, cert.depth, st.depth)),
+        hit=torch.where(act2, v2.hit, certified),
+        min_sdf=pick(v2.min_sdf, cert.f_inside, cert.band_margin, st.min_sdf))
+    if st.depth_at_min is not None and v2.depth_at_min is not None:
+        out = out._replace(depth_at_min=pick(v2.depth_at_min, cert.depth,
+                                             cert.band_tmin, st.depth_at_min))
+    if st.steps is not None and v2.steps is not None:
+        probed = torch.where(certified | probed_miss, 3, 0).to(st.steps.dtype)
+        out = out._replace(steps=st.steps + torch.where(act2, v2.steps, probed))
+    if st.last_sdf is not None and v2.last_sdf is not None:
+        out = out._replace(
+            last_sdf=pick(v2.last_sdf, cert.f_inside, cert.band_margin, st.last_sdf),
+            unresolved=act2 & v2.unresolved)
     return out
 
 

@@ -68,13 +68,16 @@ def rows_from_carry(c: Carry) -> torch.Tensor:
 
 
 def mlp_apply(layers, p: torch.Tensor, final_tanh: bool,
-              out_rows: int = 1) -> torch.Tensor:
+              out_rows: int = 1, p_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One folded-MLP eval at bf16-rounded positions p [N, 3] -> sdf [N]
     (out_rows == 1), else the last layer's first out_rows outputs
     [N, out_rows] (an RGB head: 3).
 
     layers: per layer (wh [in_p, out_p] or None, wx [3, out_p] or None,
-    bias [N or 1, out_p]), weights bf16-valued fp32."""
+    bias [N or 1, out_p]), weights bf16-valued fp32. p_lo: the bf16 low
+    halves of the positions (p_lo = bf16(p_fp32 - p)); with it every
+    x-product runs on each half and the two sums are added (the banked
+    point eval's precise positions)."""
     h = None
     n_layers = len(layers)
     for li, (wh, wx, bias) in enumerate(layers):
@@ -83,6 +86,8 @@ def mlp_apply(layers, p: torch.Tensor, final_tanh: bool,
             acc = dot_f32(h, wh)
         if wx is not None:
             xz = dot_f32(p, wx)
+            if p_lo is not None:
+                xz = xz + dot_f32(p_lo, wx)
             acc = xz if acc is None else acc + xz
         acc = acc + bias
         h = round_bf16(torch.relu(acc)) if li < n_layers - 1 else acc

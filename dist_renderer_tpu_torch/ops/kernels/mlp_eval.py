@@ -1,5 +1,7 @@
 """Bulk point evaluation of the latent-folded decoder (K5): mesh-extraction
-SDF grids, color lookups, the forward of the differentiable color head.
+SDF grids, color lookups, the forward of the differentiable color head;
+and the banked point evaluation of many frames' points (K6), the proxy
+verify stage's certification probes (ops/cert.py).
 
 K5, ``point_eval``, replaces the JAX package's
 ``ops/pallas/mlp_eval.py::pallas_point_eval`` (a loop-free
@@ -15,6 +17,16 @@ practical grid.
 
 ``make_pallas_point_fn`` and ``make_pallas_color_fn`` keep the JAX
 package's names: a latent bound into point functions through K5.
+
+K6, ``point_eval_banked``, replaces ``pallas_point_eval_banked``: points of
+many frames against the shared weights and the per-frame bias bank
+(``batched_march.pack_shared``, ``fold_bias_bank``), each ``block`` of
+points one frame, positions split into two bf16 halves (``precise_x``).
+On a CUDA tensor it launches ``csrc/point_eval.cu``'s banked kernel, one
+thread block per 32-point tile; a tile with no active point returns
++POS_BIG and skips the MLP. Its plain version does the same per 32-point
+tile, so the two agree bit for bit where the products are summed in the
+kernel's order.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ from dist_renderer_tpu_torch.ops.kernels.batched_march import (
     check_cuda_inputs, march_args, plain_layers,
 )
 from dist_renderer_tpu_torch.ops.kernels.fused_march import PackedFolded, pack_folded
-from dist_renderer_tpu_torch.ops.kernels.march_body import mlp_apply
+from dist_renderer_tpu_torch.ops.kernels.march_body import POS_BIG, mlp_apply
 
 _FRAME0 = torch.zeros((1,), dtype=torch.int64)  # the folded biases' one column
 
@@ -69,6 +81,80 @@ def point_eval(packed: PackedFolded, points: torch.Tensor, block: int = 512,
 
 
 point_eval.launches = 0
+
+
+def _live_tiles(active: torch.Tensor, tile: int = 32) -> torch.Tensor:
+    """[n] bool: the point's 32-point tile holds an active point."""
+    n = active.shape[0]
+    pad = (-n) % tile
+    a = torch.cat([active, active.new_zeros(pad)]) if pad else active
+    return a.reshape(-1, tile).any(dim=1).repeat_interleave(tile)[:n]
+
+
+def point_eval_banked_plain(shared, bank: torch.Tensor, frame_of_block: torch.Tensor,
+                            points: torch.Tensor, active: torch.Tensor,
+                            block: int = 512, precise_x: bool = True) -> torch.Tensor:
+    """The plain PyTorch version of K6 (see point_eval_banked): the points
+    of live 32-point tiles evaluated frame by frame, each frame's bias
+    column one row broadcast over its points."""
+    n = points.shape[0]
+    p = points.to(torch.float32)
+    hi = round_bf16(p)
+    lo = round_bf16(p - hi) if precise_x else None
+    frame = frame_of_block.to(torch.int64).repeat_interleave(block)[:n]
+    live = _live_tiles(active.to(torch.bool))
+    out = torch.full((n,), POS_BIG, dtype=torch.float32, device=points.device)
+    for f in torch.unique(frame[live]).tolist():
+        rows = torch.nonzero(live & (frame == f)).reshape(-1)
+        layers = plain_layers(shared, bank, frame[rows[:1]], True)
+        out[rows] = mlp_apply(layers, hi[rows], shared.final_tanh,
+                              p_lo=None if lo is None else lo[rows])
+    return out
+
+
+def point_eval_banked(shared, bank: torch.Tensor, frame_of_block: torch.Tensor,
+                      points: torch.Tensor, active: torch.Tensor, block: int = 512,
+                      precise_x: bool = True, use_kernel: bool = True) -> torch.Tensor:
+    """Multi-frame point evaluation against the shared-weights + bias-bank
+    packing of a decoder (the JAX package's ``pallas_point_eval_banked``):
+    points [n, 3] fp32, frame-major, n a multiple of ``block``; each block
+    of points reads the bank column frame_of_block[i] (int, [n // block])
+    of bank [total, F_pad]; active [n] bool. Returns [n] fp32 values,
+    +POS_BIG (3e38) on every point of a 32-point tile with no active point.
+    precise_x splits each position into bf16 high and low halves. A CUDA
+    tensor launches K6; a CPU tensor, or use_kernel=False, runs the plain
+    version. Forward only."""
+    n = points.shape[0]
+    if n % block:
+        raise ValueError(f"point count {n} not a multiple of block {block}")
+    if points.ndim != 2 or points.shape[1] != 3:
+        raise ValueError(f"points must be [n, 3], got {tuple(points.shape)}")
+    if frame_of_block.shape != (n // block,) or active.shape != (n,):
+        raise ValueError("frame_of_block must be [n // block] and active [n]")
+    if frame_of_block.numel():
+        lo, hi = (int(x) for x in torch.aminmax(frame_of_block))
+        if lo < 0 or hi >= bank.shape[1]:
+            raise ValueError(f"frame_of_block holds columns {lo}..{hi} of a bank "
+                             f"with {bank.shape[1]}")
+    points = points.detach()
+    if not (use_kernel and points.is_cuda):
+        return point_eval_banked_plain(shared, bank, frame_of_block, points, active,
+                                       block, precise_x)
+    check_cuda_inputs(shared, bank, points)
+    act = active.to(torch.bool).contiguous()
+    fob = frame_of_block.to(torch.int32).contiguous()
+    if act.device != points.device or fob.device != points.device:
+        raise ValueError("CUDA kernel inputs must be CUDA tensors on one device")
+    out = torch.empty((n,), dtype=torch.float32, device=points.device)
+    w, tab, n_layers, bank_ptr, stride, tanh = march_args(shared, bank)
+    build.load().call("drt_point_eval_banked", build.ptr(points), build.ptr(act),
+                      build.ptr(fob), block, n, w, tab, n_layers, bank_ptr, stride,
+                      tanh, int(precise_x), build.ptr(out), build.stream_of(points))
+    point_eval_banked.launches += 1
+    return out
+
+
+point_eval_banked.launches = 0
 
 
 def _flat_points(points: torch.Tensor) -> torch.Tensor:

@@ -83,6 +83,8 @@ class C2FPlan(NamedTuple):
     init_active: torch.Tensor  # False = skip class (whole neighborhood missed)
     order: torch.Tensor        # class-sorted ray order; identity when
                                # classification is off
+    margin: Optional[torch.Tensor] = None  # the coarse min-SDF margin, which
+                                           # skip rays take (None: no skip)
 
 
 def class_order(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,7 +147,7 @@ def c2f_plan(march_fn, origins, dirs, cfg: RenderConfig) -> C2FPlan:
         return C2FPlan(maps.seed.reshape(-1), everyone, identity)
     key, init_depth, skip = plan_from_maps(maps)
     order, _ = class_order(key[0])
-    return C2FPlan(init_depth[0], ~skip[0], order)
+    return C2FPlan(init_depth[0], ~skip[0], order, maps.margin.reshape(-1))
 
 
 def c2f_seed_depth(march_fn, origins, dirs, cfg: RenderConfig) -> torch.Tensor:
@@ -210,7 +212,6 @@ _FD_OFFSETS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
 def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
                 dirs: torch.Tensor, cfg: RenderConfig, march_fn=None,
                 init_depth: Optional[torch.Tensor] = None,
-                init_active: Optional[torch.Tensor] = None,
                 trace: Optional[TraceResult] = None) -> RenderOutput:
     """Trace + differentiable composition for a flat ray batch [N, 3].
 
@@ -240,7 +241,7 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
             lambda p: sdf_fn(latent.detach(), p))
         with torch.no_grad():
             trace = _trace(trace_fn, origins.detach(), dirs.detach(), cfg,
-                           init_depth, init_active)
+                           init_depth)
     g = cfg.grad
     if g.mode == "ift" and g.fused_dd:
         not_ported("GradConfig.fused_dd (the fused value + directional "
@@ -479,10 +480,18 @@ def render(sdf_fn, latent: torch.Tensor, camera: Camera,
         plan = c2f_plan(mf, origins.detach(), dirs.detach(), cfg)
         perm = plan.order
         inv = inverse_permutation(perm)
+        with torch.no_grad():
+            trace = _trace(mf, origins[perm].detach(), dirs[perm].detach(), cfg,
+                           plan.init_depth[perm], plan.init_active[perm])
+        if plan.margin is not None:
+            # skip rays never sample the SDF: their margin is the coarse
+            # level's, as the batched path's merge_skip gives it (the
+            # tracer's stand-in, the distance of the closest approach to
+            # the bounding sphere, is negative for every ray through it)
+            trace = trace._replace(min_sdf=torch.where(
+                plan.init_active[perm], trace.min_sdf, plan.margin[perm]))
         out_p = render_rays(sdf_fn, latent, origins[perm], dirs[perm], cfg,
-                            march_fn=march_fn,
-                            init_depth=plan.init_depth[perm],
-                            init_active=plan.init_active[perm])
+                            march_fn=march_fn, trace=trace)
         out = RenderOutput(
             depth=out_p.depth[inv], mask=out_p.mask[inv],
             normal=out_p.normal[inv], min_sdf=out_p.min_sdf[inv],
@@ -605,8 +614,9 @@ def finalize_hits_batched(
     carry proxy depth and an unverified flag: compose()'s demote, frame
     by frame, on the trace alone.
 
-    Each hit takes polish_iters - 1 safeguarded Newton steps on the fp32
-    value and directional derivative (decoder_apply_with_dd): a step only
+    Each hit takes polish_iters - 1 safeguarded Newton steps on the full
+    decoder's value and directional derivative (decoder_apply_with_dd,
+    with the JAX package's roundings): a step only
     on a real front-facing slope (dd < -ift_min_denom), accepted only
     where |f| shrinks by 0.7, and the final extrapolation only on a real
     slope. A hit whose Newton walked and ended at f > convergence_eps is a

@@ -27,9 +27,11 @@ request latent) and reports:
 
 With ``--batched [MODE ...]`` it instead splits one batch of bench.py's
 batched step (F=64 frames of the same cell on render_batched_c2f's
-rounds scheduler, verify_hits MODE, the finalize in polish modes) by
-stage: the coarse levels, the proxy and verify stages with each round's
-K1 launch and each sort, the finalize, and the glue.
+rounds scheduler, in verify mode MODE: verify_hits "march", "polish" or
+"polish-all", the finalize in polish modes; "cert", verify_mode="cert";
+"hybrid", verify_band="probe") by stage: the coarse levels, the proxy
+and verify stages with each round's K1 launch and each sort, the
+certification (its K6 launches), the finalize, and the glue.
 
 Needs one CUDA card. Prints a table, and with ``--out`` writes the
 numbers as JSON to that file.
@@ -85,15 +87,23 @@ def bench_setup(dev, img=512, seed=0):
             {"decoder": (params, dcfg), "proxy": (pparams, pcfg)})
 
 
+# The batched step's verify modes: render_batched_c2f's options for each
+BATCHED_MODES = {
+    "march": {}, "polish": dict(verify_hits="polish"),
+    "polish-all": dict(verify_hits="polish-all"),
+    "cert": dict(verify_mode="cert"), "hybrid": dict(verify_band="probe"),
+}
+
+
 def batched_setup(dev, frames=64, img=512, seed=9):
     """bench.py's batched step on the bench cell: ``frames`` latents (the
     bench latent + 0.001 jitter each, from ``seed``), one pinhole camera,
     the proxy with its margins, verify caps (2, 4, 12), 50 steps. Returns
-    (batch, latents, packed) where batch(verify_hits, f=frames,
-    persistent=True, use_kernel=True, **kw) renders the first f frames
-    through render_batched_c2f on the rounds scheduler and, in the polish
-    modes, finalizes them (finalize_hits_batched, the weak mask in
-    polish-all), as bench.py's timed step does."""
+    (batch, latents, packed) where batch(mode, f=frames, persistent=True,
+    use_kernel=True, **kw) renders the first f frames through
+    render_batched_c2f on the rounds scheduler in BATCHED_MODES[mode] and,
+    in the polish modes, finalizes them (finalize_hits_batched, the weak
+    mask in polish-all), as bench.py's timed step does."""
     import torch
 
     from dist_renderer_tpu_torch.ops import renderer
@@ -117,11 +127,11 @@ def batched_setup(dev, frames=64, img=512, seed=9):
         st = bm.render_batched_c2f(
             params, dcfg, lats[:f], ob[:f], vb[:f], (img, img), march,
             proxy=proxy, proxy_backoff=march.proxy_backoff,
-            proxy_band=march.proxy_band, verify_hits=vh,
+            proxy_band=march.proxy_band, **BATCHED_MODES[vh],
             verify_round_caps=march.proxy_verify_caps,
             proxy_block=march.proxy_block_width, shared_origin=True,
             packed=packed, persistent=persistent, use_kernel=use_kernel, **kw)
-        if vh == "march":
+        if vh not in ("polish", "polish-all"):
             return st
         d, h, m = renderer.finalize_hits_batched(
             params, dcfg, lats[:f], ob[:f], vb[:f], st.depth, st.hit, st.min_sdf,
@@ -145,12 +155,14 @@ def batched_split(dev, verify_hits: str, frames: int, reps: int):
     around every call: the coarse levels' K1 launches, each fine stage
     (the proxy's and the verify stage's fine_march_rounds) with its K1
     launches per round and its sorts (the class sort and the re-packs),
-    the finalize; glue is the rest. Medians over ``reps`` batches after a
-    warm-up."""
+    the certification (cert and hybrid: certify_hits_batched and its K6
+    launches), the finalize; glue is the rest. Medians over ``reps``
+    batches after a warm-up."""
     import torch
 
-    from dist_renderer_tpu_torch.ops import renderer
+    from dist_renderer_tpu_torch.ops import cert, renderer
     from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
 
     batch, _, packed = batched_setup(dev, frames)
     batch(verify_hits)
@@ -183,6 +195,8 @@ def batched_split(dev, verify_hits: str, frames: int, reps: int):
     wrap(bm, "batched_trace_padded", lambda a: f"{inside()}: K1 rounds")
     wrap(bm, "_sort_fields", lambda a: f"{inside()}: sorts")
     wrap(renderer, "finalize_hits_batched", lambda a: "finalize")
+    wrap(cert, "certify_hits_batched", lambda a: "cert stage")
+    wrap(mlp_eval, "point_eval_banked", lambda a: f"{inside()}: K6")
     totals, stages, counts = [], {}, {}
     try:
         for _ in range(reps):
@@ -303,9 +317,9 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--out", help="JSON file for the numbers")
     ap.add_argument("--batched", nargs="*", default=None,
-                    choices=["march", "polish", "polish-all"],
+                    choices=list(BATCHED_MODES),
                     help="instead: split one batch of bench.py's batched step "
-                    "(F=--frames) by stage, for each verify_hits mode given")
+                    "(F=--frames) by stage, for each verify mode given")
     ap.add_argument("--frames", type=int, default=64)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -447,7 +461,7 @@ def batched_main(args) -> int:
     for vh in args.batched or ["march", "polish", "polish-all"]:
         r = batched_split(torch.device("cuda", 0), vh, args.frames, args.requests)
         result["batched"][vh] = r
-        print(f"\nverify_hits={vh!r}: one batch of {r['frames']} frames "
+        print(f"\nverify mode {vh!r}: one batch of {r['frames']} frames "
               f"{r['batch_ms']:.1f} ms (median of {args.requests}, "
               f"{[round(m, 1) for m in r['all_ms']]}), "
               f"{r['batch_ms'] / r['frames']:.3f} ms/frame; stages (median ms, per frame):")

@@ -214,14 +214,16 @@ DD_ARCHS = [
 
 @pytest.mark.parametrize("arch", range(len(DD_ARCHS)))
 def test_decoder_apply_with_dd_matches_jax(arch):
-    """The value equals the port's decoder_apply bit for bit and JAX's
-    fp32 decoder_apply within 1e-6 (CPU BLAS orders); the derivative
-    equals jax.jvp of that fp32 value within 1e-5. Against JAX's own
-    decoder_apply_with_dd (a bf16x3 split on the input layers, one bf16
-    product on the hidden ones, and a bf16 tangent: its TPU workarounds)
-    the gap is those roundings, measured on these random decoders at
-    relative L2 4.9e-2 / 9.5e-2 / 5.8e-2 in dd and max 6.8e-3 / 1.1e-2 /
-    3.4e-3 in the value; bars 0.15 and 2e-2."""
+    """Both packages take the same roundings (a bf16x3 split on the input
+    layers, one bf16-rounded product on the hidden ones, a bf16-rounded
+    tangent, fp32 sums), so the port equals JAX's decoder_apply_with_dd
+    up to the order of its fp32 sums: measured on these random decoders,
+    the value within 1.2e-7 on all but one point of the third (1.4e-4: a
+    sum that rounds to the other bf16 neighbour), the derivative within
+    relative L2 2.1e-5; bars 1e-6 on >= 99% of points, max 1e-3, and
+    1e-4. The roundings' gap from the fp32 value and its jax.jvp stays
+    what JAX's has: measured relative L2 4.8e-2 / 9.5e-2 / 5.8e-2 in dd
+    and max 6.8e-3 / 1.1e-2 / 3.4e-3 in the value; bars 0.15 and 2e-2."""
     cfg = DD_ARCHS[arch]
     rng = np.random.default_rng(10 + arch)
     jcfg = JDecoderConfig(**cfg)
@@ -234,17 +236,18 @@ def test_decoder_apply_with_dd_matches_jax(arch):
     v = rng.standard_normal((400, 3)).astype(np.float32)
     v /= np.linalg.norm(v, axis=-1, keepdims=True)
     tp, tcfg = params_from_numpy(params), DecoderConfig(**cfg)
-    s, dd = decoder_apply_with_dd(tp, T(z), T(pts), T(v), tcfg)
-    assert torch.equal(s, decoder_apply(tp, T(z), T(pts), tcfg))
+    s, dd = (a.numpy() for a in decoder_apply_with_dd(tp, T(z), T(pts), T(v), tcfg))
     jp = jax.tree_util.tree_map(jnp.asarray, params)
-    fv = lambda p: jdecoder.decoder_apply(jp, jnp.asarray(z), p, jcfg)
-    js, jdd = jax.jvp(fv, (jnp.asarray(pts),), (jnp.asarray(v),))
-    np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-6)
-    np.testing.assert_allclose(dd.numpy(), np.asarray(jdd), atol=1e-5)
     js16, jdd16 = (np.asarray(a) for a in jdecoder.decoder_apply_with_dd(
         jp, jnp.asarray(z), jnp.asarray(pts), jnp.asarray(v), jcfg))
-    assert np.linalg.norm(dd.numpy() - jdd16) <= 0.15 * np.linalg.norm(jdd16)
-    assert np.abs(s.numpy() - js16).max() <= 2e-2
+    assert np.mean(np.abs(s - js16) <= 1e-6) >= 0.99 and np.abs(s - js16).max() <= 1e-3
+    assert np.linalg.norm(dd - jdd16) <= 1e-4 * np.linalg.norm(jdd16)
+    fv = lambda p: jdecoder.decoder_apply(jp, jnp.asarray(z), p, jcfg)
+    js, jdd = (np.asarray(a) for a in jax.jvp(fv, (jnp.asarray(pts),), (jnp.asarray(v),)))
+    assert np.linalg.norm(dd - jdd) <= 0.15 * np.linalg.norm(jdd)
+    assert np.abs(s - js).max() <= 2e-2
+    s32 = decoder_apply(tp, T(z), T(pts), tcfg).numpy()
+    np.testing.assert_allclose(s32, js, atol=1e-6)
 
 
 # ---- finalize_hits_batched --------------------------------------------------
@@ -290,20 +293,11 @@ def _numpy_trace(seed=0):
             f32(d), np.stack(h), f32(m), np.stack(w))
 
 
-def _fp32_with_dd(params, latent, points, dirs, cfg):
-    """The JAX package's decoder_apply_with_dd with the fp32 value and
-    tangent the port computes (its own takes a bf16x3 split value and a
-    bf16 tangent, TPU workarounds)."""
-    fv = lambda p: jdecoder.decoder_apply(params, latent, p, cfg)
-    return jax.jvp(fv, (points,), (dirs,))
-
-
-def _finalize_both(sphere, trace, compact_frac, monkeypatch):
+def _finalize_both(sphere, trace, compact_frac):
     params, z0, dcfg = sphere
     o, v, d, h, m, w = trace
     lat = np.stack([z0, z0 + 0.01]).astype(np.float32)
     kw = dict(convergence_eps=2e-3, polish_iters=4, compact_frac=compact_frac)
-    monkeypatch.setattr(jdecoder, "decoder_apply_with_dd", _fp32_with_dd)
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     ref = jfinalize(jp, JDecoderConfig(**dcfg), jnp.asarray(lat), jnp.asarray(o),
                     jnp.asarray(v), jnp.asarray(d), jnp.asarray(h), jnp.asarray(m),
@@ -314,19 +308,23 @@ def _finalize_both(sphere, trace, compact_frac, monkeypatch):
 
 
 @pytest.mark.parametrize("branch", ["bucketed", "full"])
-def test_finalize_hits_batched_matches_jax(sphere, branch, monkeypatch):
-    """One numpy-fed trace through both packages' finalize (JAX's with
-    the fp32 value and tangent). compact_frac 2 takes the hit-first
-    bucket (every frame's hits fit N/2), N the full width. Compared on
+def test_finalize_hits_batched_matches_jax(sphere, branch):
+    """One numpy-fed trace through both packages' finalize, each with its
+    own decoder_apply_with_dd (the same roundings). compact_frac 2 takes
+    the hit-first bucket (every frame's hits fit N/2), N the full width.
+    Compared on
     every ray, but where JAX's bucketed branch is at fault (ROADMAP C):
     the depth of rays that were not hits (it resets them to the
     background) and the margins of the misses that pad the bucket (it
-    writes their polished value); the port keeps both from the trace."""
+    writes their polished value); the port keeps both from the trace.
+    Depth and margin agree within 2e-5 on >= 99.5% of those rays and
+    within 1e-3 on all: where the two BLAS orders round a sum to the other
+    bf16 neighbour, a ray moves by ~1e-4 (read: 2 of 749 hits, 1.3e-4)."""
     trace = _numpy_trace()
     _, _, d_in, h_in, m_in, w_in = trace
     assert h_in.sum(axis=1).max() <= N // 2
     (jd, jh, jm), (td, th, tm) = _finalize_both(
-        sphere, trace, 2 if branch == "bucketed" else N, monkeypatch)
+        sphere, trace, 2 if branch == "bucketed" else N)
     demoted = h_in & ~th
     assert (h_in & ~w_in & ~th).any() and (w_in & ~th).any() and (w_in & th).any()
     assert np.mean(jh == th) >= 0.998
@@ -338,23 +336,22 @@ def test_finalize_hits_batched_matches_jax(sphere, branch, monkeypatch):
             pad[i, np.argsort(~h_in[i], kind="stable")[:N // 2]] = True
         same_m = h_in | ~pad
         assert not np.allclose(jd[~h_in], d_in[~h_in])   # JAX's fault shows
-    both = same_d & (jh == th)
-    np.testing.assert_allclose(td[both], jd[both], atol=2e-5)
-    both = same_m & (jh == th)
-    np.testing.assert_allclose(tm[both], jm[both], atol=2e-5)
+    for t, j, same in ((td, jd, same_d), (tm, jm, same_m)):
+        gap = np.abs(t - j)[same & (jh == th)]
+        assert np.mean(gap <= 2e-5) >= 0.995 and gap.max() <= 1e-3, np.sort(gap)[-5:]
     # the port's rays that are not hits keep the trace's depth and margin
     np.testing.assert_array_equal(td[~h_in], d_in[~h_in])
     np.testing.assert_array_equal(tm[~h_in], m_in[~h_in])
     assert np.all(td[demoted] == 10.0)
 
 
-def test_finalize_bucketed_equals_full_width(sphere, monkeypatch):
+def test_finalize_bucketed_equals_full_width(sphere):
     """The port's bucket is only a width: it gives what the full width
     gives on every ray. The JAX package's bucketed branch does not (the
     transcription this test would catch)."""
     trace = _numpy_trace(seed=1)
-    (jb, _, _), (tb, tbh, tbm_) = _finalize_both(sphere, trace, 2, monkeypatch)
-    (jf, _, _), (tf, tfh, tfm) = _finalize_both(sphere, trace, N, monkeypatch)
+    (jb, _, _), (tb, tbh, tbm_) = _finalize_both(sphere, trace, 2)
+    (jf, _, _), (tf, tfh, tfm) = _finalize_both(sphere, trace, N)
     np.testing.assert_array_equal(tbh, tfh)
     np.testing.assert_allclose(tb, tf, atol=1e-6, rtol=0)
     np.testing.assert_allclose(tbm_, tfm, atol=1e-6, rtol=0)

@@ -687,6 +687,44 @@ def test_cuda_batched_render_matches_plain(verify_hits, k_order):
     assert torch.isfinite(d).all() and torch.isfinite(m[h]).all()
 
 
+@pytest.mark.gpu
+def test_cuda_decoder_apply_with_dd_matches_cpu():
+    """The finalize's evaluation takes the JAX package's roundings on both
+    devices: bf16 GEMMs with an fp32 output on the card, the bf16-rounded
+    operands' fp32 product on the CPU; only the order of the sums differs,
+    and a sum that lands on the other side of a bf16 rounding moves one
+    activation by 2^-8, which later layers carry. The bench decoder at
+    4096 seeded points (0.6 x a normal draw), read on an H100: |value gap|
+    p50 1.5e-8 (the fp32 decoder's gap from the CPU's: 7.4e-5), p99 9.5e-5
+    (3.6e-4), max 3.2e-4, within 1e-5 on 94.6% of points; the derivative's
+    relative L2 2.7e-3 (the fp32 jvp's: 2.0e-2). Bars: the median at most
+    a hundredth of fp32's, >= 90% within 1e-5, max 1e-3, and the
+    derivative at most a quarter of fp32's."""
+    from dist_renderer_tpu_torch.models.decoder import decoder_apply, decoder_apply_with_dd
+
+    dev = _device()
+    params, z = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    pts = 0.6 * torch.randn((4096, 3), generator=gen)
+    v = torch.nn.functional.normalize(torch.randn((4096, 3), generator=gen), dim=-1)
+    s, dd = decoder_apply_with_dd(params, z, pts.to(dev), v.to(dev), DecoderConfig())
+    params_c = {"layers": [{kk: t.cpu() for kk, t in l.items()} for l in params["layers"]]}
+    zc = z.cpu()
+    sc, ddc = decoder_apply_with_dd(params_c, zc, pts, v, DecoderConfig())
+    s32, dd32 = torch.func.jvp(lambda p: decoder_apply(params_c, zc, p, DecoderConfig()),
+                               (pts,), (v,))
+    q = lambda x: torch.quantile(x, torch.tensor([0.5, 0.99])).tolist()
+    gap = (s.cpu() - sc).abs()
+    card, fp32 = q(gap), q((s32 - sc).abs())
+    rel = lambda x: (torch.linalg.norm(x - ddc) / torch.linalg.norm(ddc)).item()
+    d_card, d_fp32 = rel(dd.cpu()), rel(dd32)
+    print(f"value gap p50/p99: card {card}, fp32 {fp32}; dd relative L2: card "
+          f"{d_card:.3e}, fp32 {d_fp32:.3e}")
+    assert s.is_cuda and dd.is_cuda and card[0] <= 0.01 * fp32[0]
+    assert (gap <= 1e-5).float().mean() >= 0.9 and gap.max() <= 1e-3
+    assert d_card <= 0.25 * d_fp32
+
+
 DOT_SHAPES = [(1000, 515, 70), (4096, 3, 512), (65, 512, 1), (1, 17, 64), (0, 8, 8)]
 
 
@@ -910,3 +948,145 @@ def test_cpu_tensors_take_the_k5_plain_version_uncounted():
     rc.make_color_vjp(params, cfg)(zz, pts).sum().backward()
     assert zz.grad is not None and torch.isfinite(zz.grad).all()
     assert n0 == (mlp_eval.point_eval.launches, rc.precise_bias_grads_call.launches)
+
+
+def _k6_case(dev, block, frames=3, seed=0):
+    """The bench 8x512 decoder's shared weights and a bias bank of jittered
+    bench latents, with probe-like points: per frame a hit-first run of
+    active lanes (ragged: 700, 33 and 0 of each frame's points), one
+    active lane deep in the dead suffix of frame 0. A frame holds 2048
+    points, or 2000 with 80-point blocks (frames then meet inside a
+    32-point tile)."""
+    params, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    rng = np.random.default_rng(seed)
+    lat = z0[None] + 0.001 * torch.as_tensor(
+        rng.standard_normal((frames, z0.shape[0])), dtype=torch.float32, device=dev)
+    shared = bm.pack_shared(params, DecoderConfig())
+    bank = bm.fold_bias_bank(params, lat, DecoderConfig(), shared)
+    per = 2048 if block % 32 == 0 else 25 * block
+    n = frames * per
+    pts = torch.as_tensor(rng.uniform(-0.8, 0.8, (n, 3)), dtype=torch.float32,
+                          device=dev)
+    act = torch.zeros(n, dtype=torch.bool, device=dev)
+    for f, live in enumerate((700, 33, 0)[:frames]):
+        act[f * per:f * per + live] = True
+    act[per - 100] = True
+    fob = torch.arange(frames, dtype=torch.int32, device=dev).repeat_interleave(per // block)
+    return shared, bank, fob, pts, act
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [512, 80])
+@pytest.mark.parametrize("precise_x", [True, False])
+def test_cuda_k6_matches_in_order_plain(precise_x, block, k_order):
+    """K6 against its plain version with the in-order product, bit for bit
+    (dead tiles 3e38 on both); with 80-point blocks two frames share a
+    32-point tile. A second launch gives the same bits."""
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+
+    dev = _device()
+    shared, bank, fob, pts, act = _k6_case(dev, block)
+    run = lambda k: mlp_eval.point_eval_banked(shared, bank, fob, pts, act, block=block,
+                                               precise_x=precise_x, use_kernel=k)
+    n0 = mlp_eval.point_eval_banked.launches
+    out, again = run(True), run(True)
+    assert mlp_eval.point_eval_banked.launches == n0 + 2
+    ref = run(False)
+    assert mlp_eval.point_eval_banked.launches == n0 + 2
+    torch.cuda.synchronize()
+    live = mlp_eval._live_tiles(act)
+    assert (out[~live] == 3.0e38).all() and (out[live].abs() < 10).all()
+    assert torch.equal(out, again)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [("cert", "march"), ("cert", "probe"), ("march", "probe")])
+def test_cuda_cert_render_matches_plain(mode, k_order):
+    """render_batched_c2f with verify_mode="cert", verify_band="probe" and
+    the hybrid (the bench decoder verified through its proxy), two frames:
+    the kernels' result equals the in-order plain versions' bit for bit,
+    and K6 launched."""
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+
+    dev = _device()
+    params, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    proxy = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"), dev)
+    img = 48
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img),
+                            device=dev)
+    o, v = pixel_rays(cam, img, img)
+    lat = torch.stack([z0, z0 + 0.001])
+    n0 = mlp_eval.point_eval_banked.launches
+    outs = [bm.render_batched_c2f(
+        params, DecoderConfig(), lat, o[None, :1].expand(2, 1, 3),
+        v[None].expand(2, -1, -1), (img, img), MARCH, proxy=proxy,
+        shared_origin=True, verify_mode=mode[0], verify_band=mode[1],
+        verify_round_caps=(2, 4, 12), return_anchor=True, return_steps=True,
+        return_last=True, use_kernel=k)
+        for k in (True, False)]
+    torch.cuda.synchronize()
+    assert mlp_eval.point_eval_banked.launches >= n0 + 2  # probes + refinement
+    assert outs[0].hit.sum() > 500
+    for name in ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf", "steps",
+                 "unresolved"):
+        assert _same(getattr(outs[0], name), getattr(outs[1], name)), name
+
+
+def test_cpu_tensors_take_the_k6_plain_version_uncounted():
+    """On CPU tensors K6's wrapper runs the plain version and counts no
+    launch."""
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+
+    shared, bank, fob, pts, act = _k6_case(torch.device("cpu"), 512, frames=2)
+    n0 = mlp_eval.point_eval_banked.launches
+    out = mlp_eval.point_eval_banked(shared, bank, fob, pts, act)
+    assert torch.equal(out, mlp_eval.point_eval_banked_plain(shared, bank, fob, pts, act))
+    assert mlp_eval.point_eval_banked.launches == n0
+
+
+# ptxas's registers per thread for the march kernels and K5 as the parent
+# tree's build reported them (NVIDIA H100 80GB HBM3, CUDA 12.8): K6's split
+# option in march_body.cuh's mlp_tile must leave their code as it was.
+# K1-grid and K1-multi are one kernel (sphere_trace_grid_kernel).
+PARENT_REGISTERS = {
+    "sphere_trace_kernel": 184,                 # K1
+    "sphere_trace_grid_kernel": 176,            # K1-grid, K1-multi
+    "queue_generation_kernel": 183,             # K2
+    "point_eval_kernelILi1E": 156,              # K5, 1 row
+    "point_eval_kernelILi3E": 154,              # K5, 3 rows
+}
+
+
+def ptxas_registers(log: str) -> dict:
+    """{mangled kernel name: registers} from nvcc -Xptxas -v output."""
+    import re
+
+    regs, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
+
+
+@pytest.mark.gpu
+def test_cuda_march_and_k5_registers_unchanged():
+    _device()
+    regs = ptxas_registers(build.load().build_log)
+    for key, want in PARENT_REGISTERS.items():
+        got = [r for name, r in regs.items() if key in name]
+        assert got == [want], (key, got)
+    assert any("point_eval_banked_kernel" in name for name in regs)
+
+
+def test_ptxas_registers_parses_the_build_log():
+    log = ("ptxas info    : Compiling entry function '_ZN3drt19sphere_trace_kernelEv' "
+           "for 'sm_90a'\nptxas info    : Function properties for x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 184 registers, used 1 barriers, 640 bytes smem\n")
+    assert ptxas_registers(log) == {"_ZN3drt19sphere_trace_kernelEv": 184}

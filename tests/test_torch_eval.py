@@ -59,6 +59,20 @@ def test_sdf_grid_matches_jax():
     np.testing.assert_allclose(g, ref, atol=1e-6)
 
 
+def test_default_device_needs_a_card_or_the_cpu_named(monkeypatch):
+    """Without a card the eval entry points raise unless the caller names
+    the CPU (device="cpu"): nothing falls back to the CPU unasked."""
+    fn, _ = _torus_pair()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device="):
+        mesh.default_device()
+    with pytest.raises(RuntimeError, match="device="):
+        mesh.sdf_grid(fn, resolution=4)
+    with pytest.raises(RuntimeError, match="device="):
+        chamfer.sample_surface_points(fn, 16)
+    assert mesh.sdf_grid(fn, resolution=4, device="cpu").shape == (4, 4, 4)
+
+
 def test_marching_tetrahedra_matches_jax():
     """The same numpy grid gives the same vertices and faces, in numpy and
     through the native kernels where they load (the same library)."""

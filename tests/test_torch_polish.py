@@ -102,6 +102,64 @@ def test_render_batched_c2f_rounds_matches_jax(decoders, mode):
         assert out.weak is None and len(ref) == 7
 
 
+def test_polish_flip_rate_matches_jax(decoders):
+    """The polish modes' hit flips against march-verify, on each side: both
+    packages render F=2 frames of 32x32 with verify_hits (a) "march", (b)
+    "polish" and (c) "polish-all" (the port's plain versions, JAX's kernels
+    in interpret mode), finalize (b) and (c) as chip_smoke.py's phase 8
+    does (finalize_hits_batched, polish_iters 2, compact_frac 4 and 3, the
+    weak mask in (c)), and count the hits of (b) and (c) that differ from
+    their own (a)'s. Bar: the port's count within max(2 rays, 0.5
+    percentage points of (a)'s hits) of JAX's.
+
+    Read on this scene (770 hits of (a) on both sides, equal traces): (b)
+    port 101 flips (13.12%), JAX 100 (12.99%); (c) port 110 (14.29%), JAX
+    109 (14.16%); the two finalizes differ on 1 ray in each. With an fp32
+    value and tangent in the finalize the port read 93 and 99: the demote
+    verdict follows the evaluation's roundings, so decoder_apply_with_dd
+    keeps the JAX package's."""
+    from dist_renderer_tpu.ops.renderer import finalize_hits_batched as jfinalize
+    from dist_renderer_tpu_torch.ops.renderer import finalize_hits_batched
+
+    params, z0, dkw, proxy, pkw = decoders
+    lat, ob, vb = _frames(z0, IMG)
+    flags = dict(strides=(4,), shared_origin=True, verify_round_caps=(2, 4, 12))
+    fin = dict(convergence_eps=MARCH_KW["convergence_eps"], polish_iters=2)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    jproxy = (jax.tree_util.tree_map(jnp.asarray, proxy), JDecoderConfig(**pkw))
+    tp = params_from_numpy(params)
+    tproxy = (params_from_numpy(proxy), DecoderConfig(**pkw))
+    hits = {}
+    for mode in ("march", "polish", "polish-all"):
+        ref = jax.jit(lambda: jbm.render_batched_c2f(
+            jp, JDecoderConfig(**dkw), jnp.asarray(lat), jnp.asarray(ob),
+            jnp.asarray(vb), (IMG, IMG), JMarchConfig(**MARCH_KW), proxy=jproxy,
+            verify_hits=mode, interpret=True, **flags))()
+        out = render_batched_c2f(tp, DecoderConfig(**dkw), T(lat), T(ob), T(vb),
+                                 (IMG, IMG), MarchConfig(**MARCH_KW), proxy=tproxy,
+                                 verify_hits=mode, **flags)
+        assert np.mean(np.asarray(ref[1]) == out.hit.numpy()) >= 0.99
+        if mode == "march":
+            hits[mode] = (np.asarray(ref[1]), out.hit.numpy())
+            continue
+        kw = dict(fin, compact_frac=3 if mode == "polish-all" else 4)
+        jh = np.asarray(jfinalize(
+            jp, JDecoderConfig(**dkw), jnp.asarray(lat), jnp.asarray(ob),
+            jnp.asarray(vb), ref[0], ref[1], ref[2],
+            weak=ref[3] if mode == "polish-all" else None, **kw)[1])
+        th = finalize_hits_batched(tp, DecoderConfig(**dkw), T(lat), T(ob), T(vb),
+                                   out.depth, out.hit, out.min_sdf, weak=out.weak,
+                                   **kw)[1].numpy()
+        hits[mode] = (jh, th)
+    ja, ta = hits["march"]
+    assert ja.sum() > 500 and np.mean(ja == ta) >= 0.99
+    for mode in ("polish", "polish-all"):
+        jh, th = hits[mode]
+        jax_flips, port = int((jh != ja).sum()), int((th != ta).sum())
+        assert (abs(port - jax_flips) <= 2
+                or abs(port / ta.sum() - jax_flips / ja.sum()) <= 0.005), (mode, port, jax_flips)
+
+
 def _render_both(decoders, hits_mode, polish_iters=4):
     """One frame through each package's render() on the trace_frame path
     with the proxy march (compose() on the fp32 precise value; JAX's with

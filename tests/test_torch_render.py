@@ -35,6 +35,7 @@ from dist_renderer_tpu.ops.renderer import render as jrender
 from dist_renderer_tpu_torch.config import (
     DecoderConfig, GradConfig, MarchConfig, RenderConfig,
 )
+from dist_renderer_tpu_torch.models import analytic
 from dist_renderer_tpu_torch.models.decoder import make_precise_sdf, params_from_numpy
 from dist_renderer_tpu_torch.models.pretrain import load_params_npz
 from dist_renderer_tpu_torch.models.proxy import (
@@ -162,14 +163,16 @@ def test_sdf_renderer_and_plain_switch_agree():
 
 def test_unported_modes_raise():
     """What is still unported raises NotImplementedError naming its
-    ROADMAP item; the polish demote's guard raises ValueError."""
+    ROADMAP item; the polish demote's guard and the verify modes' guard
+    (polish does not compose with cert or probe) raise ValueError."""
     proxy, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"))
     z = torch.zeros(2, pcfg.latent_size)
-    o = torch.zeros(2, 1, 3)
-    v = torch.ones(2, 16, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        render_batched_c2f(proxy, pcfg, z[:1], o[:1], v[:1], (4, 4), MarchConfig(),
-                           verify_mode="cert")
+    o = torch.zeros(1, 1, 3)
+    v = torch.ones(1, 16, 3)
+    for mode in (dict(verify_mode="cert"), dict(verify_band="probe")):
+        with pytest.raises(ValueError, match="composes only"):
+            render_batched_c2f(proxy, pcfg, z[:1], o, v, (4, 4), MarchConfig(),
+                               verify_hits="polish", **mode)
     cam = Camera.looking_at((0.0, 0.0, -2.5), focal=20.0, img_hw=(8, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP A16"):
         render(make_precise_sdf(proxy, pcfg), z[0], cam,
@@ -181,6 +184,31 @@ def test_unported_modes_raise():
                RenderConfig(img_h=8, img_w=8, march=vh, use_pallas=True),
                make_march_factory(proxy, pcfg, RenderConfig(use_pallas=True),
                                   march_params=proxy, march_dcfg=pcfg))
+
+
+def test_c2f_plan_skip_rays_take_the_coarse_margin():
+    """render()'s c2f_plan path with the compose bucket (128^2 rays,
+    compact_frac 4): skip-class rays never sample the SDF, and outside the
+    bucket they keep the trace's margin. That must be the coarse level's
+    margin, as merge_skip gives the batched path, not the tracer's
+    stand-in for a never-sampled ray (the closest approach's distance to
+    the bounding sphere, down to -0.68 here for rays through it; the JAX
+    package's single-frame path keeps it, and silhouette fits from an
+    empty shape then stall). On an analytic sphere of radius 0.3 every
+    miss's margin is positive, and the misses' mean margin is the no-c2f
+    render's within 0.01 (read: 0.4289 against 0.4310; -0.133 with the
+    stand-in)."""
+    img = 128
+    sdf = lambda z, p: analytic.sphere_sdf(0.3)(None, p)
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=1.25 * img, img_hw=(img, img))
+    outs = [render(sdf, torch.zeros(1), cam, RenderConfig(
+        img_h=img, img_w=img, march=MarchConfig(coarse_to_fine=c2f),
+        grad=GradConfig(mode="ift", compact_frac=4))) for c2f in (True, False)]
+    assert RenderConfig().grad.compact_min <= img * img
+    miss = [~o.mask for o in outs]
+    assert outs[0].mask.sum() > 500 and (outs[0].min_sdf[miss[0]] > 0).all()
+    means = [o.min_sdf[m].mean().item() for o, m in zip(outs, miss)]
+    assert abs(means[0] - means[1]) <= 0.01, means
 
 
 def test_no_valid_stride_marches_every_ray():
