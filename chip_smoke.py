@@ -831,6 +831,8 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
               f"whose proxy depth moved outside it)")
         return d_path
 
+    # (d)'s K6 sums on the tensor cores and again in k order the values whose
+    # bf16 rounding that may move; (d) is also held to a second run of itself
     paths = {}
     for name, mode in (("a", "march"), ("d", "cert")):
         with torch.no_grad():
@@ -839,17 +841,30 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
             ro = in_order(lambda: batch(mode, f=F8_PLAIN, use_kernel=False,
                                         return_anchor=True))
             order_ms = 1e3 * (time.perf_counter() - t0)
-        n_diff = {f: int(differ(getattr(rk, f), getattr(ro, f)).sum()) for f in fields}
-        del rk, ro
+            n_diff = {f: int(differ(getattr(rk, f), getattr(ro, f)).sum()) for f in fields}
+            del ro
+            n_again = None
+            if name == "d":
+                ra = batch(mode, f=F8_PLAIN, return_anchor=True)
+                n_again = {f: int(differ(getattr(rk, f), getattr(ra, f)).sum())
+                           for f in fields}
+                del ra
+        del rk
         print(f"({name}) at F={F8_PLAIN}, kernels vs plain versions with the in-order "
               f"product ({order_ms:.0f} ms; product == its loop over k: {ok_dot}): rays "
-              f"that differ: {n_diff}", flush=True)
+              f"that differ: {n_diff}" + ("" if n_again is None else
+                                          f"; vs a second run of the kernels: {n_again}"),
+              flush=True)
         check(not any(n_diff.values()),
               f"phase 8's kernel path ({name}) differs from the plain versions with the "
               f"kernels' summation order at F={F8_PLAIN}: {n_diff} rays")
+        check(n_again is None or not any(n_again.values()),
+              f"phase 8's kernel path ({name}) differs from a second run of its kernels "
+              f"at F={F8_PLAIN}: {n_again} rays")
         paths[name] = gemm_vs_plain(name, lambda k: proxy_depth_of(lambda: batch(
             mode, f=F8_PLAIN, use_kernel=k, return_anchor=True)), f"seed {SEED + 9}")
-        paths[name].update(in_order_rays_differing=n_diff, in_order_ms=order_ms)
+        paths[name].update(in_order_rays_differing=n_diff, in_order_ms=order_ms,
+                           second_run_rays_differing=n_again)
     # (d)'s share within MARCH_TOL on two more sets of frames (other jitter)
     paths["d_more"] = []
     for seed in (SEED + 11, SEED + 12):
@@ -864,12 +879,17 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
 
 K5_POINTS = 262_144   # phase 9 (a): seeded points in [-1, 1]^3
 K5_IN_ORDER = 65_536  # of those, held to the in-order plain version
+K5_RAGGED = (1, 31, 33, 100_000)  # prefixes of them K5 must give the same bits
 # Phase 9 (a), K5 against its plain version with the card's GEMM: the
 # least share of points within 1e-5 and the largest |diff|. Read on an
 # H100: every point equal. The bars allow what two summation orders gave
 # on the CPU (tests/test_torch_mlp_eval.py): >= 99.7% within 1e-5, max
 # 3.0e-3 (a flipped bf16 activation rounding).
 K5_WITHIN, K5_MAX = 0.99, 5e-3
+# The color render's RGB against the plain versions': sigmoid(logits),
+# whose slope is at most 1/4, so K5's bar on the logits bounds RGB by
+# K5_MAX / 4
+RGB_MAX = K5_MAX / 4
 MESH_RES = (128, 256)
 
 
@@ -981,9 +1001,10 @@ def k6_row(torch, dev, smi):
     """Phase 3's K6 row: the certification probes (a and b, hit-first
     buckets, dead suffixes) of phase 8's verify_mode="cert" batch cut to
     F8_PLAIN frames, on the bench decoder: K6 against its plain version
-    with the GEMM (active lanes within K5's bars, dead tiles equal) and
-    with the in-order product (bit for bit), timed beside its plain
-    version and a bf16 F.linear chain on the live tiles' points."""
+    with the GEMM (active lanes within K5's bars, dead tiles equal), with
+    the in-order product (bit for bit) and against itself with its blocks
+    shuffled and split (bit for bit), timed beside its plain version and a
+    bf16 F.linear chain on the live tiles' points."""
     from dist_renderer_tpu_torch.ops.kernels import mlp_eval
     from dist_renderer_tpu_torch.profile_render import batched_setup
 
@@ -1008,6 +1029,7 @@ def k6_row(torch, dev, smi):
     run = lambda k: real(shared, bank, fob, pts, act, block=block, use_kernel=k)
     out_k, out_p = run(True), run(False)
     exact = torch.equal(out_k, in_order(lambda: run(False)))
+    grouped = k6_grouping_exact(torch, real, shared, bank, fob, pts, act, block, out_k)
     live = mlp_eval._live_tiles(act)
     err = (out_k - out_p).abs()[act]
     n_eval = int(live.sum())
@@ -1016,6 +1038,7 @@ def k6_row(torch, dev, smi):
     pts_l, frame_l = pts[live], frame[live]
     lib_err = (chain(pts_l, frame_l) - out_k[live]).abs().max().item()
     row = dict(n=pts.shape[0], evaluated=n_eval, active=int(act.sum()), exact=exact,
+               grouping_exact=grouped,
                dead_equal=bool((out_k[~live] == out_p[~live]).all()),
                max=err.max().item(), within=(err <= 1e-5).float().mean().item(),
                ms=cuda_ms(lambda: run(True)), plain_ms=cuda_ms(lambda: run(False)),
@@ -1026,15 +1049,57 @@ def k6_row(torch, dev, smi):
           f"lanes, {row['active']} active, {n_eval} evaluated in live tiles): vs plain "
           f"(GEMM) on active lanes max |diff| {row['max']:.3e}, within 1e-5 "
           f"{row['within']:.6f}, dead tiles equal {row['dead_equal']}; == in-order plain "
-          f"bit for bit: {exact}; {row['ms']:.3f} ms vs plain {row['plain_ms']:.3f} ms, "
+          f"bit for bit: {exact}; blocks shuffled and split over two launches bit for "
+          f"bit: {grouped}; {row['ms']:.3f} ms vs plain {row['plain_ms']:.3f} ms, "
           f"bf16 F.linear chain {row['library_ms']:.3f} ms (max |diff| {lib_err:.2e}); "
           f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
           f"{row['bound_ms'] / row['ms']:.1%})  [{smi}]", flush=True)
     check(exact, "K6 differs from its in-order plain version")
+    check(grouped, "K6 gives a point other bits when its blocks are shuffled or split "
+          "over two launches")
     check(row["dead_equal"] and row["within"] >= K5_WITHIN and row["max"] <= K5_MAX,
           f"K6 disagrees with its plain version (bars: within 1e-5 on >= {K5_WITHIN} "
           f"of active lanes, max |diff| <= {K5_MAX}, dead tiles equal)")
     return row
+
+
+def k6_grouping_exact(torch, k6, shared, bank, fob, pts, act, block, out):
+    """K6 against itself: the blocks shuffled (each keeping its frame and
+    points) and split over two launches give out's bits on every lane
+    live in both groupings (a 32-point tile's liveness follows its
+    neighbours), and 3e38 on every lane of a dead tile."""
+    from dist_renderer_tpu_torch.ops.kernels.mlp_eval import _live_tiles
+
+    nb = fob.shape[0]
+    gen = torch.Generator().manual_seed(SEED + 13)
+    perm = torch.randperm(nb, generator=gen).to(pts.device)
+    lanes = (perm[:, None] * block + torch.arange(block, device=pts.device)).reshape(-1)
+    run = lambda f, p, a: k6(shared, bank, f.contiguous(), p.contiguous(), a.contiguous(),
+                             block=block)
+    live = _live_tiles(act)
+
+    def same(ln, got, now):
+        both = now & live[ln]
+        return (torch.equal(got[both], out[ln][both]) and bool((got[~now] == 3.0e38).all()))
+
+    cut = (nb // 3) * block  # each launch's tiles start at its first lane
+    return (same(lanes, run(fob[perm], pts[lanes], act[lanes]), _live_tiles(act[lanes]))
+            and same(torch.arange(pts.shape[0], device=pts.device),
+                     torch.cat([run(fob[:nb // 3], pts[:cut], act[:cut]),
+                                run(fob[nb // 3:], pts[cut:], act[cut:])]),
+                     torch.cat([_live_tiles(act[:cut]), _live_tiles(act[cut:])])))
+
+
+def k5_grouping_exact(torch, run, pts, out):
+    """K5 against itself: the points shuffled, split over two launches and
+    as ragged prefixes (K5_RAGGED) give every point out's bits."""
+    gen = torch.Generator().manual_seed(SEED + 14)
+    perm = torch.randperm(pts.shape[0], generator=gen).to(pts.device)
+    cut = pts.shape[0] // 3 + 7
+    return (torch.equal(run(pts[perm].contiguous()), out[perm])
+            and torch.equal(torch.cat([run(pts[:cut].contiguous()),
+                                       run(pts[cut:].contiguous())]), out)
+            and all(torch.equal(run(pts[:m].contiguous()), out[:m]) for m in K5_RAGGED))
 
 
 def k6_capture(torch, fn):
@@ -1093,15 +1158,17 @@ def k6_held(torch, calls, where):
 def k5_phase(torch, dev, params, dcfg, latent, cam, smi):
     """Phase 9: K5 and the paths through it. (a) K5 against its plain
     version on 262,144 seeded points, the bench decoder (1 row) and the
-    default 8x512 color decoder (3 rows): the GEMM's differences, and bit
-    for bit with the in-order product on 65,536 of them; times beside a
+    default 8x512 color decoder (3 rows): the GEMM's differences, bit for
+    bit with the in-order product on 65,536 of them, and bit for bit
+    against itself shuffled, split and at ragged prefixes; times beside a
     chain of bf16 F.linear calls. (b) Mesh extraction of the bench shape
     through make_pallas_point_fn + extract_mesh at 128^3 and 256^3, the K5
     grid against the plain grid, the K5 mesh against the precise sdf's at
     128^3. (c) SDFRendererColor on the K1-grid path at 512^2 with the
     differentiable color head: fwd and fwd+bwd of a photometric L1, RGB
-    against the plain versions (bit for bit with the in-order product),
-    gradients to both latents against the plain versions."""
+    against the plain versions (within RGB_MAX with the GEMM, bit for bit
+    with the in-order product), gradients to both latents against the
+    plain versions."""
     import numpy as np
 
     from dist_renderer_tpu_torch.config import GradConfig, MarchConfig, RenderConfig
@@ -1148,10 +1215,11 @@ def k5_phase(torch, dev, params, dcfg, latent, cam, smi):
         out_k, out_p = run(True), run(False)
         head = pts[:K5_IN_ORDER].contiguous()
         exact = torch.equal(out_k[:K5_IN_ORDER], in_order(lambda: run(False, head)))
+        grouped = k5_grouping_exact(torch, lambda x: run(True, x), pts, out_k)
         err = (out_k - out_p).abs().reshape(K5_POINTS, -1).amax(dim=1)
         chain = bf16_chain(torch, p_, c_, z_)
         lib_err = (chain(pts, r).reshape(out_k.shape) - out_k).abs().max().item()
-        row = dict(case=name, out_rows=r, n=K5_POINTS, exact=exact,
+        row = dict(case=name, out_rows=r, n=K5_POINTS, exact=exact, grouping_exact=grouped,
                    max=err.max().item(), within=(err <= 1e-5).float().mean().item(),
                    ms=cuda_ms(lambda: run(True)), plain_ms=cuda_ms(lambda: run(False)),
                    library_ms=cuda_ms(lambda: chain(pts, r)), library_max=lib_err)
@@ -1160,12 +1228,15 @@ def k5_phase(torch, dev, params, dcfg, latent, cam, smi):
         rows_a.append(row)
         print(f"K5 ({name}, {r} row{'s' if r > 1 else ''}) {K5_POINTS} points: vs plain "
               f"(GEMM) max |diff| {row['max']:.3e}, within 1e-5 {row['within']:.6f}; == "
-              f"in-order plain on {K5_IN_ORDER} bit for bit: {exact}; {row['ms']:.3f} ms vs "
+              f"in-order plain on {K5_IN_ORDER} bit for bit: {exact}; shuffled, split and "
+              f"ragged ({K5_RAGGED}) bit for bit: {grouped}; {row['ms']:.3f} ms vs "
               f"plain {row['plain_ms']:.3f} ms, bf16 F.linear chain {row['library_ms']:.3f} "
               f"ms (max |diff| {lib_err:.2e}); bound {row['bound_ms']:.3f} ms "
               f"({row['bound_by']})  [{smi}]", flush=True)
     for row in rows_a:
         check(row["exact"], f"K5 ({row['case']}) differs from its in-order plain version")
+        check(row["grouping_exact"], f"K5 ({row['case']}) gives a point other bits when "
+              "the points are shuffled, split over two launches or cut to a ragged prefix")
         check(row["within"] >= K5_WITHIN and row["max"] <= K5_MAX,
               f"K5 ({row['case']}) disagrees with its plain version (bars: within 1e-5 "
               f"on >= {K5_WITHIN} of points, max |diff| <= {K5_MAX})")
@@ -1288,10 +1359,13 @@ def k5_phase(torch, dev, params, dcfg, latent, cam, smi):
                                                          gk[2:], gp[2:])}
     rgb_gemm = (gk[1] - gp[1]).abs().max().item()
     print(f"color render vs plain versions: RGB == in-order plain bit for bit: {rgb_exact}; "
-          f"max |RGB diff| with the GEMM {rgb_gemm:.3e}; gradients ({plain_fb_ms:.0f} ms "
+          f"max |RGB diff| with the GEMM {rgb_gemm:.3e} (bar {RGB_MAX:.2e}); gradients "
+          f"({plain_fb_ms:.0f} ms "
           "plain): " + "; ".join(f"{k} cos {d['cos']:.7f} relative L2 {d['rel']:.3e}"
                                  for k, d in diffs.items()), flush=True)
     check(rgb_exact, "the color render's RGB differs from the in-order plain versions'")
+    check(rgb_gemm <= RGB_MAX, f"the color render's RGB differs from the plain versions' "
+          f"by {rgb_gemm:.3e} (bar {RGB_MAX:.2e})")
     check(all(torch.isfinite(g).all().item() for g in gk[2:]),
           "a color-render gradient is not finite")
     for k, d in diffs.items():
@@ -1513,7 +1587,8 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s total, nvcc "
           f"{lib.build_seconds:.1f} s -> {os.path.relpath(lib.path, HERE)}")
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("Used" in line and "registers" in line) or "spill" in line or (
+                "Compiling entry" in line):
             print("  ptxas:", line.strip())
     sys.stdout.flush()
 
@@ -1542,6 +1617,11 @@ def main():
     print("\n== kernels vs plain versions (bench fixture, main-path inputs) ==")
     shared_p = pack_shared(pparams, pcfg)
     shared = pack_shared(params, dcfg)
+    from dist_renderer_tpu_torch.ops.kernels.mlp_eval import mma_smem_bytes
+    print(f"K5/K6 (csrc/point_mlp.cuh): dynamic shared memory per block "
+          f"{mma_smem_bytes(shared)} bytes (bench 8x512 decoder), "
+          f"{mma_smem_bytes(shared_p)} (4x256 proxy); registers: the ptxas lines of "
+          "point_mlp_kernel above", flush=True)
     z = latent[None]
     bank_p = fold_bias_bank(pparams, z, pcfg, shared_p)
     bank = fold_bias_bank(params, z, dcfg, shared)

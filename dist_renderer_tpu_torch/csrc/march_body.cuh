@@ -1,7 +1,7 @@
 // The march step and the latent-folded MLP shared by the march kernels:
 // sphere_trace.cuh (K1, the persistent march, and K1-grid, the grid
-// march) and queue_march.cu (K2, the work-queue generations). The MLP
-// (mlp_tile) also serves the point evals of point_eval.cu (K5, K6).
+// march) and queue_march.cu (K2, the work-queue generations). The point
+// evals K5 and K6 run point_mlp.cuh's tensor-core body instead.
 //
 // Counterpart of the JAX package's ops/pallas/march_body.py (mlp_apply,
 // march_loop). Both kernels march TILE rays per thread block; the block
@@ -20,8 +20,8 @@
 // once per tile step. A thread computes an 8-output x 8-ray micro-tile, so
 // each 16-byte weight load feeds 64 FMAs and each 16-byte activation load
 // (shared memory) feeds 64 more. Activations stay in shared memory
-// (bf16, two [width][TILE] buffers). Tensor cores (mma/wgmma) are later
-// work.
+// (bf16, two [width][TILE] buffers). The march keeps this k-order sum:
+// its kernels' bit-exactness against each other rests on it.
 
 #pragma once
 
@@ -111,23 +111,15 @@ __device__ __forceinline__ float round_bf16(float x) {
 }
 
 // One MLP evaluation for the tile: positions s_x [3][TILE] (bf16-rounded
-// fp32) -> s_out [OUT_ROWS][TILE], the last layer's first OUT_ROWS output
-// rows (each through the final tanh when the decoder has one). The march
-// reads row 0, the SDF; the bulk point eval (point_eval.cu) 1 or 3 rows.
-// SPLIT_X (the banked point eval, K6): s_x holds [6][TILE], the positions'
-// bf16 high halves in rows 0-2 and their bf16 low halves in rows 3-5, and
-// every x-product runs on each half, the two fp32 sums added before the
-// layer's hidden product is (march_body.py's p8_lo). The march and K5
-// instantiate SPLIT_X=false, whose code is the one-half product alone.
-// s_h holds two [max_width][TILE] bf16 buffers. Every thread of the block
-// must call it; it ends with a barrier.
-template <int OUT_ROWS, bool SPLIT_X = false>
+// fp32) -> s_sdf [TILE], the last layer's first output row (through the
+// final tanh when the decoder has one). s_h holds two [max_width][TILE]
+// bf16 buffers. Every thread of the block must call it; it ends with a
+// barrier.
 static __device__ void mlp_tile(const Decoder& dec,
                          const __nv_bfloat16* __restrict__ W,
                          const float* __restrict__ bank, int bank_stride,
                          const int* s_frame, const float* s_x,
-                         __nv_bfloat16* s_h, float* s_out) {
-  static_assert(OUT_ROWS >= 1 && OUT_ROWS <= 8, "one group of 8 output rows");
+                         __nv_bfloat16* s_h, float* s_sdf) {
   __nv_bfloat16* hin = s_h;
   __nv_bfloat16* hout = s_h + dec.max_width * TILE;
   for (int l = 0; l < dec.n_layers; ++l) {
@@ -135,7 +127,7 @@ static __device__ void mlp_tile(const Decoder& dec,
     const int wh_off = dec.wh_off[l], wx_off = dec.wx_off[l];
     const int b_off = dec.b_off[l];
     const bool last = l == dec.n_layers - 1;
-    // the last layer only needs its first OUT_ROWS outputs: one group of 8
+    // the last layer only needs its first output: one group of 8
     const int items = last ? RG : (out_p / 8) * RG;
     for (int it = threadIdx.x; it < items; it += NTHREADS) {
       const int og = it / RG, rg = it - og * RG;
@@ -170,12 +162,7 @@ static __device__ void mlp_tile(const Decoder& dec,
           const float x0 = s_x[r], x1 = s_x[TILE + r], x2 = s_x[2 * TILE + r];
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
-            float xz = fmaf(wx[2][i], x2, fmaf(wx[1][i], x1, wx[0][i] * x0));
-            if constexpr (SPLIT_X) {
-              const float l0 = s_x[3 * TILE + r], l1 = s_x[4 * TILE + r],
-                          l2 = s_x[5 * TILE + r];
-              xz = xz + fmaf(wx[2][i], l2, fmaf(wx[1][i], l1, wx[0][i] * l0));
-            }
+            const float xz = fmaf(wx[2][i], x2, fmaf(wx[1][i], x1, wx[0][i] * x0));
             acc[i][j] = wh_off >= 0 ? acc[i][j] + xz : xz;
           }
         }
@@ -190,11 +177,10 @@ static __device__ void mlp_tile(const Decoder& dec,
           const float v = acc[i][j] + __ldg(bcol + (size_t)(b_off + o) * bank_stride);
           if (!last) {
             hout[o * TILE + r] = __float2bfloat16_rn(fmaxf(v, 0.0f));
-          } else if (OUT_ROWS == 1 ? o == 0 : i < OUT_ROWS) {
-            // og is 0 in the last layer, so output o is i. The one-row
-            // case (the march) tests o == 0: testing i moved the march
-            // kernels' register allocation and time on an H100
-            s_out[(OUT_ROWS == 1 ? 0 : i * TILE) + r] = dec.final_tanh ? tanhf(v) : v;
+          } else if (o == 0) {
+            // testing i here moved the march kernels' register
+            // allocation and time on an H100
+            s_sdf[r] = dec.final_tanh ? tanhf(v) : v;
           }
         }
       }
@@ -270,7 +256,7 @@ static __device__ void march_tile(const Decoder& dec, const __nv_bfloat16* __res
       for (int a = 0; a < 3; ++a) s_x[a * TILE + t] = round_bf16(o[a] + c.d * v[a]);
     }
     __syncthreads();
-    mlp_tile<1>(dec, W, bank, bank_stride, s_frame, s_x, s_h, s_sdf);
+    mlp_tile(dec, W, bank, bank_stride, s_frame, s_x, s_h, s_sdf);
     if (t < TILE) march_one(c, s_sdf[t], near_lo, far, mp);
   }
 }

@@ -1,0 +1,149 @@
+"""Times of the port's hand-written kernels on one CUDA card, at fixed
+inputs, for comparing two trees of the repo in one call:
+
+    python dist_renderer_tpu_torch/kernel_times.py [--root TREE] [--out FILE]
+
+``--root`` (run it as a file, as above, for this) imports
+``dist_renderer_tpu_torch`` and builds its kernels from another checkout
+of the repo, e.g. an unpacked parent commit, so parent and change run the
+same inputs: run parent, change, change, parent and compare within the
+call.
+
+Inputs (the committed bench fixture; seeded):
+  - K5: 262,144 points uniform in [-1, 1]^3, the bench 8x512 decoder at
+    its latent, one output row (chip_smoke.py phase 9's);
+  - K6: the certification probes of the batched cert step at F=4 frames
+    of 512x512 (chip_smoke.py phase 3's K6 row), the first K6 call;
+  - K1 and K1-multi: 4 frames of 256x256 rays from the bench camera
+    against the 4x256 proxy, 16 steps from the bounding sphere (a
+    coarse level's work);
+  - K2: one 512x512 frame against the proxy, 50 steps, every ray live;
+  - K1-grid: one 256x256 frame against the folded proxy, 50 steps.
+Each: CUDA events around the wrapper, median of 3 after a warm-up.
+Prints one JSON object, {name: ms}, with the card's name and power
+limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+
+def _ms(torch, fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return sorted(out)[len(out) // 2]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout whose package is timed")
+    ap.add_argument("--out", help="JSON file for the numbers")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: needs a CUDA card", file=sys.stderr)
+        return 1
+    from dist_renderer_tpu_torch.config import DecoderConfig
+    from dist_renderer_tpu_torch.models.folded import fold_latent
+    from dist_renderer_tpu_torch.models.pretrain import load_params_npz
+    from dist_renderer_tpu_torch.models.proxy import load_proxy_npz
+    from dist_renderer_tpu_torch.ops.camera import Camera, pixel_rays
+    from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+    from dist_renderer_tpu_torch.ops.kernels import fused_march as fm
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+    from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
+    from dist_renderer_tpu_torch.profile_render import batched_setup, bench_setup
+
+    import dist_renderer_tpu_torch as pkg
+    if not os.path.abspath(pkg.__file__).startswith(root):
+        print(f"kernel_times: imported {pkg.__file__}, not from {root}", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    times = {}
+    with torch.no_grad():
+        params, latent = load_params_npz(os.path.join(root, ".bench_decoder.npz"), dev)
+        dcfg = DecoderConfig()
+        packed = fm.pack_folded(fold_latent(params, latent, dcfg), dcfg)
+        pts = torch.as_tensor(np.random.default_rng(0).uniform(-1.0, 1.0, (262_144, 3)),
+                              dtype=torch.float32, device=dev)
+        times["K5"] = _ms(torch, lambda: mlp_eval.point_eval(packed, pts))
+
+        batch, _, _ = batched_setup(dev, 4, 512, 9)
+        seen, real = [], mlp_eval.point_eval_banked
+
+        def spy(*a, **kw):
+            if not seen:
+                seen.append((a, kw))
+            return real(*a, **kw)
+
+        spy.launches = 0
+        mlp_eval.point_eval_banked = spy
+        try:
+            batch("cert")
+        finally:
+            mlp_eval.point_eval_banked = real
+        a6, kw6 = seen[0]
+        times["K6"] = _ms(torch, lambda: real(*a6, **kw6))
+
+        _, _, _, _, cfg, _ = bench_setup(dev, 512)
+        pparams, pcfg = load_proxy_npz(os.path.join(root, ".bench_proxy.npz"), dev)
+        shared_p = bm.pack_shared(pparams, pcfg)
+        lats = latent[None] + 0.001 * torch.as_tensor(
+            np.random.default_rng(1).standard_normal((4, latent.shape[0])),
+            dtype=torch.float32, device=dev)
+        bank_p = bm.fold_bias_bank(pparams, lats, pcfg, shared_p)
+        img = 256
+        cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img),
+                                device=dev)
+        o, v = pixel_rays(cam, img, img)
+        n = img * img
+        coarse = dataclasses.replace(cfg.march, max_steps=16)
+        o4, v4 = o.repeat(4, 1).contiguous(), v.repeat(4, 1).contiguous()
+        frame = torch.arange(4, device=dev).repeat_interleave(n)
+        times["K1"] = _ms(torch, lambda: bm.sphere_trace_persistent(
+            shared_p, bank_p, frame, o4, v4, coarse, rays_per_frame=n))
+        times["K1-multi"] = _ms(torch, lambda: bm.sphere_trace_batched(
+            shared_p, bank_p, frame, o4, v4, coarse, rays_per_frame=n))
+        folded_p = fm.pack_folded(fold_latent(pparams, latent, pcfg), pcfg)
+        times["K1-grid"] = _ms(torch, lambda: fm.sphere_trace_grid(folded_p, o, v, cfg.march))
+        cam2 = Camera.looking_at((0.0, 0.0, -2.5), focal=512 * 1.2, img_hw=(512, 512),
+                                 device=dev)
+        o2, v2 = pixel_rays(cam2, 512, 512)
+        key = torch.zeros((1, 512 * 512), dtype=torch.int32, device=dev)
+        seed = torch.full((1, 512 * 512), float("nan"), device=dev)
+        times["K2"] = _ms(torch, lambda: queue_march(
+            shared_p, bank_p[:, :1].contiguous(), o2[None, :1], v2[None], key, seed,
+            cfg.march, gen_caps=cfg.march.queue_caps))
+    res = dict(root=root, card=smi, ms=times)
+    print(json.dumps(res))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -51,7 +51,11 @@ class SharedDecoder(NamedTuple):
     kernels' layout: every weight in one bf16 buffer, input-major
     ([in_p][out_p], x rows [3][out_p]) so a thread reads 8 consecutive
     outputs with one 16-byte load; ``table`` holds per layer
-    (out_p, in_p, wh offset, wx offset, bias row offset), -1 = absent."""
+    (out_p, in_p, wh offset, wx offset, bias row offset), -1 = absent.
+    ``tiles``: the hidden weights in the point evals' tensor-core layout
+    (pack_mma_tiles), ``wrows`` the same weights row by row (pack_mma_rows)
+    and ``wscale`` [total] fp32 each hidden output column's near-tie scale
+    (pack_mma_scales)."""
 
     whT: Tuple[Optional[torch.Tensor], ...]
     wxT: Tuple[Optional[torch.Tensor], ...]
@@ -60,6 +64,107 @@ class SharedDecoder(NamedTuple):
     final_tanh: bool
     flat: torch.Tensor
     table: Tuple[int, ...]
+    tiles: torch.Tensor
+    wrows: torch.Tensor
+    wscale: torch.Tensor
+
+
+# The point evals' weight stream (csrc/point_mlp.cuh): a layer's outputs
+# run as N-chunks of these widths, each over K in tiles of this many bytes.
+MMA_NT = (128, 64, 8)
+MMA_STAGE_BYTES = 16384
+# The tensor cores sum a hidden product in another order than the plain
+# version's k order. Values within NEAR_TIE * 2^-24 * |w| |h| (L2 norms of
+# the weight column and the input row) of a bf16 rounding boundary are
+# summed again in k order (csrc/point_mlp.cuh). The margin is empirical,
+# not a bound (fp32 sums of K terms can differ by ~K * 2^-24 * sum |w h|):
+# a CPU model of the card's truncating accumulation read at most 4.4 such
+# units on the bench 8x512 and the 8x512 color decoders, and on an H100
+# NEAR_TIE = 2 missed no tie in 2.2e8 activations of each. Another decoder
+# can miss one: that activation then moves by a bf16 rounding, within
+# K5's bars against the plain version (99% within 1e-5, max 5e-3).
+NEAR_TIE = 4.0
+
+
+def mma_chunks(out_p: int):
+    """[(n0, nt)]: a layer's output chunks in the kernels' order, the
+    largest of MMA_NT that fits first."""
+    chunks, n0 = [], 0
+    while n0 < out_p:
+        nt = next(w for w in MMA_NT if w <= out_p - n0)
+        chunks.append((n0, nt))
+        n0 += nt
+    return chunks
+
+
+def mma_tile_spans(whT):
+    """Per hidden layer (layer index, [(n0, nt, k0, kt)]): the tiles of
+    pack_mma_tiles in stream order, K padded to 16. The kernels stream
+    every layer but the last, whose few outputs they sum in k order."""
+    spans = []
+    for li, w in enumerate(whT):
+        if w is None:
+            continue
+        out_p, in_p = w.shape
+        k16 = _round_up(in_p, 16)
+        tiles = []
+        for n0, nt in mma_chunks(out_p):
+            kt_max = MMA_STAGE_BYTES // (2 * nt)
+            tiles += [(n0, nt, k0, min(kt_max, k16 - k0)) for k0 in range(0, k16, kt_max)]
+        spans.append((li, tiles))
+    return spans
+
+
+def pack_mma_tiles(whT) -> torch.Tensor:
+    """The hidden weights ([out_p, in_p] bf16 per layer, None where a layer
+    has none) as the point evals stream them: per layer, per N-chunk, per
+    K-slice one contiguous tile W[n0:n0+nt, k0:k0+kt] stored [kt/8][nt][8]
+    (the wgmma B operand's K-major core matrices, no swizzle), K padded to
+    16 with zeros. A layer occupies out_p * round_up(in_p, 16) values."""
+    parts = []
+    for li, tiles in mma_tile_spans(whT):
+        w = whT[li]
+        out_p, in_p = w.shape
+        wp = torch.zeros((out_p, _round_up(in_p, 16)), dtype=torch.bfloat16, device=w.device)
+        wp[:, :in_p] = w
+        for n0, nt, k0, kt in tiles:
+            tile = wp[n0:n0 + nt, k0:k0 + kt]
+            parts.append(tile.reshape(nt, kt // 8, 8).permute(1, 0, 2).reshape(-1))
+    if not parts:
+        return torch.zeros((0,), dtype=torch.bfloat16)
+    return torch.cat(parts).contiguous()
+
+
+def pack_mma_rows(whT) -> torch.Tensor:
+    """The hidden weights row by row for the in-order recompute of near
+    ties: per layer [out_p][round_up(in_p, 16)] bf16 (K padded with zeros),
+    the layers at pack_mma_tiles' offsets, so one output's weights are one
+    contiguous run."""
+    parts = []
+    for w in whT:
+        if w is None:
+            continue
+        out_p, in_p = w.shape
+        wp = torch.zeros((out_p, _round_up(in_p, 16)), dtype=torch.bfloat16, device=w.device)
+        wp[:, :in_p] = w
+        parts.append(wp.reshape(-1))
+    if not parts:
+        return torch.zeros((0,), dtype=torch.bfloat16)
+    return torch.cat(parts).contiguous()
+
+
+def pack_mma_scales(whT, offsets, total: int) -> torch.Tensor:
+    """[total] fp32 at the bias rows (offsets): NEAR_TIE * 2^-24 * the L2
+    norm of each hidden output column's bf16 weights, 0 where a layer has
+    no hidden product."""
+    dev = next(w.device for w in whT if w is not None) if any(
+        w is not None for w in whT) else torch.device("cpu")
+    scale = torch.zeros((total,), dtype=torch.float32, device=dev)
+    for w, (off, out_p) in zip(whT, offsets):
+        if w is not None:
+            scale[off:off + out_p] = NEAR_TIE * 2.0 ** -24 * torch.linalg.vector_norm(
+                w.to(torch.float32), dim=1)
+    return scale
 
 
 def pack_shared(params: Params, cfg: DecoderConfig) -> SharedDecoder:
@@ -110,6 +215,9 @@ def pack_layers(folded, final_tanh: bool) -> SharedDecoder:
         whT=tuple(whT), wxT=tuple(wxT), offsets=tuple(offsets),
         total=_round_up(off, 8), final_tanh=final_tanh,
         flat=torch.cat(flat).contiguous(), table=tuple(table),
+        tiles=pack_mma_tiles(whT).to(flat[0].device),
+        wrows=pack_mma_rows(whT).to(flat[0].device),
+        wscale=pack_mma_scales(whT, offsets, _round_up(off, 8)).to(flat[0].device),
     )
 
 

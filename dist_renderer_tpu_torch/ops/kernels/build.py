@@ -56,8 +56,10 @@ SIGNATURES = {
     "drt_precise_bias_grads": [
         _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
     "drt_dot_in_order": [_P, _P, _P, _I, _I, _I, _P],
-    "drt_point_eval": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P],
-    "drt_point_eval_banked": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P],
+    "drt_point_eval": [_P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
+    "drt_point_eval_banked": [
+        _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
+    "drt_point_mlp_smem": [_I],
 }
 
 

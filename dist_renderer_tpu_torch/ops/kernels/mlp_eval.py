@@ -6,13 +6,22 @@ verify stage's certification probes (ops/cert.py).
 K5, ``point_eval``, replaces the JAX package's
 ``ops/pallas/mlp_eval.py::pallas_point_eval`` (a loop-free
 ``march_body.mlp_apply`` per 512-point block). On a CUDA tensor it
-launches ``csrc/point_eval.cu``, which runs the march's MLP body
-(``march_body.cuh``'s ``mlp_tile``) once per 32-point tile; on a CPU
+launches ``csrc/point_eval.cu``, which runs ``csrc/point_mlp.cuh``'s
+tensor-core MLP body (wgmma, activations in shared memory, the weights
+streamed from ``SharedDecoder.tiles``) once per 64-point tile; on a CPU
 tensor, or with ``use_kernel=False``, it runs the plain version,
 ``march_body.mlp_apply`` on the folded layers. The numerics are the
-march's (bf16 positions and weights, fp32 accumulation, one bf16 rounding
-per activation), so a mesh extracted through K5 is the surface the march
-sees; its ~2e-3 bf16 noise is far below the 2/res spacing of any
+march's (bf16 positions and weights, fp32 accumulation, one bf16
+rounding per activation). The tensor cores sum in another order than
+the plain version's k order; values within an empirical margin of a bf16
+rounding boundary (NEAR_TIE in batched_march.py), and the last layer,
+are summed again in k order. On the bench 8x512 decoder and the 8x512
+color decoder that gave the in-order plain version's bits on every point
+an H100 was run on; a tie the margin misses moves one activation by a
+bf16 rounding, which K5's bars against the plain version (99% of points
+within 1e-5, max 5e-3) hold. A point's bits do not depend on the other
+points of its launch. A mesh extracted through K5 is the surface the
+march sees; its ~2e-3 bf16 noise is far below the 2/res spacing of any
 practical grid.
 
 ``make_pallas_point_fn`` and ``make_pallas_color_fn`` keep the JAX
@@ -22,11 +31,10 @@ K6, ``point_eval_banked``, replaces ``pallas_point_eval_banked``: points of
 many frames against the shared weights and the per-frame bias bank
 (``batched_march.pack_shared``, ``fold_bias_bank``), each ``block`` of
 points one frame, positions split into two bf16 halves (``precise_x``).
-On a CUDA tensor it launches ``csrc/point_eval.cu``'s banked kernel, one
-thread block per 32-point tile; a tile with no active point returns
-+POS_BIG and skips the MLP. Its plain version does the same per 32-point
-tile, so the two agree bit for bit where the products are summed in the
-kernel's order.
+On a CUDA tensor it launches ``csrc/point_eval.cu``'s banked kernel on
+the same tensor-core body; every point of a 32-point tile with no active
+point returns +POS_BIG, and a 64-point tile with none skips the MLP.
+Its plain version evaluates the live 32-point tiles frame by frame.
 """
 
 from __future__ import annotations
@@ -38,12 +46,56 @@ from dist_renderer_tpu_torch.models.decoder import Params, round_bf16
 from dist_renderer_tpu_torch.models.folded import fold_latent
 from dist_renderer_tpu_torch.ops.kernels import build
 from dist_renderer_tpu_torch.ops.kernels.batched_march import (
-    check_cuda_inputs, march_args, plain_layers,
+    MMA_STAGE_BYTES, check_cuda_inputs, march_args, plain_layers,
 )
 from dist_renderer_tpu_torch.ops.kernels.fused_march import PackedFolded, pack_folded
 from dist_renderer_tpu_torch.ops.kernels.march_body import POS_BIG, mlp_apply
 
 _FRAME0 = torch.zeros((1,), dtype=torch.int64)  # the folded biases' one column
+# csrc/point_mlp.cuh's plan: points per block, ring stages, near-tie queue
+# entries, and the shared memory a block may use
+MMA_M, MMA_STAGES, MMA_QCAP = 64, 4, 2048
+SMEM_LIMIT = 232_448
+
+
+def mma_smem_bytes(shared) -> int:
+    """The dynamic shared memory K5 and K6 ask for with this decoder:
+    point_mlp.cuh's smem_plan (two [M, w16] bf16 activation buffers, the
+    weight ring, a layer's biases, near-tie scales and x weights in fp32,
+    positions, frames, row norms, the near-tie queue and its overflow bits,
+    barriers; w16 the widest layer rounded up to 16). The kernels' own sum,
+    drt_point_mlp_smem, is held equal to this one on the card."""
+    t = shared.table
+    widths = [t[i] for i in range(0, len(t), 5)] + [t[i + 1] for i in range(0, len(t), 5)]
+    return smem_plan_bytes(max([16] + [_round16(w) for w in widths]))
+
+
+def smem_plan_bytes(w16: int) -> int:
+    """point_mlp.cuh's smem_plan(w16).bytes."""
+    act = (2 * MMA_M * w16 * 2 + 1023) // 1024 * 1024
+    return (act + MMA_STAGES * MMA_STAGE_BYTES + 20 * w16 + 32 * MMA_M
+            + 4 * MMA_QCAP + 16 + MMA_M * w16 // 8 + 16 * MMA_STAGES)
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def check_mma_plan(shared, device) -> None:
+    """Raise if the MMA weight layout is not bf16 on ``device`` or K5's and
+    K6's shared-memory plan cannot hold the decoder."""
+    if any(t.device != device for t in (shared.tiles, shared.wrows, shared.wscale)) or (
+            shared.tiles.dtype, shared.wrows.dtype, shared.wscale.dtype) != (
+            torch.bfloat16, torch.bfloat16, torch.float32):
+        raise ValueError("the MMA weight tiles and rows (bf16) and near-tie scales "
+                         "(fp32) must be on the points' device")
+    need = mma_smem_bytes(shared)
+    if need > SMEM_LIMIT:
+        t = shared.table
+        width = max(t[i] for i in range(0, len(t), 5))
+        raise ValueError(f"a decoder of width {width} needs {need} bytes of shared "
+                         f"memory per block for K5/K6, more than the {SMEM_LIMIT} an "
+                         "H100 block can use")
 
 
 def point_eval_plain(packed: PackedFolded, points: torch.Tensor,
@@ -61,7 +113,7 @@ def point_eval(packed: PackedFolded, points: torch.Tensor, block: int = 512,
     RGB head). Forward only: no gradient reaches the points. A CUDA tensor
     launches K5; a CPU tensor, or use_kernel=False, runs the plain
     version. ``block`` (the TPU kernel's block width) has no effect: the
-    CUDA grid is one block per 32-point tile."""
+    CUDA grid is one block per 64-point tile."""
     if out_rows not in (1, 3):
         raise ValueError(f"out_rows must be 1 or 3, got {out_rows}")
     if points.ndim != 2 or points.shape[1] != 3:
@@ -71,11 +123,16 @@ def point_eval(packed: PackedFolded, points: torch.Tensor, block: int = 512,
         return point_eval_plain(packed, points, out_rows)
     n = points.shape[0]
     check_cuda_inputs(packed.shared, packed.bias, points)
+    check_mma_plan(packed.shared, points.device)
     shape = (n,) if out_rows == 1 else (n, out_rows)
     out = torch.empty(shape, dtype=torch.float32, device=points.device)
-    build.load().call("drt_point_eval", build.ptr(points), n,
-                      *march_args(packed.shared, packed.bias), out_rows,
-                      build.ptr(out), build.stream_of(points))
+    w, tab, n_layers, bias_ptr, stride, tanh = march_args(packed.shared, packed.bias)
+    build.load().call("drt_point_eval", build.ptr(points), n, w,
+                      build.ptr(packed.shared.tiles), build.ptr(packed.shared.wrows),
+                      build.ptr(packed.shared.wscale),
+                      tab, n_layers, bias_ptr, stride,
+                      tanh, out_rows, build.ptr(out),
+                      build.stream_of(points))
     point_eval.launches += 1
     return out
 
@@ -141,6 +198,7 @@ def point_eval_banked(shared, bank: torch.Tensor, frame_of_block: torch.Tensor,
         return point_eval_banked_plain(shared, bank, frame_of_block, points, active,
                                        block, precise_x)
     check_cuda_inputs(shared, bank, points)
+    check_mma_plan(shared, points.device)
     act = active.to(torch.bool).contiguous()
     fob = frame_of_block.to(torch.int32).contiguous()
     if act.device != points.device or fob.device != points.device:
@@ -148,8 +206,10 @@ def point_eval_banked(shared, bank: torch.Tensor, frame_of_block: torch.Tensor,
     out = torch.empty((n,), dtype=torch.float32, device=points.device)
     w, tab, n_layers, bank_ptr, stride, tanh = march_args(shared, bank)
     build.load().call("drt_point_eval_banked", build.ptr(points), build.ptr(act),
-                      build.ptr(fob), block, n, w, tab, n_layers, bank_ptr, stride,
-                      tanh, int(precise_x), build.ptr(out), build.stream_of(points))
+                      build.ptr(fob), block, n, w, build.ptr(shared.tiles),
+                      build.ptr(shared.wrows), build.ptr(shared.wscale), tab,
+                      n_layers, bank_ptr, stride, tanh, int(precise_x), build.ptr(out),
+                      build.stream_of(points))
     point_eval_banked.launches += 1
     return out
 
