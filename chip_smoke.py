@@ -21,7 +21,8 @@ server, in process, on the committed torus 8x512 decoder; then
 bench.py's batched headline: 64 frames of the bench cell through
 render_batched_c2f on the rounds scheduler in the three verify modes,
 with the multi-frame grid march (K1-multi) held to K1 and to its plain
-version, and with the certification path (verify_mode="cert" and the
+version and K1 to the CUDA-core K1-grid on every ray of the first verify
+round, and with the certification path (verify_mode="cert" and the
 hybrid, on the banked point eval K6, which phase 3 holds against its
 plain version, as phases 4 and 8 do at their own shapes, and phase 4
 serves once each); and last the bulk point
@@ -44,6 +45,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 IMG = 512
@@ -579,12 +581,13 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
     (verify_band="probe"), the certification on K6, whose calls in the
     warm-up batch of (d) and (e) are held against its plain version;
     render_depth_batched at F=64. Then, outside the counted run: K1-multi
-    against K1 and against its plain version on the verify stage's first
-    round at F=64, render_depth_batched against K1, and the kernel path of
+    against K1, K1 against K1-grid frame by frame (the tensor-core march
+    against the CUDA-core one, every ray's bits), both against their plain
+    version, and the round's active ray-steps against its lane-steps, on
+    the verify stage's first round at F=64, render_depth_batched against
+    K1, and the kernel path of
     (a) and of (d) against the plain versions at F=4 ((d) on three sets of
     frames)."""
-    import types
-
     from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
     from dist_renderer_tpu_torch.ops.kernels import mlp_eval
     from dist_renderer_tpu_torch.profile_render import batched_setup
@@ -704,6 +707,7 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
     bank, o_r, v_r, m_r, seed_r, act_r, block, salvage = seen[0][:8]
     grid = lambda p: real(packed[0], bank, o_r, v_r, m_r, seed_r, act_r, block,
                           salvage, True, p)
+    differ = lambda x, y: ~((x == y) | (x.isnan() & y.isnan())) if x.is_floating_point() else x != y
     with torch.no_grad():
         km, k1 = grid(False), grid(True)
         torch.cuda.synchronize()
@@ -719,9 +723,43 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
         b.record()
         torch.cuda.synchronize()
         plain_ms = a.elapsed_time(b)
+        # K1 against the CUDA-core march (K1-grid, sphere_trace.cuh's
+        # mlp_tile) on the same rays, frame by frame, each frame's bank
+        # column as K1-grid's folded biases: every ray's bits
+        from dist_renderer_tpu_torch.ops.kernels import fused_march as fm
+
+        f_r, r_r = v_r.shape[0], v_r.shape[1]
+        r_pad = k1.steps_per_ray.shape[0] // f_r
+        k1_steps = k1.steps_per_ray.reshape(f_r, r_pad)[:, :r_r]
+        cross = 0
+        for i in range(f_r):
+            g = fm.sphere_trace_grid(fm.PackedFolded(packed[0], bank[:, i:i + 1].contiguous()),
+                                     o_r[i], v_r[i], m_r, seed_r[i], act_r[i], salvage)
+            bad = g.steps_per_ray != k1_steps[i]
+            for f in ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf", "unresolved",
+                      "bracketed"):
+                bad |= differ(getattr(g, f), getattr(k1, f)[i])
+            cross += int(bad.sum())
+        torch.cuda.synchronize()
+    # the round's lanes: a 64-ray tile steps while any of its rays is active
+    tile_steps = bm.march_tile_steps(k1.steps_per_ray)
+    lanes = dict(ray_steps=int(k1.steps_per_ray.sum()), tile_steps=int(tile_steps.sum()),
+                 lane_steps=bm.MARCH_TILE * int(tile_steps.sum()),
+                 live_tiles=int((tile_steps > 0).sum()), tiles=tile_steps.numel(),
+                 lane_steps_32=bm.TILE * int(k1.steps_per_ray.reshape(-1, bm.TILE).amax(1).sum()))
+    print(f"K1 == K1-grid (the CUDA-core march, frame by frame) on the verify stage's "
+          f"first round: {cross} rays differ of {f_r * r_r}; lanes of K1 and K1-multi "
+          f"(64-ray tiles): {lanes['ray_steps']} active ray-steps of {lanes['lane_steps']} "
+          f"lane-steps ({lanes['ray_steps'] / max(lanes['lane_steps'], 1):.4f}; 32-ray "
+          f"tiles would spend {lanes['lane_steps_32']}), {lanes['tile_steps']} tile "
+          f"evaluations, {lanes['live_tiles']} of {lanes['tiles']} tiles marched",
+          flush=True)
+    check(cross == 0, f"K1 differs from K1-grid on {cross} rays of the verify stage's "
+          "first round")
     plain = types.SimpleNamespace(**{f: torch.cat([getattr(p, f) for p in parts])
                                      for f in ("depth", "hit", "min_sdf", "depth_at_min")})
     d_multi = march_diff(km, plain)
+    d_k1 = march_diff(k1, plain)
     steps = int(km.steps_per_ray.sum())
     n_rays = km.steps_per_ray.numel()
     b_multi = bound(steps * macs_per_eval(packed[0]), march_bytes(n_rays, packed[0], bank))
@@ -733,6 +771,8 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
     check(exact, "K1-multi differs from K1 on the verify stage's first round")
     check(march_ok(d_multi), f"K1-multi disagrees with its plain version: "
           f"{march_line(d_multi)} (bars: agreement >= {MARCH_AGREE}, |diff| <= {MARCH_TOL})")
+    check(march_ok(d_k1), f"K1 disagrees with its plain version: "
+          f"{march_line(d_k1)} (bars: agreement >= {MARCH_AGREE}, |diff| <= {MARCH_TOL})")
 
     # render_depth_batched (K1-multi) against K1 on the same rays
     with torch.no_grad():
@@ -770,7 +810,6 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
     # coarse level moves a seed, and that ray's march then stops elsewhere
     # inside the convergence ball (eps 2e-3). With the k sum in the
     # kernels' order the plain path must give every ray's bits.
-    differ = lambda x, y: ~((x == y) | (x.isnan() & y.isnan())) if x.is_floating_point() else x != y
     from dist_renderer_tpu_torch.ops import cert as cert_mod
 
     def proxy_depth_of(fn):
@@ -872,8 +911,9 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
         paths["d_more"].append(gemm_vs_plain("d", lambda k: proxy_depth_of(lambda: batch_s(
             "cert", use_kernel=k, return_anchor=True)), f"seed {seed}"))
     return dict(rows=rows, launches=launches, k1_multi=dict(
-        ms=km_ms, k1_ms=k1_ms, plain_ms=plain_ms, d=d_multi, bound_ms=b_multi[0],
-        bound_by=b_multi[1], ray_steps=steps, exact=exact),
+        ms=km_ms, k1_ms=k1_ms, plain_ms=plain_ms, d=d_multi, d_k1=d_k1, bound_ms=b_multi[0],
+        bound_by=b_multi[1], ray_steps=steps, exact=exact, k1_grid_differ=cross,
+        lanes=lanes),
         render_depth_ms=dd_ms, path_vs_plain=paths, k6=k6_rows)
 
 
@@ -951,6 +991,110 @@ def bf16_chain(torch, params, cfg, latent):
         return torch.tanh(out) if cfg.final_tanh else out
 
     return run
+
+
+def precise_chain(torch, params, cfg, latent, dtype=None):
+    """The library yardstick for K3 and K4: the folded decoder's forward as
+    a chain of bf16 torch.nn.functional.linear calls (cuBLAS, tensor
+    cores), keeping the ReLU gates, then the reverse sweep from the value
+    through the transposed weights, bf16 F.linear again. sdg(points, dirs)
+    -> (s, dd, g) computes K3's function, bias_grads(points, ct) -> [u_l]
+    K4's (a) (ct through the tanh chain, u_l summed over the points for
+    each layer the latent enters), both up to bf16 rounding of inputs,
+    sums and cotangents; the port never calls it. dtype=torch.float32
+    runs the same chain on fp32 weights and activations (TF32 is off), to
+    tell the bf16 chain's rounding from a fault in the chain."""
+    from dist_renderer_tpu_torch.models.folded import fold_latent
+
+    F = torch.nn.functional
+    dt = torch.bfloat16 if dtype is None else dtype
+    layers = []
+    for i, l in enumerate(fold_latent(params, latent, cfg)):
+        w = l.wx if l.wh is None else (l.wh if l.wx is None else torch.cat([l.wh, l.wx]))
+        w = w.T.contiguous().to(dt)
+        layers.append(dict(w=w, wt=w.T.contiguous(), b=l.b.to(dt),
+                           cat=l.wh is not None and l.wx is not None,
+                           n_h=0 if l.wh is None else l.wh.shape[0], has_x=l.wx is not None,
+                           takes_z=i == 0 or i in cfg.latent_in))
+
+    def sweep(pts, seed):
+        x = pts.to(dt)
+        h, gates = None, []
+        for i, l in enumerate(layers):
+            inp = x if h is None else (torch.cat([h, x], dim=-1) if l["cat"] else h)
+            h = F.linear(inp, l["w"], l["b"])
+            if i < len(layers) - 1:
+                gates.append(h > 0)
+                h = torch.relu(h)
+        pre0 = h[:, 0].float()
+        s, d = pre0, seed
+        if cfg.use_tanh:
+            s = torch.tanh(s)
+            d = d * (1.0 - s * s)
+        if cfg.final_tanh:
+            s = torch.tanh(s)
+            d = d * (1.0 - s * s)
+        delta = torch.zeros_like(h)
+        delta[:, 0] = d.to(dt)
+        gx, us = None, []
+        for i in range(len(layers) - 1, -1, -1):
+            l = layers[i]
+            if l["takes_z"]:
+                us.append(delta.float().sum(0))
+            back = F.linear(delta, l["wt"])
+            if l["has_x"]:
+                gx = back[:, l["n_h"]:].float() if gx is None else gx + back[:, l["n_h"]:].float()
+            if l["n_h"] == 0:
+                break
+            delta = back[:, :l["n_h"]] * gates[i - 1]
+        us.reverse()
+        return s, gx, us
+
+    def sdg(pts, dirs):
+        s, gx, _ = sweep(pts, torch.ones(pts.shape[0], device=pts.device))
+        return s, (gx * dirs).sum(-1), gx
+
+    def bias_grads(pts, ct):
+        return sweep(pts, ct)[2]
+
+    return types.SimpleNamespace(sdg=sdg, bias_grads=bias_grads)
+
+
+def folded_reference(torch, params, cfg, latent, pts, ct):
+    """K3's and K4's (a) function in fp64, by autograd through the folded
+    decoder: (s [N], g [N, 3], u [sum of the latent layers' widths],
+    kink [N]), u the gradient of sum(ct * s) to the folded biases of each
+    layer the latent enters, kink each point's least |preactivation| of a
+    hidden unit (near 0 an fp32 sum may take the other ReLU gate, which
+    moves that point's g and u by a whole unit's term). The truth that the
+    kernels and both chains are each measured against; the port never
+    calls it."""
+    from dist_renderer_tpu_torch.models.folded import fold_latent
+
+    folded = fold_latent(params, latent, cfg)
+    bs = [l.b.double().clone().requires_grad_(True) for l in folded]
+    x = pts.double().clone().requires_grad_(True)
+    h = None
+    kink = torch.full((pts.shape[0],), float("inf"), dtype=torch.float64, device=pts.device)
+    with torch.enable_grad():
+        for i, l in enumerate(folded):
+            acc = bs[i]
+            if l.wh is not None:
+                acc = acc + h @ l.wh.double()
+            if l.wx is not None:
+                acc = acc + x @ l.wx.double()
+            if i < len(folded) - 1:
+                kink = torch.minimum(kink, acc.detach().abs().amin(1))
+            h = torch.relu(acc) if i < len(folded) - 1 else acc
+        s = h[:, 0]
+        if cfg.use_tanh:
+            s = torch.tanh(s)
+        if cfg.final_tanh:
+            s = torch.tanh(s)
+        g, = torch.autograd.grad(s.sum(), x, retain_graph=True)
+        us = torch.autograd.grad((s * ct.double()).sum(),
+                                 [b for i, b in enumerate(bs) if i == 0 or i in cfg.latent_in])
+    return s.detach(), g, torch.cat(us), kink
 
 
 def k6_macs(shared):
@@ -1740,6 +1884,8 @@ def main():
                      ms=cuda_ms(lambda: call(True, kw.get("want_gx", False))),
                      plain_ms=cuda_ms(lambda: call(False, kw.get("want_gx", False))))
             k4.append(r)
+            if case == "a":
+                ct_a = ct_c
             print(f"K4 bias grads ({case}) {r['n']} points, {kw}: relative L2 u "
                   f"{r['u']:.3e}, gz {r['gz']:.3e}; max |diff| gx {r['gx']:.3e}; "
                   f"u equal across launches and gx modes: {r['same']}; "
@@ -1768,9 +1914,64 @@ def main():
         t_k3 = cuda_ms(lambda: precise_sdg_call(packed, biases, pts, vs))
         t_k3p = cuda_ms(lambda: precise_sdg_call(packed, biases, pts, vs,
                                                  use_kernel=False))
+        # K3's and K4's library yardstick on the same inputs, beside how
+        # far its bf16 roundings put it from the kernels' answers
+        chain = precise_chain(torch, params, dcfg, latent)
+        t_k3c = cuda_ms(lambda: chain.sdg(pts, vs))
+        t_k4c = cuda_ms(lambda: chain.bias_grads(pts, ct_a))
+        sc, _, gc = chain.sdg(pts, vs)
+        uc = torch.cat(chain.bias_grads(pts, ct_a)).double()
+        uk_a = torch.cat(precise_bias_grads_call(packed, biases, pts, ct_a)).double()
+        chain_gap = dict(s_median=(sc - sk).abs().median().item(),
+                         g_rel=((gc - gk).norm() / gk.norm()).item(),
+                         u_rel=((uc - uk_a).norm() / uk_a.norm()).item())
+        # whether the chain computes K3's and K4's function at all: the same
+        # chain on fp32 weights and activations against the fp64 autograd
+        # truth, and each of kernels, bf16 chain and fp32 chain against it;
+        # then the fp32 chain again on the points whose every hidden
+        # preactivation lies 1e-5 or more from the ReLU kink, where fp32
+        # takes fp64's gates and differs by its roundings alone
+        chain32 = precise_chain(torch, params, dcfg, latent, dtype=torch.float32)
+        s32, _, g32 = chain32.sdg(pts, vs)
+        u32 = torch.cat(chain32.bias_grads(pts, ct_a)).double()
+        s64, g64, u64, kink = folded_reference(torch, params, dcfg, latent, pts, ct_a)
+        rel = lambda a, b: ((a.double() - b).norm() / b.norm()).item()
+        to_truth = {name: dict(s_median=(s_.double() - s64).abs().median().item(),
+                               g_rel=rel(g_, g64), u_rel=rel(u_, u64))
+                    for name, s_, g_, u_ in (("kernels", sk, gk, uk_a),
+                                             ("bf16_chain", sc, gc, uc),
+                                             ("fp32_chain", s32, g32, u32))}
+        smooth = kink >= 1e-5
+        s64s, g64s, u64s, _ = folded_reference(torch, params, dcfg, latent, pts[smooth],
+                                               ct_a[smooth])
+        s32s, _, g32s = chain32.sdg(pts[smooth], vs[smooth])
+        u32s = torch.cat(chain32.bias_grads(pts[smooth], ct_a[smooth]))
+        to_truth["fp32_chain_off_kinks"] = t32 = dict(
+            share=smooth.double().mean().item(), s_rel=rel(s32s, s64s),
+            g_rel=rel(g32s, g64s), u_rel=rel(u32s, u64s))
+        chain_gap["fp32_chain_to_kernels"] = dict(
+            s_median=(s32 - sk).abs().median().item(), g_rel=rel(g32, gk.double()),
+            u_rel=rel(u32, uk_a))
+        chain_gap["to_fp64_truth"] = to_truth
+        check(t32["share"] >= 0.5 and max(t32["s_rel"], t32["g_rel"], t32["u_rel"]) <= 1e-5,
+              "the fp32 chain does not compute K3's and K4's function off the ReLU kinks "
+              f"(on {t32['share']:.4f} of the points, relative L2 to the fp64 autograd "
+              f"truth: s {t32['s_rel']:.2e}, g {t32['g_rel']:.2e}, u {t32['u_rel']:.2e}; "
+              "bars: share >= 0.5, each <= 1e-5), so the bf16 chain's time is no "
+              "yardstick")
     print(f"times (ms, median of 3 after warm-up; plain K2 one run): "
           f"K1 {t_k1:.3f} vs plain {t_k1p:.3f}; K2 {t_k2:.3f} vs plain {t_k2p:.3f}; "
-          f"K3 {t_k3:.3f} vs plain {t_k3p:.3f}", flush=True)
+          f"K3 {t_k3:.3f} vs plain {t_k3p:.3f} and its bf16 F.linear chain {t_k3c:.3f}; "
+          f"K4 (a) {k4[0]['ms']:.3f} vs its chain {t_k4c:.3f} (the chains' gap to the "
+          f"kernels: |s| median {chain_gap['s_median']:.2e}, g relative L2 "
+          f"{chain_gap['g_rel']:.2e}, u relative L2 {chain_gap['u_rel']:.2e}; the fp32 "
+          f"chain's: g {chain_gap['fp32_chain_to_kernels']['g_rel']:.2e}, u "
+          f"{chain_gap['fp32_chain_to_kernels']['u_rel']:.2e}); to the fp64 autograd "
+          "truth, g / u relative L2: " + ", ".join(
+              f"{k} {v['g_rel']:.2e} / {v['u_rel']:.2e}"
+              for k, v in chain_gap["to_fp64_truth"].items())
+          + f" (the last on {chain_gap['to_fp64_truth']['fp32_chain_off_kinks']['share']:.4f}"
+          " of the points)", flush=True)
     with torch.no_grad():
         kg = k1_grid_phase(torch, dev, params, dcfg, latent, cfg, origins, dirs)
         k6 = k6_row(torch, dev, smi)
@@ -1928,9 +2129,10 @@ def main():
         dict(name="sphere_trace_persistent (K1)", route="cuda",
              source=src + "batched_march.cu",
              replaces="dist_renderer_tpu/ops/pallas/batched_march.py:254",
-             launches=launches["sphere_trace_persistent"],
-             max_abs_err=max(max_err(lv[0]) for lv in k1_levels), ms=t_k1,
-             plain_ms=t_k1p, bound_ms=b_k1[0], bound_by=b_k1[1], library_ms=None),
+             launches=b8["launches"]["sphere_trace_persistent"],
+             max_abs_err=max([max_err(km["d_k1"])] + [max_err(lv[0]) for lv in k1_levels]),
+             ms=km["k1_ms"], plain_ms=km["plain_ms"], bound_ms=km["bound_ms"],
+             bound_by=km["bound_by"], library_ms=None),
         dict(name="queue_march (K2)", route="cuda", source=src + "queue_march.cu",
              replaces="dist_renderer_tpu/ops/pallas/queue_march.py:463",
              launches=launches["queue_march"],
@@ -1942,14 +2144,14 @@ def main():
              launches=launches["precise_sdg_call"],
              max_abs_err=max(e_s[2], e_dd[2], e_g[2]),
              ms=t_k3, plain_ms=t_k3p, bound_ms=b_k3[0], bound_by=b_k3[1],
-             library_ms=None),
+             library_ms=t_k3c),
         dict(name="precise_bias_grads_call (K4)", route="cuda",
              source=src + "recompute.cu",
              replaces="dist_renderer_tpu/ops/pallas/recompute.py:421",
              launches=fb["launches"]["precise_bias_grads_call"],
              max_abs_err=max(max(r["u_abs"], r["gx"]) for r in k4),
              ms=k4[0]["ms"], plain_ms=k4[0]["plain_ms"], bound_ms=b_k4[0],
-             bound_by=b_k4[1], library_ms=None),
+             bound_by=b_k4[1], library_ms=t_k4c),
         dict(name="sphere_trace_grid (K1-grid)", route="cuda",
              source=src + "fused_march.cu",
              replaces="dist_renderer_tpu/ops/pallas/fused_march.py:148",
@@ -1987,6 +2189,9 @@ def main():
                       "grid_c2f_fwd_ms": g6["c2f_ms"],
                       "grid_hit_frac": g6["hit_frac"],
                       "k1_f1_ms": kg[0]["k1_ms"],
+                      "k1_coarse": dict(ms=t_k1, plain_ms=t_k1p, bound_ms=b_k1[0],
+                                        launches=launches["sphere_trace_persistent"]),
+                      "k3_k4_chains": dict(k3_ms=t_k3c, k4_a_ms=t_k4c, gap=chain_gap),
                       "k1_grid_cases": [dict(case=r["case"], ms=r["ms"],
                                              plain_ms=r["plain_ms"],
                                              ray_steps=r["steps"],
@@ -2003,6 +2208,8 @@ def main():
                           k1_multi_ms=km["ms"], k1_same_inputs_ms=km["k1_ms"],
                           k1_multi_plain_ms=km["plain_ms"],
                           k1_multi_ray_steps=km["ray_steps"],
+                          k1_grid_rays_differing=km["k1_grid_differ"],
+                          verify_round_lanes=km["lanes"],
                           render_depth_batched_ms=b8["render_depth_ms"],
                           k6_vs_plain=b8["k6"],
                           path_within={k: v["within"] for k, v in

@@ -8,51 +8,26 @@
 // full budget, salvage optional), each step evaluating the latent-folded
 // MLP with the frame's biases from a bias bank [total, F_pad].
 //
-// Design: sphere_trace.cuh's tile march on a persistent grid (what fits on
-// the card; each block strides over the tiles, taking the next when its
-// tile has finished). The TPU kernel walked a host-built list of live
-// 512-ray chunks because each grid step cost ~11 us there; here a block
-// simply finds its tile dead.
+// Design: march_mma.cuh's tensor-core tile march on a persistent grid (one
+// 288-thread block per SM, its shared-memory plan being most of the SM's;
+// each block strides over the 64-ray tiles, taking the next when its tile
+// has finished). The TPU kernel walked a host-built list of live 512-ray
+// chunks because each grid step cost ~11 us there; here a block simply
+// finds its tile dead. What bounds it is in march_mma.cuh.
 
-#include "sphere_trace.cuh"
-
-namespace drt {
-
-__global__ void __launch_bounds__(NTHREADS)
-sphere_trace_kernel(const float* __restrict__ rays, int n, int rays_per_frame,
-                    Decoder dec, const __nv_bfloat16* __restrict__ W,
-                    const float* __restrict__ bank, int bank_stride,
-                    MarchParams mp, float* __restrict__ out) {
-  for (long long tile = blockIdx.x; tile * TILE < n; tile += gridDim.x)
-    trace_tile(rays, n, rays_per_frame, (int)(tile * TILE), dec, W, bank,
-               bank_stride, mp, out);
-}
-
-}  // namespace drt
+#include "march_mma.cuh"
 
 // rays [16][n] fp32 (origin 0-2, dir 3-5, d0, near, far, active); W the
-// packed bf16 weights; table [n_layers][5] in host memory; bank
+// packed bf16 weights, tiles their MMA layout, wrows the hidden weights
+// row by row and wscale [total] fp32 the near-tie scales (as for K5,
+// point_eval.cu); table [n_layers][5] in host memory; bank
 // [total][bank_stride] fp32; out [8][n] fp32. Returns cudaGetLastError().
 extern "C" int drt_sphere_trace_persistent(
-    const float* rays, int n, int rays_per_frame, const void* W,
-    const int* table, int n_layers, const float* bank, int bank_stride,
-    int final_tanh, float eps, float deps, float alpha, float margin,
-    int max_steps, int salvage, float* out, void* stream) {
-  using namespace drt;
-  Decoder dec;
-  cudaError_t err = make_decoder(table, n_layers, final_tanh, &dec);
-  if (err != cudaSuccess) return (int)err;
-  if (n <= 0) return (int)cudaGetLastError();
-  if (rays_per_frame <= 0) return (int)cudaErrorInvalidValue;
-  const MarchParams mp{eps, deps, alpha, margin, max_steps, salvage};
-  const size_t smem = march_smem_bytes(dec);
-  err = cudaFuncSetAttribute(sphere_trace_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = persistent_grid(sphere_trace_kernel, smem, (n + TILE - 1) / TILE);
-  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
-  sphere_trace_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      rays, n, rays_per_frame, dec, static_cast<const __nv_bfloat16*>(W), bank,
-      bank_stride, mp, out);
-  return (int)cudaGetLastError();
+    const float* rays, int n, int rays_per_frame, const void* W, const void* tiles,
+    const void* wrows, const float* wscale, const int* table, int n_layers,
+    const float* bank, int bank_stride, int final_tanh, float eps, float deps,
+    float alpha, float margin, int max_steps, int salvage, float* out, void* stream) {
+  return drt::mm::launch<true>(rays, n, rays_per_frame, W, tiles, wrows, wscale, table,
+                               n_layers, bank, bank_stride, final_tanh, eps, deps, alpha,
+                               margin, max_steps, salvage, out, stream);
 }

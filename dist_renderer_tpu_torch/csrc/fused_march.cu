@@ -1,4 +1,5 @@
-// K1-grid and K1-multi: the grid marches.
+// K1-grid, the single-frame grid march on CUDA cores, and K1-multi, the
+// multi-frame grid march on tensor cores.
 //
 // K1-grid replaces the JAX package's TPU kernel
 // dist_renderer_tpu/ops/pallas/fused_march.py::pallas_sphere_trace
@@ -15,14 +16,15 @@
 // straddle two frames: each ray finds its own column, where the TPU
 // kernel selected one per block).
 //
-// Design: one launch per call, one thread block per TILE-ray tile (a grid
-// of tiles, as the TPU kernels' grids of 512-ray blocks), so the hardware
-// hands the next tile to whichever SM frees first. The body is
-// sphere_trace.cuh's tile march, K1's, so on the same rays both equal K1
-// bit for bit; only the grid differs (K1 launches what fits on the card
-// and strides over the tiles, 1.3-1.4x slower on a frame's rays from the
-// sphere entry on an H100).
+// Design: one launch per call, one thread block per tile (a grid of
+// tiles, as the TPU kernels' grids of 512-ray blocks), so the hardware
+// hands the next tile to whichever SM frees first. K1-grid runs
+// sphere_trace.cuh's 32-ray tile march on march_body.cuh's CUDA-core
+// mlp_tile; K1-multi runs K1's 64-ray tensor-core tile march
+// (march_mma.cuh), so on the same rays it equals K1 bit for bit, and both
+// equal K1-grid and K2 through the in-order sums their bodies share.
 
+#include "march_mma.cuh"
 #include "sphere_trace.cuh"
 
 namespace drt {
@@ -37,29 +39,6 @@ sphere_trace_grid_kernel(const float* __restrict__ rays, int n,
              bank_stride, mp, out);
 }
 
-// One launch of the grid kernel; returns a cudaError_t.
-static int launch_grid(const float* rays, int n, int rays_per_frame,
-                       const void* W, const int* table, int n_layers,
-                       const float* bank, int bank_stride, int final_tanh,
-                       float eps, float deps, float alpha, float margin,
-                       int max_steps, int salvage, float* out, void* stream) {
-  Decoder dec;
-  cudaError_t err = make_decoder(table, n_layers, final_tanh, &dec);
-  if (err != cudaSuccess) return (int)err;
-  if (n <= 0) return (int)cudaGetLastError();
-  if (rays_per_frame <= 0) return (int)cudaErrorInvalidValue;
-  const MarchParams mp{eps, deps, alpha, margin, max_steps, salvage};
-  const size_t smem = march_smem_bytes(dec);
-  err = cudaFuncSetAttribute(sphere_trace_grid_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (n + TILE - 1) / TILE;
-  sphere_trace_grid_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      rays, n, rays_per_frame, dec, static_cast<const __nv_bfloat16*>(W), bank,
-      bank_stride, mp, out);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace drt
 
 // K1-grid. rays [16][n] fp32 (origin 0-2, dir 3-5, d0, near, far, active);
@@ -71,19 +50,30 @@ extern "C" int drt_sphere_trace_grid(
     const float* bias, int bias_stride, int final_tanh, float eps, float deps,
     float alpha, float margin, int max_steps, int salvage, float* out,
     void* stream) {
-  return drt::launch_grid(rays, n, n, W, table, n_layers, bias,
-                          bias_stride, final_tanh, eps, deps, alpha, margin,
-                          max_steps, salvage, out, stream);
+  using namespace drt;
+  Decoder dec;
+  cudaError_t err = make_decoder(table, n_layers, final_tanh, &dec);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return (int)cudaGetLastError();
+  const MarchParams mp{eps, deps, alpha, margin, max_steps, salvage};
+  const size_t smem = march_smem_bytes(dec);
+  err = cudaFuncSetAttribute(sphere_trace_grid_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (n + TILE - 1) / TILE;
+  sphere_trace_grid_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+      rays, n, n, dec, static_cast<const __nv_bfloat16*>(W), bias, bias_stride, mp, out);
+  return (int)cudaGetLastError();
 }
 
 // K1-multi: K1's arguments (drt_sphere_trace_persistent), one block per
-// tile; bank [total][bank_stride] fp32.
+// 64-ray tile; bank [total][bank_stride] fp32.
 extern "C" int drt_sphere_trace_batched(
-    const float* rays, int n, int rays_per_frame, const void* W,
-    const int* table, int n_layers, const float* bank, int bank_stride,
-    int final_tanh, float eps, float deps, float alpha, float margin,
-    int max_steps, int salvage, float* out, void* stream) {
-  return drt::launch_grid(rays, n, rays_per_frame, W, table, n_layers, bank,
-                          bank_stride, final_tanh, eps, deps, alpha, margin,
-                          max_steps, salvage, out, stream);
+    const float* rays, int n, int rays_per_frame, const void* W, const void* tiles,
+    const void* wrows, const float* wscale, const int* table, int n_layers,
+    const float* bank, int bank_stride, int final_tanh, float eps, float deps,
+    float alpha, float margin, int max_steps, int salvage, float* out, void* stream) {
+  return drt::mm::launch<false>(rays, n, rays_per_frame, W, tiles, wrows, wscale, table,
+                                n_layers, bank, bank_stride, final_tanh, eps, deps, alpha,
+                                margin, max_steps, salvage, out, stream);
 }

@@ -1,18 +1,21 @@
-// The march step and the latent-folded MLP shared by the march kernels:
-// sphere_trace.cuh (K1, the persistent march, and K1-grid, the grid
-// march) and queue_march.cu (K2, the work-queue generations). The point
-// evals K5 and K6 run point_mlp.cuh's tensor-core body instead.
+// The march step and the latent-folded MLP on CUDA cores: march_one,
+// shared by every march kernel, and mlp_tile, the MLP of K1-grid
+// (sphere_trace.cuh, fused_march.cu) and K2 (queue_march.cu, the
+// work-queue generations). K1 and K1-multi (march_mma.cuh) and the point
+// evals K5 and K6 run point_mlp.cuh's tensor-core MLP instead.
 //
 // Counterpart of the JAX package's ops/pallas/march_body.py (mlp_apply,
-// march_loop). Both kernels march TILE rays per thread block; the block
+// march_loop). K1-grid and K2 march TILE rays per thread block; the block
 // evaluates the MLP for the whole tile each step and one warp owns the
 // tiles' march state (one ray per lane).
 //
 // Each ray's arithmetic is independent of its position in a tile and of
 // the rays beside it: one thread accumulates a ray's output in a fixed k
 // order with explicit fmaf, the bias comes from the ray's own frame, and
-// the library is built with -fmad=false. So K1 and K2 give the same bits
-// for a ray however the queue groups it.
+// the library is built with -fmad=false. So K1-grid and K2 give the same
+// bits for a ray however the queue groups it, and the tensor-core body,
+// whose activations are the in-order ones (near ties summed again in k
+// order), gives them too.
 //
 // What bounds it on an H100: CUDA-core FMA throughput (about 1.6 M
 // multiply-adds per full-decoder evaluation) and re-reading the bf16

@@ -1,6 +1,7 @@
 // K5: bulk point evaluation of the latent-folded decoder, and K6: the
 // banked point evaluation of many frames' points. Both run point_mlp.cuh's
-// tensor-core MLP body once per 64-point tile (one thread block).
+// tensor-core MLP body once per 64-point tile (one thread block), as the
+// march kernels K1 and K1-multi run it once per step (march_mma.cuh).
 //
 // K5 replaces the JAX package's TPU kernel
 // dist_renderer_tpu/ops/pallas/mlp_eval.py::pallas_point_eval
@@ -44,32 +45,6 @@ static cudaError_t launch_point_mlp(const pm::PointArgs& a, void* stream) {
   return cudaGetLastError();
 }
 
-// The decoder as K5 and K6 take it: layer 0 has no hidden product (make_
-// decoder's rule) and the plan fits the block's shared memory.
-static cudaError_t point_args(const int* table, int n_layers, int final_tanh,
-                              const void* W, const void* tiles, const void* wrows,
-                              const float* wscale, const float* bank,
-                              int bank_stride, const float* pts, int n, float* out,
-                              pm::PointArgs* a) {
-  cudaError_t err = make_decoder(table, n_layers, final_tanh, &a->dec);
-  if (err != cudaSuccess) return err;
-  a->w16 = pm::act_width(a->dec);
-  if (pm::smem_plan(a->w16).bytes > pm::SMEM_LIMIT) return cudaErrorInvalidValue;
-  a->pts = pts;
-  a->active = nullptr;
-  a->frame_of_block = nullptr;
-  a->block = 1;
-  a->n = n;
-  a->W = static_cast<const __nv_bfloat16*>(W);
-  a->tiles = static_cast<const __nv_bfloat16*>(tiles);
-  a->wrows = static_cast<const __nv_bfloat16*>(wrows);
-  a->wscale = wscale;
-  a->bank = bank;
-  a->bank_stride = bank_stride;
-  a->out = out;
-  return cudaSuccess;
-}
-
 }  // namespace drt
 
 // K5. pts [n][3] fp32; W the packed bf16 weights, tiles their MMA layout
@@ -86,7 +61,7 @@ extern "C" int drt_point_eval(const float* pts, int n, const void* W, const void
                               int bias_stride, int final_tanh, int out_rows,
                               float* out, void* stream) {
   drt::pm::PointArgs a;
-  cudaError_t err = drt::point_args(table, n_layers, final_tanh, W, tiles, wrows, wscale,
+  cudaError_t err = drt::pm::point_args(table, n_layers, final_tanh, W, tiles, wrows, wscale,
                                     bias, bias_stride, pts, n, out, &a);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaGetLastError();
@@ -108,7 +83,7 @@ extern "C" int drt_point_eval_banked(const float* pts, const unsigned char* acti
                                      int final_tanh, int precise_x, float* out,
                                      void* stream) {
   drt::pm::PointArgs a;
-  cudaError_t err = drt::point_args(table, n_layers, final_tanh, W, tiles, wrows, wscale,
+  cudaError_t err = drt::pm::point_args(table, n_layers, final_tanh, W, tiles, wrows, wscale,
                                     bank, bank_stride, pts, n, out, &a);
   if (err != cudaSuccess) return (int)err;
   if (block <= 0) return (int)cudaErrorInvalidValue;
@@ -123,3 +98,6 @@ extern "C" int drt_point_eval_banked(const float* pts, const unsigned char* acti
 // The dynamic shared memory (bytes) K5 and K6 ask for at activation width
 // w16 (point_mlp.cuh's smem_plan), for the host's check of its own sum.
 extern "C" int drt_point_mlp_smem(int w16) { return drt::pm::smem_plan(w16).bytes; }
+
+// The same for K1 and K1-multi, whose plan adds the rays' march state.
+extern "C" int drt_march_mma_smem(int w16) { return drt::pm::smem_plan(w16, true).bytes; }

@@ -1,7 +1,8 @@
-// The tensor-core MLP body of the point evals K5 and K6 (point_eval.cu):
-// one evaluation of the latent-folded decoder for a tile of M = 64
-// points, on Hopper's warpgroup MMA. The march kernels keep
-// march_body.cuh's mlp_tile, whose k-order sum their exactness rests on.
+// The tensor-core MLP body of the point evals K5 and K6 (point_eval.cu)
+// and of the march kernels K1 and K1-multi (march_mma.cuh): one
+// evaluation of the latent-folded decoder for a tile of M = 64 rows
+// (points, or a march step's sample positions), on Hopper's warpgroup
+// MMA. K1-grid and K2 keep march_body.cuh's CUDA-core mlp_tile.
 //
 // Replaces, with point_eval.cu, the JAX package's TPU kernels
 // dist_renderer_tpu/ops/pallas/mlp_eval.py::pallas_point_eval (K5) and
@@ -51,8 +52,11 @@
 //   plus the low half's) + the bias, then ReLU and one round-to-nearest-
 //   even to bf16; the last layer's first OUT_ROWS outputs through tanhf
 //   when the decoder ends in one. Biases and x weights are staged per
-//   layer in shared memory; K6 reads a bias column per point where a
-//   tile straddles two frames.
+//   layer in shared memory; K6 and the march read a bias column per row
+//   where a tile straddles two frames.
+// - One evaluation is eval_tile: the producer warp streams the weights
+//   from a running stream-tile count, so the march evaluates a tile many
+//   times on one ring (the weight sequence is the same every time).
 
 #pragma once
 
@@ -90,14 +94,16 @@ inline int act_width(const Decoder& dec) {
 // near-tie scales [w16] and x weights [3][w16] in fp32, positions [6][M]
 // fp32, frames [M] int32, row norms [M] fp32, the near-tie queue and its
 // count, the near ties the queue could not hold as a bit a value, and the
-// ring's 2 * STAGES mbarriers.
-// ops/kernels/mlp_eval.py's mma_smem_bytes is the same sum for the CPU
-// side; a card test holds the two equal (drt_point_mlp_smem).
+// ring's 2 * STAGES mbarriers. The march (march_mma.cuh) adds its rays'
+// carries [12][M] and geometry [8][M] and the step's values [M], fp32.
+// ops/kernels/mlp_eval.py's smem_plan_bytes is the same sum for the CPU
+// side; a card test holds the two equal (drt_point_mlp_smem,
+// drt_march_mma_smem).
 struct Plan {
-  int act, ring, bias, wn, wx, x, frame, hn, q, qn, mask, bar, bytes;
+  int act, ring, bias, wn, wx, x, frame, hn, q, qn, mask, bar, carry, geo, sdf, bytes;
 };
 
-__host__ __device__ inline Plan smem_plan(int w16) {
+__host__ __device__ inline Plan smem_plan(int w16, bool march = false) {
   Plan p;
   p.act = 0;
   p.ring = p.act + align1k(2 * M * w16 * 2);
@@ -111,7 +117,10 @@ __host__ __device__ inline Plan smem_plan(int w16) {
   p.qn = p.q + QCAP * 4;
   p.mask = p.qn + 16;
   p.bar = p.mask + M * w16 / 8;
-  p.bytes = p.bar + 2 * STAGES * 8;
+  p.carry = p.bar + 2 * STAGES * 8;
+  p.geo = p.carry + 12 * M * 4;
+  p.sdf = p.geo + 8 * M * 4;
+  p.bytes = march ? p.sdf + M * 4 : p.carry;
   return p;
 }
 
@@ -267,6 +276,11 @@ __device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t da, uint64_t
 
 // ---- the tile ------------------------------------------------------------
 
+// Where the last layer's outputs go: K5's [n][OUT_ROWS] rows, K6's [n]
+// values (+POS_BIG on a sub-tile with no active point), or the march's
+// s_sdf [M] (the first output, for the step that follows).
+enum Sink { SINK_POINTS, SINK_BANKED, SINK_MARCH };
+
 struct PointArgs {
   const float* pts;                  // [n][3] fp32
   const unsigned char* active;       // K6: [n] (0 = inactive)
@@ -296,6 +310,7 @@ __device__ __forceinline__ int act_idx(int r, int c) {
 // Per-block state the consumer warpgroups read: shared-memory regions and
 // the launch's values, held in registers.
 struct Tile {
+  __nv_bfloat16* act;           // the two activation buffers
   float* s_bias;                // the layer's biases (pure tiles)
   float* s_wn;                  // the layer's near-tie scales
   float* s_wx;                  // the layer's x weights [3][w16]
@@ -309,6 +324,7 @@ struct Tile {
   const float* bank;
   const __nv_bfloat16* wrows;
   float* out;
+  float* sdf;                   // the march's s_sdf
   int bank_stride, n, w16, tile0, frame0;
   bool final_tanh;
   bool pure;                    // every row reads bank column frame0
@@ -349,13 +365,18 @@ __device__ __forceinline__ float finish(const Tile& tl, const Layer& L, float ac
 
 // The last layer's value v at (row r, column c): stored when c is one of
 // the OUT_ROWS outputs and the row one of the launch's points; K6 writes
-// +POS_BIG for a row of a sub-tile with no active point.
-template <int OUT_ROWS, bool BANKED>
+// +POS_BIG for a row of a sub-tile with no active point; the march keeps
+// every row's first output in s_sdf.
+template <int OUT_ROWS, int SINK>
 __device__ __forceinline__ void store_out(const Tile& tl, int r, int c, float v) {
+  if constexpr (SINK == SINK_MARCH) {
+    if (c == 0) tl.sdf[r] = tl.final_tanh ? tanhf(v) : v;
+    return;
+  }
   const int p = tl.tile0 + r;
   if (c >= OUT_ROWS || p >= tl.n) return;
   const float y = tl.final_tanh ? tanhf(v) : v;
-  if constexpr (BANKED)
+  if constexpr (SINK == SINK_BANKED)
     tl.out[p] = (tl.live >> (r / SUB)) & 1u ? y : POS_BIG;
   else
     tl.out[(size_t)OUT_ROWS * p + c] = y;
@@ -510,19 +531,19 @@ __device__ __forceinline__ void chunk(const Tile& tl, const Layer& L, int n0, in
 // cores, each summed in k order from 0 (the plain version's sum): 8
 // columns of 512 are 0.3% of the decoder's products, and the outputs,
 // which no bf16 rounding follows, are then the plain version's bits too.
-template <int OUT_ROWS, bool SPLIT_X, bool BANKED>
+template <int OUT_ROWS, bool SPLIT_X, int SINK>
 __device__ __forceinline__ void last_layer(const Tile& tl, const Layer& L,
                                            const __nv_bfloat16* hin) {
   for (int i = threadIdx.x; i < M * OUT_ROWS; i += CONSUMERS) {
     const int r = i % M, c = i / M;
     const float acc = sum_in_order(tl.wrows + L.base + (size_t)c * L.k16, L.in_p, hin, r);
-    store_out<OUT_ROWS, BANKED>(tl, r, c, finish<SPLIT_X>(tl, L, acc, c, r));
+    store_out<OUT_ROWS, SINK>(tl, r, c, finish<SPLIT_X>(tl, L, acc, c, r));
   }
 }
 
 // A layer without a hidden product (the first: 3 -> width) on CUDA
 // cores: v = the x-products + the bias, 8 columns of a row per item.
-template <int OUT_ROWS, bool SPLIT_X, bool BANKED>
+template <int OUT_ROWS, bool SPLIT_X, int SINK>
 __device__ __forceinline__ void x_layer(const Tile& tl, const Layer& L, int cols,
                                         __nv_bfloat16* hout) {
   for (int i = threadIdx.x; i < M * (cols / 8); i += CONSUMERS) {
@@ -532,7 +553,7 @@ __device__ __forceinline__ void x_layer(const Tile& tl, const Layer& L, int cols
     for (int e = 0; e < 8; ++e) v[e] = xprod<SPLIT_X>(tl, c0 + e, r) + bias_at(tl, L, c0 + e, r);
     if (L.last) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) store_out<OUT_ROWS, BANKED>(tl, r, c0 + e, v[e]);
+      for (int e = 0; e < 8; ++e) store_out<OUT_ROWS, SINK>(tl, r, c0 + e, v[e]);
       continue;
     }
     uint4 packed;
@@ -551,15 +572,16 @@ __device__ __forceinline__ void x_layer(const Tile& tl, const Layer& L, int cols
 // near-tie scales and x weights and the input's row norms; run the
 // layer's N-chunks, chunk g of the stream on warpgroup g % 2, the other
 // warpgroup's epilogue overlapping the next chunk's MMAs; recompute the
-// queued near ties in k order; zero the K padding.
-template <int OUT_ROWS, bool SPLIT_X, bool BANKED>
-__device__ void consume(const PointArgs& a, const Tile& tl, __nv_bfloat16* act) {
+// queued near ties in k order; zero the K padding. The evaluation's
+// weights are ring tiles t0, t0 + 1, ... of the block's stream.
+template <int OUT_ROWS, bool SPLIT_X, int SINK>
+__device__ void consume(const PointArgs& a, const Tile& tl, int t0) {
   const Decoder& dec = a.dec;
   const int n_layers = dec.n_layers;
   const int tid = threadIdx.x, wg = warp_uniform(tid / WG);
-  __nv_bfloat16* hin = act;
-  __nv_bfloat16* hout = act + M * tl.w16;
-  int t = 0, g = 0;  // stream tile and chunk counters
+  __nv_bfloat16* hin = tl.act;
+  __nv_bfloat16* hout = tl.act + M * tl.w16;
+  int t = t0, g = 0;  // stream tile and chunk counters
   int chunks = 0;    // hidden N-chunks in the stream
   for (int l = 0; l < n_layers - 1; ++l)  // the last layer is not streamed
     if (dec.wh_off[l] >= 0)
@@ -603,9 +625,9 @@ __device__ void consume(const PointArgs& a, const Tile& tl, __nv_bfloat16* act) 
     }
     consumer_sync();
     if (!hidden) {
-      x_layer<OUT_ROWS, SPLIT_X, BANKED>(tl, L, cols, hout);
+      x_layer<OUT_ROWS, SPLIT_X, SINK>(tl, L, cols, hout);
     } else if (L.last) {
-      last_layer<OUT_ROWS, SPLIT_X, BANKED>(tl, L, hin);
+      last_layer<OUT_ROWS, SPLIT_X, SINK>(tl, L, hin);
     } else {
       for (int n0 = 0, nt; n0 < cols; n0 += nt, ++g) {
         nt = next_chunk(cols - n0);
@@ -652,13 +674,29 @@ __device__ void consume(const PointArgs& a, const Tile& tl, __nv_bfloat16* act) 
   }
 }
 
+// The ring tiles one evaluation streams: every N-chunk's K-slices of the
+// hidden layers but the last.
+__host__ __device__ inline int stream_tiles(const Decoder& dec) {
+  int tiles = 0;
+  for (int l = 0; l < dec.n_layers - 1; ++l) {
+    if (dec.wh_off[l] < 0) continue;
+    const int k16 = round16(dec.in_p[l]);
+    for (int n0 = 0, nt; n0 < dec.out_p[l]; n0 += nt) {
+      nt = next_chunk(dec.out_p[l] - n0);
+      const int kt_max = STAGE_BYTES / (2 * nt);
+      tiles += (k16 + kt_max - 1) / kt_max;
+    }
+  }
+  return tiles;
+}
+
 // The producer: one thread streams every tile the consumers read, in
-// their order, into the ring.
-__device__ void produce(const Decoder& dec, const __nv_bfloat16* tiles, uint32_t ring,
-                        uint32_t full, uint32_t empty) {
+// their order, into the ring, as the block's stream tiles t, t + 1, ...
+static __device__ void produce(const Decoder& dec, const __nv_bfloat16* tiles, uint32_t ring,
+                               uint32_t full, uint32_t empty, int t) {
   const char* layer_src = reinterpret_cast<const char*>(tiles);
-  int stage = 0;
-  uint32_t phase = 0;
+  int stage = t % STAGES;
+  uint32_t phase = (uint32_t)(t / STAGES) & 1u;
   for (int l = 0; l < dec.n_layers - 1; ++l) {  // the last layer is not streamed
     if (dec.wh_off[l] < 0) continue;
     const int k16 = round16(dec.in_p[l]);
@@ -683,6 +721,69 @@ __device__ void produce(const Decoder& dec, const __nv_bfloat16* tiles, uint32_t
   }
 }
 
+// The block's state for eval_tile: the plan's regions and the launch's
+// values. The caller sets the tile's own (tile0, frame0, pure, live, sdf).
+__device__ __forceinline__ Tile make_tile(const PointArgs& a, unsigned char* smem,
+                                          const Plan& plan) {
+  Tile tl;
+  tl.act = reinterpret_cast<__nv_bfloat16*>(smem + plan.act);
+  tl.s_bias = reinterpret_cast<float*>(smem + plan.bias);
+  tl.s_wn = reinterpret_cast<float*>(smem + plan.wn);
+  tl.s_wx = reinterpret_cast<float*>(smem + plan.wx);
+  tl.s_x = reinterpret_cast<float*>(smem + plan.x);
+  tl.s_frame = reinterpret_cast<int*>(smem + plan.frame);
+  tl.s_hn = reinterpret_cast<float*>(smem + plan.hn);
+  tl.q = reinterpret_cast<unsigned*>(smem + plan.q);
+  tl.qn = reinterpret_cast<int*>(smem + plan.qn);
+  tl.mask = reinterpret_cast<unsigned*>(smem + plan.mask);
+  const uint64_t* bars = reinterpret_cast<const uint64_t*>(smem + plan.bar);
+  tl.ring = smem_u32(smem + plan.ring);
+  tl.full = smem_u32(bars);
+  tl.empty = smem_u32(bars + STAGES);
+  tl.bank = a.bank;
+  tl.wrows = a.wrows;
+  tl.out = a.out;
+  tl.sdf = nullptr;
+  tl.bank_stride = a.bank_stride;
+  tl.n = a.n;
+  tl.w16 = a.w16;
+  tl.final_tanh = a.dec.final_tanh != 0;
+  tl.tile0 = 0;
+  tl.frame0 = 0;
+  tl.pure = true;
+  tl.live = 3u;
+  return tl;
+}
+
+// Every thread of the block, once, before its first evaluation and a
+// __syncthreads(): clear the near-tie overflow bits and initialize the
+// ring's barriers.
+__device__ __forceinline__ void init_block(const Tile& tl) {
+  for (int w = threadIdx.x; w < M * tl.w16 / 32; w += THREADS) tl.mask[w] = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(tl.full + 8 * s, 1);
+      mbar_init(tl.empty + 8 * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// One evaluation of the decoder for the tile's M rows (positions in
+// s_x), by every thread of the block: the producer warp streams the
+// weights as stream tiles t0 .. t0 + stream_tiles(dec) - 1, the consumer
+// warpgroups evaluate. Every tile it streams is consumed before it
+// returns, so nothing is in flight between evaluations.
+template <int OUT_ROWS, bool SPLIT_X, int SINK>
+__device__ __forceinline__ void eval_tile(const PointArgs& a, const Tile& tl, int t0) {
+  if (warp_uniform(threadIdx.x / 32) >= CONSUMERS / 32) {
+    if (threadIdx.x == CONSUMERS) produce(a.dec, a.tiles, tl.ring, tl.full, tl.empty, t0);
+    __syncwarp();
+  } else {
+    consume<OUT_ROWS, SPLIT_X, SINK>(a, tl, t0);
+  }
+}
+
 // One evaluation of the decoder for the block's M points. BANKED (K6): a
 // point's biases are its frame's bank column, and a block whose points are
 // all inactive writes +POS_BIG and skips the MLP.
@@ -700,9 +801,9 @@ point_mlp_kernel(const __grid_constant__ PointArgs a) {
       return;
     }
   }
+  Tile tl = make_tile(a, smem, plan);
   float* s_x = reinterpret_cast<float*>(smem + plan.x);
   int* s_frame = reinterpret_cast<int*>(smem + plan.frame);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + plan.bar);
   if (t < M) {
     const int p = tile0 + t;
     const bool mine = p < a.n;
@@ -715,31 +816,7 @@ point_mlp_kernel(const __grid_constant__ PointArgs a) {
     }
     if constexpr (BANKED) s_frame[t] = a.frame_of_block[min(p, a.n - 1) / a.block];
   }
-  Tile tl;
-  tl.s_bias = reinterpret_cast<float*>(smem + plan.bias);
-  tl.s_wn = reinterpret_cast<float*>(smem + plan.wn);
-  tl.s_wx = reinterpret_cast<float*>(smem + plan.wx);
-  tl.s_x = s_x;
-  tl.s_frame = s_frame;
-  tl.s_hn = reinterpret_cast<float*>(smem + plan.hn);
-  tl.q = reinterpret_cast<unsigned*>(smem + plan.q);
-  tl.qn = reinterpret_cast<int*>(smem + plan.qn);
-  tl.mask = reinterpret_cast<unsigned*>(smem + plan.mask);
-  for (int w = t; w < M * a.w16 / 32; w += THREADS) tl.mask[w] = 0;
-  tl.ring = smem_u32(smem + plan.ring);
-  tl.full = smem_u32(bars);
-  tl.empty = smem_u32(bars + STAGES);
-  tl.bank = a.bank;
-  tl.wrows = a.wrows;
-  tl.out = a.out;
-  tl.bank_stride = a.bank_stride;
-  tl.n = a.n;
-  tl.w16 = a.w16;
-  tl.final_tanh = a.dec.final_tanh != 0;
   tl.tile0 = tile0;
-  tl.frame0 = 0;
-  tl.pure = true;
-  tl.live = 3u;
   if constexpr (BANKED) {
     const int last_p = a.n - 1;
     tl.frame0 = a.frame_of_block[min(tile0, last_p) / a.block];
@@ -750,21 +827,36 @@ point_mlp_kernel(const __grid_constant__ PointArgs a) {
     tl.live = (__syncthreads_or(act_p && t < SUB) ? 1u : 0u) |
               (__syncthreads_or(act_p && t >= SUB) ? 2u : 0u);
   }
-  if (t == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(tl.full + 8 * s, 1);
-      mbar_init(tl.empty + 8 * s, 4);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  init_block(tl);
   __syncthreads();
-  if (warp_uniform(t / 32) >= CONSUMERS / 32) {
-    if (t == CONSUMERS) produce(a.dec, a.tiles, tl.ring, tl.full, tl.empty);
-    __syncwarp();
-  } else {
-    consume<OUT_ROWS, SPLIT_X, BANKED>(
-        a, tl, reinterpret_cast<__nv_bfloat16*>(smem + plan.act));
-  }
+  eval_tile<OUT_ROWS, SPLIT_X, BANKED ? SINK_BANKED : SINK_POINTS>(a, tl, 0);
+}
+
+// The decoder as the kernels take it (make_decoder's rule, its activation
+// width) and the launch's pointers; K5's and K6's shared-memory plan must
+// fit the block.
+inline cudaError_t point_args(const int* table, int n_layers, int final_tanh,
+                              const void* W, const void* tiles, const void* wrows,
+                              const float* wscale, const float* bank,
+                              int bank_stride, const float* pts, int n, float* out,
+                              PointArgs* a) {
+  cudaError_t err = make_decoder(table, n_layers, final_tanh, &a->dec);
+  if (err != cudaSuccess) return err;
+  a->w16 = act_width(a->dec);
+  if (smem_plan(a->w16).bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+  a->pts = pts;
+  a->active = nullptr;
+  a->frame_of_block = nullptr;
+  a->block = 1;
+  a->n = n;
+  a->W = static_cast<const __nv_bfloat16*>(W);
+  a->tiles = static_cast<const __nv_bfloat16*>(tiles);
+  a->wrows = static_cast<const __nv_bfloat16*>(wrows);
+  a->wscale = wscale;
+  a->bank = bank;
+  a->bank_stride = bank_stride;
+  a->out = out;
+  return cudaSuccess;
 }
 
 }  // namespace pm

@@ -1,8 +1,7 @@
-// The tile march shared by K1 (batched_march.cu: a persistent grid that
-// strides over the tiles, bias bank [total, F_pad]), K1-grid and K1-multi
-// (fused_march.cu: one block per tile; K1-grid's folded biases as one
-// column, K1-multi's bank as K1's). The kernels differ only in how their
-// blocks take tiles, so on the same rays they give the same bits.
+// K1-grid's tile march (fused_march.cu: one block per 32-ray tile, the
+// folded biases as one column). K1 and K1-multi march 64-ray tiles on the
+// tensor cores instead (march_mma.cuh); on the same rays all three give
+// the same bits, through the in-order sums their MLP bodies share.
 //
 // Computes, for one tile of TILE rays: the full bracket-secant sphere
 // trace of each ray (fresh carry, full budget, salvage optional), each
@@ -12,8 +11,8 @@
 // class, rays missing the bounding sphere) costs one barrier and writes
 // its init rows. What bounds it is in march_body.cuh.
 //
-// It is inlined into each kernel: K1-grid read ~6% slower on an H100 when
-// it ran K1's grid-stride loop for its single tile.
+// It is inlined into the kernel: K1-grid read ~6% slower on an H100 when
+// it ran a grid-stride loop for its single tile.
 
 #pragma once
 

@@ -16,7 +16,9 @@ Inputs (the committed bench fixture; seeded):
     of 512x512 (chip_smoke.py phase 3's K6 row), the first K6 call;
   - K1 and K1-multi: 4 frames of 256x256 rays from the bench camera
     against the 4x256 proxy, 16 steps from the bounding sphere (a
-    coarse level's work);
+    coarse level's work); and "K1 verify", "K1-multi verify": the first
+    verify round of the batched headline at F=64 (chip_smoke.py phase
+    8's: the 8x512 decoder, the rays the rounds scheduler gives it, cap 2);
   - K2: one 512x512 frame against the proxy, 50 steps, every ray live;
   - K1-grid: one 256x256 frame against the folded proxy, 50 steps.
 Each: CUDA events around the wrapper, median of 3 after a warm-up.
@@ -107,6 +109,25 @@ def main(argv=None) -> int:
             mlp_eval.point_eval_banked = real
         a6, kw6 = seen[0]
         times["K6"] = _ms(torch, lambda: real(*a6, **kw6))
+        del batch
+
+        batch64, _, packed64 = batched_setup(dev, 64, 512, 9)
+        rounds, real_tp = [], bm.batched_trace_padded
+
+        def spy_tp(sh, *a, **kw):
+            if sh is packed64[0] and not rounds:
+                rounds.append(a)
+            return real_tp(sh, *a, **kw)
+
+        bm.batched_trace_padded = spy_tp
+        try:
+            batch64("march")
+        finally:
+            bm.batched_trace_padded = real_tp
+        verify = rounds[0][:8]  # bank, o, v, march, seed, active, block, salvage
+        for name, persistent in (("K1 verify", True), ("K1-multi verify", False)):
+            times[name] = _ms(torch, lambda: real_tp(packed64[0], *verify, True, persistent))
+        del batch64, rounds, verify
 
         _, _, _, _, cfg, _ = bench_setup(dev, 512)
         pparams, pcfg = load_proxy_npz(os.path.join(root, ".bench_proxy.npz"), dev)

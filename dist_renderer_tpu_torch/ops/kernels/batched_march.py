@@ -9,12 +9,15 @@ weights, each ray reading its frame's column of the bias bank.
 
 K1, ``sphere_trace_persistent``, replaces the JAX package's
 ``ops/pallas/batched_march.py::pallas_sphere_trace_persistent``
-(``csrc/batched_march.cu``: a persistent grid striding over 32-ray tiles);
+(``csrc/batched_march.cu``: a persistent grid striding over 64-ray tiles);
 K1-multi, ``sphere_trace_batched``, replaces ``pallas_sphere_trace_batched``
-(``csrc/fused_march.cu``: one block per tile). On a CUDA tensor each
-wrapper launches its kernel; on a CPU tensor, or with ``use_kernel=False``,
-it runs the plain version (``march_rows_plain``, built on
-``march_body.march_loop``).
+(``csrc/fused_march.cu``: one block per 64-ray tile). Both run one
+tensor-core tile march (``csrc/march_mma.cuh`` on ``csrc/point_mlp.cuh``'s
+body, the point evals' wgmma MLP with near ties summed again in k order),
+so they give the same bits as each other and as K1-grid and K2, which keep
+the CUDA-core ``mlp_tile``. On a CUDA tensor each wrapper launches its
+kernel; on a CPU tensor, or with ``use_kernel=False``, it runs the plain
+version (``march_rows_plain``, built on ``march_body.march_loop``).
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from dist_renderer_tpu_torch.ops.kernels.march_body import (
 from dist_renderer_tpu_torch.ops.tracer import TraceResult, live_counts_from_steps
 
 FRAME_TILE = 128  # bias-bank frame padding (the JAX package's layout)
-TILE = 32         # rays per CUDA thread block; frames pad to a multiple
+TILE = 32         # rays per K1-grid/K2 thread block; frames pad to a multiple
+MARCH_TILE = 64   # rays per K1/K1-multi thread block (csrc/march_mma.cuh)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -340,18 +344,24 @@ def march_rows_cuda(shared, bank, rays_per_frame: int, origins, dirs,
                     rs: RaySetup, march: MarchConfig, salvage: bool,
                     persistent: bool = True) -> torch.Tensor:
     """One launch on the card marches every ray -> [8, N] rows: K1 (the
-    persistent grid) or, with persistent=False, K1-multi (a block per
-    tile)."""
+    persistent grid: what fits on the card, each block striding over the
+    64-ray tiles) or, with persistent=False, K1-multi (a block per tile).
+    A decoder whose shared-memory plan does not fit a block raises before
+    the launch."""
+    from dist_renderer_tpu_torch.ops.kernels.mlp_eval import check_mma_plan
+
     n = origins.shape[0]
     rays = pack_rays(origins, dirs, rs)
     check_cuda_inputs(shared, bank, rays)
+    check_mma_plan(shared, rays.device, march=True)
     out = torch.empty((8, n), dtype=torch.float32, device=rays.device)
-    entry = ("drt_sphere_trace_persistent" if persistent
-             else "drt_sphere_trace_batched")
-    build.load().call(entry, build.ptr(rays), n, rays_per_frame,
-                      *march_args(shared, bank), march.convergence_eps,
-                      march.depth_eps, march.alpha, march.far_margin,
-                      march.max_steps, int(salvage), build.ptr(out),
+    w, tab, n_layers, bank_ptr, stride, tanh = march_args(shared, bank)
+    args = (build.ptr(rays), n, rays_per_frame, w, build.ptr(shared.tiles),
+            build.ptr(shared.wrows), build.ptr(shared.wscale), tab, n_layers,
+            bank_ptr, stride, tanh, march.convergence_eps, march.depth_eps,
+            march.alpha, march.far_margin, march.max_steps, int(salvage))
+    build.load().call("drt_sphere_trace_persistent" if persistent
+                      else "drt_sphere_trace_batched", *args, build.ptr(out),
                       build.stream_of(rays))
     if persistent:
         sphere_trace_persistent.launches += 1
@@ -418,11 +428,12 @@ def sphere_trace_batched(
     use_kernel: bool = True,
 ) -> TraceResult:
     """K1-multi: K1's contract (``sphere_trace_persistent``) on a grid of
-    one thread block per 32-ray tile (``csrc/fused_march.cu``), the
+    one thread block per 64-ray tile (``csrc/fused_march.cu``), the
     counterpart of the JAX package's ``pallas_sphere_trace_batched``. The
-    two kernels inline one tile march, so on the same rays they give the
-    same bits; its plain version is K1's. salvage=False leaves
-    bracketed-but-unconverged rays at the step cap unresolved."""
+    two kernels run one tile march (``csrc/march_mma.cuh``), so on the
+    same rays they give the same bits; its plain version is K1's.
+    salvage=False leaves bracketed-but-unconverged rays at the step cap
+    unresolved."""
     return _sphere_trace(shared, bias_bank, frame_of_ray, origins, dirs,
                          march, init_depth, init_active, salvage,
                          rays_per_frame, use_kernel, False)
@@ -448,10 +459,23 @@ def trace_from_rows(out: torch.Tensor, rs: RaySetup, origins, dirs,
     )
 
 
+def march_tile_steps(steps_per_ray: torch.Tensor) -> torch.Tensor:
+    """[ceil(N / 64)] the steps each of K1's and K1-multi's 64-ray tiles
+    marched: the most of its rays' step counts (a tile steps while any of
+    its rays is active). Times 64, summed, the lane-steps a launch spent
+    on its steps_per_ray.sum() active ray-steps."""
+    s = steps_per_ray.reshape(-1)
+    pad = (-s.numel()) % MARCH_TILE
+    if pad:
+        s = torch.cat([s, s.new_zeros(pad)])
+    return s.reshape(-1, MARCH_TILE).amax(dim=1)
+
+
 def pad_frames(o, v, seed, active):
     """[F, R, *] -> flat frame-major [F * r_pad, *] with each frame padded
-    to a multiple of the CUDA tile (pad rays point along +1 and never
-    march). Returns (o, v, seed, active, frame_of_ray, r_pad)."""
+    to a multiple of 32 rays, K1-grid's tile (pad rays point along +1 and
+    never march; K1's 64-ray tiles may straddle two frames). Returns (o,
+    v, seed, active, frame_of_ray, r_pad)."""
     f, r = o.shape[0], o.shape[1]
     r_pad = _round_up(max(r, TILE), TILE)
     pad = r_pad - r
@@ -598,10 +622,10 @@ def fine_march_rounds(
     sort): return_anchor the depth of the min-SDF sample, return_steps
     the step counts, return_last the last SDF sample and the unresolved
     flag, return_unres the unresolved flag alone. diag: a dict that
-    receives each round's per-tile residency (max steps over a 32-ray
-    tile); with it every round marches the full width. persistent=False
-    marches every round on K1-multi instead of K1; use_kernel=False runs
-    the plain version."""
+    receives each round's per-tile residency (the steps of each 64-ray
+    tile of K1 and K1-multi, ``march_tile_steps``); with it every round
+    marches the full width. persistent=False marches every round on
+    K1-multi instead of K1; use_kernel=False runs the plain version."""
     f, n = key.shape
     dev = key.device
     shared_origin = origins.shape[1] == 1
@@ -646,8 +670,7 @@ def fine_march_rounds(
                                    s["live"][:, :r], block, salvage,
                                    use_kernel, persistent)
         if diag is not None:
-            diag[f"fine_r{ri}_block_residency"] = res.steps_per_ray.reshape(
-                -1, TILE).amax(dim=1)
+            diag[f"fine_r{ri}_block_residency"] = march_tile_steps(res.steps_per_ray)
         s = dict(s)
         was = s["live"][:, :r]
         upd = lambda full, part: _merge_cols(full, r, torch.where(was, part, full[:, :r]))

@@ -43,11 +43,11 @@ _F = ctypes.c_float
 # C signatures: (argtypes) -> int (a cudaError_t, 0 = success)
 SIGNATURES = {
     "drt_sphere_trace_persistent": [
-        _P, _I, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
+        _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
     "drt_sphere_trace_grid": [
         _P, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
     "drt_sphere_trace_batched": [
-        _P, _I, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
+        _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
     "drt_queue_seed": [_P, _I, _P, _P, _P, _P],
     "drt_queue_generation": [
         _P, _I, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I,
@@ -60,6 +60,7 @@ SIGNATURES = {
     "drt_point_eval_banked": [
         _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     "drt_point_mlp_smem": [_I],
+    "drt_march_mma_smem": [_I],
 }
 
 

@@ -7,9 +7,11 @@ grid of 512-ray blocks over the latent-folded decoder, per-layer bias
 refs, a dead-block fast path). On a CUDA tensor it launches
 ``csrc/fused_march.cu``; on a CPU tensor, or with ``use_kernel=False``,
 it runs the plain version, K1's ``march_rows_plain`` on the folded
-layers. Its step body is K1's (``csrc/march_body.cuh``), so on the same
-rays it equals ``sphere_trace_persistent`` with a one-column bias bank bit
-for bit.
+layers. Its step body is ``csrc/march_body.cuh``'s CUDA-core ``mlp_tile``
+and K1's is the tensor-core ``csrc/march_mma.cuh``; both sum in the plain
+version's k order (K1 summing near ties again in that order), so on the
+same rays it equals ``sphere_trace_persistent`` with a one-column bias bank
+bit for bit.
 
 ``sphere_trace_rounds`` is the counterpart of ``pallas_sphere_trace_rounds``
 (step-capped rounds without salvage, a stable difficulty re-pack between

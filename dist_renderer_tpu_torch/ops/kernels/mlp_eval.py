@@ -58,44 +58,49 @@ MMA_M, MMA_STAGES, MMA_QCAP = 64, 4, 2048
 SMEM_LIMIT = 232_448
 
 
-def mma_smem_bytes(shared) -> int:
-    """The dynamic shared memory K5 and K6 ask for with this decoder:
-    point_mlp.cuh's smem_plan (two [M, w16] bf16 activation buffers, the
-    weight ring, a layer's biases, near-tie scales and x weights in fp32,
-    positions, frames, row norms, the near-tie queue and its overflow bits,
-    barriers; w16 the widest layer rounded up to 16). The kernels' own sum,
-    drt_point_mlp_smem, is held equal to this one on the card."""
+def mma_smem_bytes(shared, march: bool = False) -> int:
+    """The dynamic shared memory K5 and K6 (or, with march, K1 and
+    K1-multi) ask for with this decoder: point_mlp.cuh's smem_plan (two
+    [M, w16] bf16 activation buffers, the weight ring, a layer's biases,
+    near-tie scales and x weights in fp32, positions, frames, row norms, the
+    near-tie queue and its overflow bits, barriers, and for the march its
+    rays' carries, geometry and step values; w16 the widest layer rounded
+    up to 16). The kernels' own sums, drt_point_mlp_smem and
+    drt_march_mma_smem, are held equal to this one on the card."""
     t = shared.table
     widths = [t[i] for i in range(0, len(t), 5)] + [t[i + 1] for i in range(0, len(t), 5)]
-    return smem_plan_bytes(max([16] + [_round16(w) for w in widths]))
+    return smem_plan_bytes(max([16] + [_round16(w) for w in widths]), march)
 
 
-def smem_plan_bytes(w16: int) -> int:
-    """point_mlp.cuh's smem_plan(w16).bytes."""
+def smem_plan_bytes(w16: int, march: bool = False) -> int:
+    """point_mlp.cuh's smem_plan(w16, march).bytes."""
     act = (2 * MMA_M * w16 * 2 + 1023) // 1024 * 1024
-    return (act + MMA_STAGES * MMA_STAGE_BYTES + 20 * w16 + 32 * MMA_M
-            + 4 * MMA_QCAP + 16 + MMA_M * w16 // 8 + 16 * MMA_STAGES)
+    point = (act + MMA_STAGES * MMA_STAGE_BYTES + 20 * w16 + 32 * MMA_M
+             + 4 * MMA_QCAP + 16 + MMA_M * w16 // 8 + 16 * MMA_STAGES)
+    # the march's carries [12][M], geometry [8][M] and step values [M], fp32
+    return point + (4 * 21 * MMA_M if march else 0)
 
 
 def _round16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def check_mma_plan(shared, device) -> None:
-    """Raise if the MMA weight layout is not bf16 on ``device`` or K5's and
-    K6's shared-memory plan cannot hold the decoder."""
+def check_mma_plan(shared, device, march: bool = False) -> None:
+    """Raise if the MMA weight layout is not bf16 on ``device`` or the
+    shared-memory plan of K5 and K6 (with march, of K1 and K1-multi)
+    cannot hold the decoder."""
     if any(t.device != device for t in (shared.tiles, shared.wrows, shared.wscale)) or (
             shared.tiles.dtype, shared.wrows.dtype, shared.wscale.dtype) != (
             torch.bfloat16, torch.bfloat16, torch.float32):
         raise ValueError("the MMA weight tiles and rows (bf16) and near-tie scales "
-                         "(fp32) must be on the points' device")
-    need = mma_smem_bytes(shared)
+                         "(fp32) must be on the kernel inputs' device")
+    need = mma_smem_bytes(shared, march)
     if need > SMEM_LIMIT:
         t = shared.table
         width = max(t[i] for i in range(0, len(t), 5))
         raise ValueError(f"a decoder of width {width} needs {need} bytes of shared "
-                         f"memory per block for K5/K6, more than the {SMEM_LIMIT} an "
-                         "H100 block can use")
+                         f"memory per block for {'K1/K1-multi' if march else 'K5/K6'}, "
+                         f"more than the {SMEM_LIMIT} an H100 block can use")
 
 
 def point_eval_plain(packed: PackedFolded, points: torch.Tensor,

@@ -131,6 +131,48 @@ def test_cuda_k1_matches_plain(salvage, k_order):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("which", ["proxy", "bench"])
+def test_cuda_k1_grouping_is_bit_exact(which):
+    """A ray's bits do not depend on the tile, block or launch that
+    marches it: K1 on the rays shuffled within each frame, on ragged
+    prefixes (tiles cut short, frames straddled, persistent grids of 1 and
+    2 blocks and of one block per SM) and K1-multi (a block per tile)
+    equal K1 on them in order, whose blocks stride over 287 tiles."""
+    dev = _device()
+    shared, bank, o, v, key, seed_d = _scene(dev, img=96, seed=6)
+    if which == "bench":
+        params, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+        shared = bm.pack_shared(params, DecoderConfig())
+        bank = bm.fold_bias_bank(params, torch.stack([z0, z0 + 0.001]), DecoderConfig(),
+                                 shared)
+    # 9170 rays a frame pad to 9184: 143.5 tiles, so a tile straddles frames
+    o, v, key, seed_d = o[:, :9170], v[:, :9170], key[:, :9170], seed_d[:, :9170]
+    f = key.shape[0]
+    o_p, v_p, s_p, a_p, _, r_pad = bm.pad_frames(o, v, seed_d, key != 2)
+    assert r_pad % bm.MARCH_TILE
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert f * r_pad > 2 * sms * bm.MARCH_TILE  # every block takes two tiles or more
+    rs = bm.ray_setup(o_p, v_p, MARCH, s_p, a_p)
+    rows = lambda idx, persistent=True: bm.march_rows_cuda(
+        shared, bank, r_pad, o_p[idx], v_p[idx],
+        bm.RaySetup(*(x[idx] for x in rs)), MARCH, True, persistent=persistent)
+    every = torch.arange(f * r_pad, device=dev)
+    ref = rows(every)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    perm = torch.cat([i * r_pad + torch.randperm(r_pad, generator=gen)
+                      for i in range(f)]).to(dev)
+    shuffled = rows(perm)
+    per_tile = rows(every, persistent=False)
+    torch.cuda.synchronize()
+    assert ref[1].sum() > 100
+    assert torch.equal(shuffled, ref[:, perm]) and torch.equal(per_tile, ref)
+    for n in (1, 63, 65, r_pad + 40, f * r_pad - 1):
+        part = rows(every[:n])
+        torch.cuda.synchronize()
+        assert torch.equal(part, ref[:, :n]), n
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("caps", [(1, 2, 6, 16), (2, 2, 2), (64,)])
 def test_cuda_k2_equals_k1_exactly(caps, k_order):
     dev = _device()
@@ -817,7 +859,8 @@ def test_kernel_build_is_keyed_by_source_hash():
     names = {os.path.basename(p) for p in build._sources()}
     assert {"march_body.cuh", "batched_march.cu", "queue_march.cu",
             "recompute.cu", "fused_march.cu", "sphere_trace.cuh",
-            "dot_in_order.cu", "point_eval.cu", "point_mlp.cuh"} <= names
+            "dot_in_order.cu", "point_eval.cu", "point_mlp.cuh",
+            "march_mma.cuh"} <= names
     assert "-use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
@@ -1142,13 +1185,12 @@ def test_cpu_tensors_take_the_k6_plain_version_uncounted():
     assert mlp_eval.point_eval_banked.launches == n0
 
 
-# ptxas's registers per thread for the march kernels as the parent tree's
-# build reported them (NVIDIA H100 80GB HBM3, CUDA 12.8): march_body.cuh's
-# mlp_tile, which K5 and K6 left for point_mlp.cuh, must keep their code
-# as it was. K1-grid and K1-multi are one kernel (sphere_trace_grid_kernel).
+# ptxas's registers per thread for the CUDA-core march kernels as the
+# parent tree's build reported them (NVIDIA H100 80GB HBM3, CUDA 12.8):
+# march_body.cuh's mlp_tile, which K1, K1-multi, K5 and K6 left for
+# point_mlp.cuh, must keep their code as it was.
 PARENT_REGISTERS = {
-    "sphere_trace_kernel": 184,                 # K1
-    "sphere_trace_grid_kernel": 176,            # K1-grid, K1-multi
+    "sphere_trace_grid_kernel": 176,            # K1-grid
     "queue_generation_kernel": 183,             # K2
 }
 
@@ -1177,19 +1219,22 @@ def test_cuda_march_registers_unchanged():
         got = [r for name, r in regs.items() if key in name]
         assert got == [want], (key, got)
     assert any("point_mlp_kernel" in name for name in regs)
+    assert sum("march_mma_kernel" in name for name in regs) == 2
 
 
 @pytest.mark.gpu
 def test_cuda_point_mlp_smem_plan_matches_the_host():
-    """The kernels' shared-memory plan (drt_point_mlp_smem, point_mlp.cuh's
-    smem_plan) and the wrapper's own sum (mlp_eval.smem_plan_bytes) agree
-    at every activation width from 16 to 1024."""
+    """The kernels' shared-memory plans (drt_point_mlp_smem for K5 and K6,
+    drt_march_mma_smem for K1 and K1-multi, point_mlp.cuh's smem_plan) and
+    the wrappers' own sum (mlp_eval.smem_plan_bytes) agree at every
+    activation width from 16 to 1024."""
     from dist_renderer_tpu_torch.ops.kernels import mlp_eval
 
     _device()
     lib = build.load()
     for w16 in range(16, 1025, 16):
         assert lib.drt_point_mlp_smem(w16) == mlp_eval.smem_plan_bytes(w16), w16
+        assert lib.drt_march_mma_smem(w16) == mlp_eval.smem_plan_bytes(w16, True), w16
 
 
 def sass_functions(sass: str) -> dict:
@@ -1209,8 +1254,9 @@ def sass_functions(sass: str) -> dict:
 
 @pytest.mark.gpu
 def test_cuda_point_evals_run_on_tensor_cores():
-    """Every K5 and K6 kernel of the built library issues warpgroup MMAs
-    (HGMMA in its SASS); the march kernels issue none."""
+    """Every K5 and K6 kernel of the built library, and K1's and
+    K1-multi's, issues warpgroup MMAs (HGMMA in its SASS); K1-grid and K2
+    issue none."""
     import shutil
     import subprocess
 
@@ -1221,11 +1267,12 @@ def test_cuda_point_evals_run_on_tensor_cores():
                           check=True).stdout
     funcs = sass_functions(sass)
     point = {k: v for k, v in funcs.items() if "point_mlp_kernel" in k}
-    assert len(point) >= 4, sorted(funcs)
-    for name, text in point.items():
+    march = {k: v for k, v in funcs.items() if "march_mma_kernel" in k}
+    assert len(point) >= 4 and len(march) == 2, sorted(funcs)
+    for name, text in {**point, **march}.items():
         assert "HGMMA" in text, name
     for name, text in funcs.items():
-        if "sphere_trace" in name or "queue_generation" in name:
+        if "sphere_trace_grid" in name or "queue_generation" in name:
             assert "HGMMA" not in text, name
 
 
