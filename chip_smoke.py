@@ -180,6 +180,19 @@ def precise_macs(packed):
     return total
 
 
+def ties_line(torch, fn, packed, n):
+    """The near ties of fn's last launch (K3 or K4): values queued for the
+    in-order sum, of the values on the tensor cores, and those past the
+    queue (the overflow bits)."""
+    from dist_renderer_tpu_torch.ops.kernels.recompute import (
+        mma_values, precise_bias_grads_call,
+    )
+
+    queued, past = fn.ties.tolist()
+    values = mma_values(packed, n, k4=fn is precise_bias_grads_call)
+    return dict(queued=queued, values=values, share=queued / values, past_queue=past)
+
+
 def precise_bytes(n, packed, rows_in, rows_out):
     return 4 * (rows_in + rows_out) * n + 2 * packed.flat.numel()
 
@@ -1828,6 +1841,7 @@ def main():
         packed = pack_precise(params, dcfg)
         biases = fold_bias_precise(params, latent, dcfg, packed)
         sk, ddk, gk = precise_sdg_call(packed, biases, pts, vs)
+        ties = {"K3": ties_line(torch, precise_sdg_call, packed, pts.shape[0])}
         sp, ddp, gp = precise_sdg_call(packed, biases, pts, vs, use_kernel=False)
         torch.cuda.synchronize()
         q = lambda x: [x.quantile(0.5).item(), x.quantile(0.99).item(), x.max().item()]
@@ -1849,6 +1863,18 @@ def main():
         check(e_s[2] <= 1e-5 and e_dd[2] <= 1e-4 and e_g[2] <= 1e-4,
               "K3 disagrees with its plain version (bars: max |diff| s 1e-5, "
               "dd and g 1e-4)")
+        # K3 on the tensor cores against the in-order plain version, bit for
+        # bit: every value near a decision is summed again in k order, so a
+        # point that differs is a tie the margin (NEAR_TIE) missed
+        so, ddo, go = in_order(lambda: precise_sdg_call(packed, biases, pts, vs,
+                                                        use_kernel=False))
+        k3_differ = int(((sk != so) | (ddk != ddo) | (gk != go).any(dim=1)).sum())
+        print(f"K3 near ties: {ties['K3']['queued']} of {ties['K3']['values']} "
+              f"tensor-core values queued ({ties['K3']['share']:.4%}), "
+              f"{ties['K3']['past_queue']} past the queue; points differing from the "
+              f"in-order plain version: {k3_differ} of {pts.shape[0]}", flush=True)
+        check(k3_differ == 0, f"K3 differs from its in-order plain version on {k3_differ} "
+              "points (a near tie the margin missed)")
 
         # K4 on the main path's inputs: (a) the compose bucket with a
         # seeded cotangent, (b) every ray's anchor (the lazy margin's
@@ -1869,6 +1895,8 @@ def main():
                 packed, biases, p_c, ct_c, use_kernel=k,
                 **dict(kw, want_gx=gx))
             (uk, gxk), (up, gxp) = call(True, True), call(False, True)
+            ties["K4 " + case] = ties_line(torch, precise_bias_grads_call, packed,
+                                           p_c.shape[0])
             u_main = call(True, kw.get("want_gx", False))
             u_main = u_main[0] if kw.get("want_gx") else u_main
             torch.cuda.synchronize()
@@ -1883,13 +1911,22 @@ def main():
                      same=all(torch.equal(a, b) for a, b in zip(uk, u_main)),
                      ms=cuda_ms(lambda: call(True, kw.get("want_gx", False))),
                      plain_ms=cuda_ms(lambda: call(False, kw.get("want_gx", False))))
+            if case != "b":  # against the in-order plain version
+                uo, gxo = in_order(lambda: call(False, True))
+                r.update(u_in_order=rel(cat(uk), cat(uo)), gx_in_order=torch.equal(gxk, gxo))
             k4.append(r)
             if case == "a":
                 ct_a = ct_c
+            t4 = ties["K4 " + case]
             print(f"K4 bias grads ({case}) {r['n']} points, {kw}: relative L2 u "
                   f"{r['u']:.3e}, gz {r['gz']:.3e}; max |diff| gx {r['gx']:.3e}; "
                   f"u equal across launches and gx modes: {r['same']}; "
-                  f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms")
+                  f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms; near ties "
+                  f"{t4['queued']} of {t4['values']} ({t4['share']:.4%}), "
+                  f"{t4['past_queue']} past the queue"
+                  + ("" if case == "b" else
+                     f"; vs the in-order plain version: gx equal {r['gx_in_order']}, "
+                     f"relative L2 u {r['u_in_order']:.3e}"), flush=True)
         # bars: u and gz within relative L2 1e-5, gx within 1e-5, and a
         # second launch gives the same bits
         for r in k4:
@@ -1897,6 +1934,9 @@ def main():
                   and r["same"], f"K4 ({r['case']}) disagrees with its plain "
                   "version or with itself (bars: relative L2 u, gz <= 1e-5; "
                   "max |diff| gx <= 1e-5; equal bits across launches)")
+            check(r["case"] == "b" or (r["gx_in_order"] and r["u_in_order"] <= 1e-6),
+                  f"K4 ({r['case']}) differs from its in-order plain version (bars: gx "
+                  "bit for bit, relative L2 u <= 1e-6)")
 
         # kernel times beside the plain versions at these shapes
         t_k1 = sum(cuda_ms(lv[1]) for lv in k1_levels)
@@ -2139,13 +2179,14 @@ def main():
              max_abs_err=max(max_err(d_fine), max_err(d_ver)),
              ms=t_k2, plain_ms=t_k2p, bound_ms=b_k2[0], bound_by=b_k2[1],
              library_ms=None),
-        dict(name="precise_sdg_call (K3)", route="cuda", source=src + "recompute.cu",
+        dict(name="precise_sdg_call (K3, tensor cores)", route="cuda",
+             source=src + "recompute.cu",
              replaces="dist_renderer_tpu/ops/pallas/recompute.py:386",
              launches=launches["precise_sdg_call"],
              max_abs_err=max(e_s[2], e_dd[2], e_g[2]),
              ms=t_k3, plain_ms=t_k3p, bound_ms=b_k3[0], bound_by=b_k3[1],
              library_ms=t_k3c),
-        dict(name="precise_bias_grads_call (K4)", route="cuda",
+        dict(name="precise_bias_grads_call (K4, tensor cores)", route="cuda",
              source=src + "recompute.cu",
              replaces="dist_renderer_tpu/ops/pallas/recompute.py:421",
              launches=fb["launches"]["precise_bias_grads_call"],
@@ -2192,6 +2233,9 @@ def main():
                       "k1_coarse": dict(ms=t_k1, plain_ms=t_k1p, bound_ms=b_k1[0],
                                         launches=launches["sphere_trace_persistent"]),
                       "k3_k4_chains": dict(k3_ms=t_k3c, k4_a_ms=t_k4c, gap=chain_gap),
+                      "k3_k4": dict(near_ties=ties, k3_in_order_differing=k3_differ,
+                                    k4=[{k: v for k, v in r.items() if k != "same"}
+                                        for r in k4]),
                       "k1_grid_cases": [dict(case=r["case"], ms=r["ms"],
                                              plain_ms=r["plain_ms"],
                                              ray_steps=r["steps"],

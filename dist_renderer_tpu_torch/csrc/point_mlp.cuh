@@ -2,7 +2,9 @@
 // and of the march kernels K1 and K1-multi (march_mma.cuh): one
 // evaluation of the latent-folded decoder for a tile of M = 64 rows
 // (points, or a march step's sample positions), on Hopper's warpgroup
-// MMA. K1-grid and K2 keep march_body.cuh's CUDA-core mlp_tile.
+// MMA. K1-grid and K2 keep march_body.cuh's CUDA-core mlp_tile. K3 and
+// K4 (recompute.cu) run their forward and reverse sweeps on its MMA loop
+// (mma_chunk), producer (stream_layer), ring and near-tie queue.
 //
 // Replaces, with point_eval.cu, the JAX package's TPU kernels
 // dist_renderer_tpu/ops/pallas/mlp_eval.py::pallas_point_eval (K5) and
@@ -386,10 +388,11 @@ __device__ __forceinline__ void store_out(const Tile& tl, int r, int c, float v)
 // fmaf per term (the march body's and the in-order plain version's sum),
 // from the input activations and the weight row w (in_p values): SEG
 // 16-byte loads of the row in flight at once, the row's L2 latency paid
-// in_p / (8 SEG) times.
+// in_p / (8 SEG) times (SEG = 1 for a short row, e.g. the last layer's
+// reverse, out_p long).
+template <int SEG = 32>
 __device__ __forceinline__ float sum_in_order(const __nv_bfloat16* w, int in_p,
                                               const __nv_bfloat16* hin, int r) {
-  constexpr int SEG = 32;
   float acc = 0.0f;
   for (int k0 = 0; k0 < in_p; k0 += 8 * SEG) {
     uint4 x[SEG];
@@ -422,11 +425,12 @@ __device__ __forceinline__ void recompute(const Tile& tl, const Layer& L,
   hout[act_idx(r, c)] = __float2bfloat16_rn(fmaxf(finish<SPLIT_X>(tl, L, acc, c, r), 0.0f));
 }
 
-// Queue (row r, column c) for the in-order recompute; past QCAP, mark
-// its bit.
+// Queue (row r, column c) for the in-order recompute; past QC entries,
+// mark its bit.
+template <int QC = QCAP>
 __device__ __forceinline__ void near_tie(const Tile& tl, int r, int c) {
   const int i = atomicAdd(tl.qn, 1);
-  if (i < QCAP) {
+  if (i < QC) {
     tl.q[i] = ((unsigned)r << 16) | (unsigned)c;
   } else {
     const int b = r * tl.w16 + c;
@@ -440,36 +444,36 @@ __device__ __forceinline__ void release(const Tile& tl, int stage) {
   mbar_arrive(tl.empty + 8 * stage, (threadIdx.x & 31) == 0);
 }
 
-// One N-chunk [n0, n0 + NT) of a hidden layer (not the last) for one
-// warpgroup: the
-// product over all of K on the tensor cores, streamed through the ring
-// from stream tile t0 on, then the epilogue. A hidden layer's value whose
-// bf16 rounding (after ReLU) the tensor cores' summation order may have
-// moved, |v - v_in_order| <= s_wn[c] * s_hn[r], is queued for the
-// in-order recompute.
-template <int NT, bool SPLIT_X>
-__device__ __forceinline__ void chunk(const Tile& tl, const Layer& L, int n0, int t0,
-                                      const __nv_bfloat16* hin, __nv_bfloat16* hout,
-                                      bool wait_turn, bool pass_turn) {
+// The product of one N-chunk (NT columns) over all of K (k16, a multiple
+// of 16) on the tensor cores, for one warpgroup, into acc (fp32, the wgmma
+// fragment order): A from the activation buffer at a_base, B streamed
+// through the RS-stage ring from stream tile t0 on. KH_SPLIT: the A column
+// of K index k is k - kh from kh on (the recompute's split layer reads
+// [hi | hi | lo] from a [hi | lo] buffer). The warpgroup of a chunk waits
+// for its turn and passes it on (see handoff_arrive).
+template <int NT, int RS = STAGES, bool KH_SPLIT = false>
+__device__ __forceinline__ void mma_chunk(const Tile& tl, float (&acc)[NT / 2],
+                                          uint32_t a_base, int k16, int kh, int t0,
+                                          bool wait_turn, bool pass_turn) {
   constexpr int KT = STAGE_BYTES / (2 * NT);
-  const int k16 = L.k16;
-  const uint32_t a_base = smem_u32(hin);
   const int wg = warp_uniform(threadIdx.x / WG);
-  float acc[NT / 2];
 #pragma unroll
   for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
   if (wait_turn) handoff_wait(wg);
   int t = t0, prev = 0;
   for (int k0 = 0; k0 < k16; k0 += KT, ++t) {
     const int kt = min(KT, k16 - k0);
-    const int stage = t % STAGES;
-    mbar_wait(tl.full + 8 * stage, (uint32_t)(t / STAGES) & 1u);
+    const int stage = t % RS;
+    mbar_wait(tl.full + 8 * stage, (uint32_t)(t / RS) & 1u);
     if (pass_turn && k0 + KT >= k16) handoff_arrive(1 - wg);
     wgmma_fence();
     const uint32_t b_base = tl.ring + stage * STAGE_BYTES;
-    for (int kk = 0; kk < kt; kk += 16)
-      wgmma<NT>(acc, make_desc(a_base + (k0 + kk) * (M * 2), M * 16, 128),
+    for (int kk = 0; kk < kt; kk += 16) {
+      int ka = k0 + kk;
+      if constexpr (KH_SPLIT) ka = ka >= kh ? ka - kh : ka;
+      wgmma<NT>(acc, make_desc(a_base + ka * (M * 2), M * 16, 128),
                 make_desc(b_base + kk * (NT * 2), NT * 16, 128), 1);
+    }
     wgmma_commit();
     if (k0 > 0) {
       wgmma_wait<1>();
@@ -481,6 +485,21 @@ __device__ __forceinline__ void chunk(const Tile& tl, const Layer& L, int n0, in
   release(tl, prev);
 #pragma unroll
   for (int i = 0; i < NT / 2; ++i) fence_reg(acc[i]);
+}
+
+// One N-chunk [n0, n0 + NT) of a hidden layer (not the last) for one
+// warpgroup: the
+// product over all of K on the tensor cores, streamed through the ring
+// from stream tile t0 on, then the epilogue. A hidden layer's value whose
+// bf16 rounding (after ReLU) the tensor cores' summation order may have
+// moved, |v - v_in_order| <= s_wn[c] * s_hn[r], is queued for the
+// in-order recompute.
+template <int NT, bool SPLIT_X>
+__device__ __forceinline__ void chunk(const Tile& tl, const Layer& L, int n0, int t0,
+                                      const __nv_bfloat16* hin, __nv_bfloat16* hout,
+                                      bool wait_turn, bool pass_turn) {
+  float acc[NT / 2];
+  mma_chunk<NT>(tl, acc, smem_u32(hin), L.k16, 0, t0, wait_turn, pass_turn);
 
   // epilogue: thread (warp w of the warpgroup, lane) holds rows
   // 16w + lane/4 (+8), and in each 8-column group the columns
@@ -690,35 +709,44 @@ __host__ __device__ inline int stream_tiles(const Decoder& dec) {
   return tiles;
 }
 
+// The producer's copies of one layer's tiles, read from src on: every
+// N-chunk of its cols outputs, each in K-slices of k16 (tiles laid out as
+// pack_mma_tiles lays them), into the RS-stage ring at (stage, phase),
+// which it advances.
+template <int RS = STAGES>
+__device__ __forceinline__ const char* stream_layer(const char* src, int cols, int k16,
+                                                    uint32_t ring, uint32_t full,
+                                                    uint32_t empty, int& stage,
+                                                    uint32_t& phase) {
+  for (int n0 = 0, nt; n0 < cols; n0 += nt) {
+    nt = next_chunk(cols - n0);
+    const int kt_max = STAGE_BYTES / (2 * nt);
+    for (int k0 = 0; k0 < k16; k0 += kt_max) {
+      const uint32_t bytes = 2u * nt * min(kt_max, k16 - k0);
+      mbar_wait(empty + 8 * stage, phase ^ 1u);
+      mbar_expect_tx(full + 8 * stage, bytes);
+      bulk_copy(ring + stage * STAGE_BYTES, src, bytes, full + 8 * stage);
+      src += bytes;
+      if (++stage == RS) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+  }
+  return src;
+}
+
 // The producer: one thread streams every tile the consumers read, in
 // their order, into the ring, as the block's stream tiles t, t + 1, ...
 static __device__ void produce(const Decoder& dec, const __nv_bfloat16* tiles, uint32_t ring,
                                uint32_t full, uint32_t empty, int t) {
-  const char* layer_src = reinterpret_cast<const char*>(tiles);
+  const char* src = reinterpret_cast<const char*>(tiles);
   int stage = t % STAGES;
   uint32_t phase = (uint32_t)(t / STAGES) & 1u;
-  for (int l = 0; l < dec.n_layers - 1; ++l) {  // the last layer is not streamed
-    if (dec.wh_off[l] < 0) continue;
-    const int k16 = round16(dec.in_p[l]);
-    const int cols = dec.out_p[l];
-    const char* src = layer_src;
-    for (int n0 = 0, nt; n0 < cols; n0 += nt) {
-      nt = next_chunk(cols - n0);
-      const int kt_max = STAGE_BYTES / (2 * nt);
-      for (int k0 = 0; k0 < k16; k0 += kt_max) {
-        const uint32_t bytes = 2u * nt * min(kt_max, k16 - k0);
-        mbar_wait(empty + 8 * stage, phase ^ 1u);
-        mbar_expect_tx(full + 8 * stage, bytes);
-        bulk_copy(ring + stage * STAGE_BYTES, src, bytes, full + 8 * stage);
-        src += bytes;
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1u;
-        }
-      }
-    }
-    layer_src += (size_t)2 * dec.out_p[l] * k16;  // every chunk, read or not
-  }
+  for (int l = 0; l < dec.n_layers - 1; ++l)  // the last layer is not streamed
+    if (dec.wh_off[l] >= 0)
+      src = stream_layer(src, dec.out_p[l], round16(dec.in_p[l]), ring, full, empty, stage,
+                         phase);
 }
 
 // The block's state for eval_tile: the plan's regions and the launch's
@@ -757,11 +785,12 @@ __device__ __forceinline__ Tile make_tile(const PointArgs& a, unsigned char* sme
 
 // Every thread of the block, once, before its first evaluation and a
 // __syncthreads(): clear the near-tie overflow bits and initialize the
-// ring's barriers.
+// RS-stage ring's barriers.
+template <int RS = STAGES>
 __device__ __forceinline__ void init_block(const Tile& tl) {
   for (int w = threadIdx.x; w < M * tl.w16 / 32; w += THREADS) tl.mask[w] = 0;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < RS; ++s) {
       mbar_init(tl.full + 8 * s, 1);
       mbar_init(tl.empty + 8 * s, 4);
     }

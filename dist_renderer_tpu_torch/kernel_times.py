@@ -20,10 +20,19 @@ Inputs (the committed bench fixture; seeded):
     verify round of the batched headline at F=64 (chip_smoke.py phase
     8's: the 8x512 decoder, the rays the rounds scheduler gives it, cap 2);
   - K2: one 512x512 frame against the proxy, 50 steps, every ray live;
-  - K1-grid: one 256x256 frame against the folded proxy, 50 steps.
+  - K1-grid: one 256x256 frame against the folded proxy, 50 steps;
+  - K3 and K4 (a): chip_smoke.py phase 3's shapes, the bench 8x512
+    decoder at its latent on 65,536 points, the compose bucket's count.
+    The points are seeded, the first 65,536 of K5's, not the bucket's
+    anchors rebuilt from a march: a launch's time follows the count and
+    not where the points lie, up to its near ties. Seeded unit directions
+    (K3) and cotangents (K4); K3 (b) and K4 (b) on K5's 262,144 points
+    (the lazy margin's width: its backward runs K3, then K4, on every
+    anchor), K4 (c) with 3 seed rows and the xyz gradient.
 Each: CUDA events around the wrapper, median of 3 after a warm-up.
-Prints one JSON object, {name: ms}, with the card's name and power
-limit.
+``--only K3,K4`` times just the entries whose names start so (K3 and
+K4's four: "K4" also takes "K4 (a)" .. "K4 (c)"). Prints one JSON
+object, {name: ms}, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -56,7 +65,10 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package is timed")
     ap.add_argument("--out", help="JSON file for the numbers")
+    ap.add_argument("--only", help="comma-separated name prefixes to time")
     args = ap.parse_args(argv)
+    only = tuple(args.only.split(",")) if args.only else ("",)
+    want = lambda *names: any(n.startswith(o) for n in names for o in only)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import numpy as np
@@ -73,6 +85,7 @@ def main(argv=None) -> int:
     from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
     from dist_renderer_tpu_torch.ops.kernels import fused_march as fm
     from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+    from dist_renderer_tpu_torch.ops.kernels import recompute as rc
     from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
     from dist_renderer_tpu_torch.profile_render import batched_setup, bench_setup
 
@@ -91,7 +104,31 @@ def main(argv=None) -> int:
         packed = fm.pack_folded(fold_latent(params, latent, dcfg), dcfg)
         pts = torch.as_tensor(np.random.default_rng(0).uniform(-1.0, 1.0, (262_144, 3)),
                               dtype=torch.float32, device=dev)
-        times["K5"] = _ms(torch, lambda: mlp_eval.point_eval(packed, pts))
+        if want("K5"):
+            times["K5"] = _ms(torch, lambda: mlp_eval.point_eval(packed, pts))
+
+        pk = rc.pack_precise(params, dcfg)
+        bs = rc.fold_bias_precise(params, latent, dcfg, pk)
+        rng = np.random.default_rng(2)
+        seeded = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                                dtype=torch.float32, device=dev)
+        p3 = pts[:65_536].contiguous()
+        v3 = torch.nn.functional.normalize(seeded(65_536, 3), dim=-1)
+        ct1, ct_b, ct3 = seeded(65_536), seeded(pts.shape[0]), seeded(65_536, 3)
+        v_b = torch.nn.functional.normalize(seeded(pts.shape[0], 3), dim=-1)
+        precise = {
+            "K3": lambda: rc.precise_sdg_call(pk, bs, p3, v3),
+            "K3 (b)": lambda: rc.precise_sdg_call(pk, bs, pts, v_b),
+            "K4 (a)": lambda: rc.precise_bias_grads_call(pk, bs, p3, ct1),
+            "K4 (b)": lambda: rc.precise_bias_grads_call(pk, bs, pts, ct_b),
+            "K4 (c)": lambda: rc.precise_bias_grads_call(
+                pk, bs, p3, ct3, scalar_chain=False, want_gx=True),
+        }
+        for name, fn in precise.items():
+            if want(name):
+                times[name] = _ms(torch, fn)
+        if not want("K6", "K1", "K2"):
+            return _report(times, root, smi, args.out)
 
         batch, _, _ = batched_setup(dev, 4, 512, 9)
         seen, real = [], mlp_eval.point_eval_banked
@@ -158,10 +195,15 @@ def main(argv=None) -> int:
         times["K2"] = _ms(torch, lambda: queue_march(
             shared_p, bank_p[:, :1].contiguous(), o2[None, :1], v2[None], key, seed,
             cfg.march, gen_caps=cfg.march.queue_caps))
+    times = {k: v for k, v in times.items() if want(k)}
+    return _report(times, root, smi, args.out)
+
+
+def _report(times, root, smi, out) -> int:
     res = dict(root=root, card=smi, ms=times)
     print(json.dumps(res))
-    if args.out:
-        with open(args.out, "w") as f:
+    if out:
+        with open(out, "w") as f:
             json.dump(res, f)
     return 0
 

@@ -52,9 +52,11 @@ SIGNATURES = {
     "drt_queue_generation": [
         _P, _I, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I,
         _P, _P, _P, _P, _P, _P],
-    "drt_precise_sdg": [_P, _P, _I, _P, _P, _P, _I, _P, _P],
+    "drt_precise_sdg": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "drt_precise_bias_grads": [
-        _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
+        _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+        _P, _P, _P],
+    "drt_precise_smem": [_P, _I],
     "drt_dot_in_order": [_P, _P, _P, _I, _I, _I, _P],
     "drt_point_eval": [_P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     "drt_point_eval_banked": [

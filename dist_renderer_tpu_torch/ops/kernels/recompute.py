@@ -24,6 +24,24 @@ Rounding points (the JAX kernel's):
 forward and the reverse sweep as the kernels do) on a CPU tensor or with
 ``use_kernel=False``.
 
+The kernels run on Hopper's tensor cores (``csrc/point_mlp.cuh``'s
+machinery): 64-point tiles on a persistent grid, every hidden product of
+the forward and of the reverse as wgmma N-chunks over all of K, the
+weights streamed from ``PackedPrecise.ftiles`` and ``.rtiles``. A value
+whose gate or bf16 rounding the tensor cores' summation order may have
+moved (within ``NEAR_TIE * 2^-24 * |w| |h|``, the scales in ``fscale``
+and ``rscale``) is summed again in the plain version's order, so s, dd,
+g and gx are the in-order plain version's bits up to a tie the empirical
+margin misses. The layer feeding a split layer runs on CUDA cores in k
+order: its consumer reads bf16(h - bf16(h)), whose boundaries put ~23%
+of its values within the margin (settled one by one on the tensor cores,
+K3 took 1.8x as long). K4 also computes the fp32 deltas u sums (the reverse of the
+layer above each layer the latent enters) in o order on CUDA cores and
+sums them per 32 points in the order of K4's CUDA-core kernel, so u keeps
+its bits. What bounds them: the hidden weights streamed through shared
+memory once forward and once in reverse per 64 points (6.5 MB for the
+8x512 decoder), as for K5.
+
 ``make_color_vjp`` is the differentiable color head: K5 (mlp_eval.py)
 forward, K4 backward with 3 seed rows.
 """
@@ -39,6 +57,14 @@ from dist_renderer_tpu_torch.config import DecoderConfig
 from dist_renderer_tpu_torch.models.decoder import Params, dot_f32, round_bf16
 from dist_renderer_tpu_torch.ops.camera import dot3
 from dist_renderer_tpu_torch.ops.kernels import build
+from dist_renderer_tpu_torch.ops.kernels.batched_march import NEAR_TIE, pack_mma_tiles
+
+TILE = 64        # points per tensor-core tile (csrc/recompute.cu)
+SUM_CHUNK = 64   # per-32-point partials K4 adds per thread, per pass
+K4_SLOTS = 2     # K4's partial sums a tile: one per 32 points
+# csrc/recompute.cu's plan: ring stages, near-tie queue entries, and the
+# shared memory a block may use
+RING_STAGES, QCAP, STAGE_BYTES, SMEM_LIMIT = 3, 1024, 16384, 232_448
 
 
 def _round_up(x: int, m: int) -> int:
@@ -66,13 +92,19 @@ class PackedPrecise(NamedTuple):
     the bf16 operands the plain version multiplies: wh_hi/wh_lo
     [in_p, out_p] (forward), wx_hi/wx_lo [3, out_p]; the reverse reuses
     wh_hi and wx_hi in their original orientation. ``flat``/``table`` are
-    the CUDA layout: one bf16 buffer holding, per layer, the forward
-    weights input-major ([in_p][out_p]: hi, then lo for split layers), the
-    reverse weights output-major ([out_p][in_p]) and the x weights
+    the CUDA layout: one bf16 buffer holding, per layer, the hi weights
+    input-major ([in_p][out_p]: the reverse's rows), for split layers the
+    lo weights output-major ([out_p][in_p]: the forward's in-order rows),
+    the hi weights output-major ([out_p][in_p]) and the x weights
     ([3][out_p] hi, then lo); ``table`` starts with (use_tanh,
-    final_tanh) and holds per layer (out_p, in_p, split, fwd_hi, fwd_lo,
+    final_tanh) and holds per layer (out_p, in_p, split, fwd_hi, lo_rows,
     rev, wx_hi, wx_lo, bias offset), -1 = absent. ``wz`` keeps
-    (layer, W_z [L, out]) for the latent fold."""
+    (layer, W_z [L, out]) for the latent fold.
+
+    The tensor-core layout (``precise_mma``): ``ftiles`` and ``rtiles``
+    the forward's and the reverse's weight tiles in stream order,
+    ``fscale`` and ``rscale`` fp32 near-tie scales at the bias rows
+    (forward: the layer's own; reverse of layer l: layer l - 1's)."""
 
     meta: Tuple[LayerMeta, ...]
     layers: Tuple[dict, ...]
@@ -81,6 +113,10 @@ class PackedPrecise(NamedTuple):
     final_tanh: bool
     flat: torch.Tensor
     table: Tuple[int, ...]
+    ftiles: torch.Tensor
+    rtiles: torch.Tensor
+    fscale: torch.Tensor
+    rscale: torch.Tensor
 
 
 def pack_precise(params: Params, cfg: DecoderConfig) -> PackedPrecise:
@@ -122,7 +158,7 @@ def pack_precise(params: Params, cfg: DecoderConfig) -> PackedPrecise:
 
         ops = {}
         in_p = 0
-        fwd_hi = fwd_lo = rev = wx_hi = wx_lo = -1
+        fwd_hi = lo_rows = rev = wx_hi = wx_lo = -1
         if wh is not None:
             in_dim = wh.shape[0]
             in_p = prev_out_p if prev_out_p else _round_up(in_dim, 8)
@@ -133,7 +169,7 @@ def pack_precise(params: Params, cfg: DecoderConfig) -> PackedPrecise:
             fwd_hi = put(hi)
             if split:
                 ops["wh_lo"] = lo.to(f32)
-                fwd_lo = put(lo)
+                lo_rows = put(lo.T.contiguous())
             rev = put(hi.T.contiguous())
         if wx is not None:
             wp = torch.zeros((3, out_p), dtype=f32, device=dev)
@@ -144,13 +180,133 @@ def pack_precise(params: Params, cfg: DecoderConfig) -> PackedPrecise:
         meta.append(LayerMeta(wh is not None, wx is not None, split, takes_z,
                               out_p, in_p))
         layers.append(ops)
-        table += [out_p, in_p, int(split), fwd_hi, fwd_lo, rev, wx_hi, wx_lo,
+        table += [out_p, in_p, int(split), fwd_hi, lo_rows, rev, wx_hi, wx_lo,
                   bias_off]
         bias_off += out_p
         prev_out_p = out_p
     return PackedPrecise(tuple(meta), tuple(layers), tuple(wz_list),
                          cfg.use_tanh, cfg.final_tanh,
-                         torch.cat(flat).contiguous(), tuple(table))
+                         torch.cat(flat).contiguous(), tuple(table),
+                         *precise_mma(tuple(meta), tuple(layers)))
+
+
+def exact_layers(meta) -> Tuple[bool, ...]:
+    """Per layer: computed on CUDA cores in k order by the kernels (layer
+    0, which has no hidden input, and a layer whose consumer splits its
+    input); the others' hidden products run on the tensor cores."""
+    n = len(meta)
+    return tuple(i == 0 or (i + 1 < n and meta[i + 1].split) for i in range(n))
+
+
+def fwd_mma_mats(meta, layers):
+    """The forward's B matrices, [out_p, K] bf16 per tensor-core layer
+    (None elsewhere, the last layer included): K = round_up(in_p, 16) of
+    W_hi^T, and for a split layer three such blocks, W_hi^T, W_lo^T,
+    W_hi^T, against its input read as [hi | hi | lo]."""
+    exact = exact_layers(meta)
+    mats = []
+    for i, (m, ops) in enumerate(zip(meta, layers)):
+        if exact[i] or i == len(meta) - 1:
+            mats.append(None)
+            continue
+        kh = _round_up(m.in_p, 16)
+        blocks = [ops["wh_hi"], ops["wh_lo"], ops["wh_hi"]] if m.split else [ops["wh_hi"]]
+        mat = torch.zeros((m.out_p, kh * len(blocks)), dtype=torch.float32,
+                          device=ops["wh_hi"].device)
+        for j, w in enumerate(blocks):
+            mat[:, j * kh:j * kh + m.in_p] = w.T
+        mats.append(mat.to(torch.bfloat16))
+    return mats
+
+
+def rev_mma_mats(meta, layers):
+    """The reverse's B matrices in stream order, layers L-1 down to 1:
+    W_hi [in_p, out_p] bf16 (N = in_p, K = out_p)."""
+    return [layers[i]["wh_hi"].to(torch.bfloat16) for i in range(len(meta) - 2, 0, -1)]
+
+
+def precise_mma(meta, layers):
+    """(ftiles, rtiles, fscale, rscale): the kernels' tensor-core
+    layout of the packed weights (see PackedPrecise), built once per
+    packing."""
+    dev = layers[-1]["wh_hi"].device
+    offs = [0]
+    for m in meta:
+        offs.append(offs[-1] + m.out_p)
+    fmats = fwd_mma_mats(meta, layers)
+    unit = NEAR_TIE * 2.0 ** -24
+    fscale = torch.zeros(offs[-1], dtype=torch.float32, device=dev)
+    rscale = torch.zeros(offs[-1], dtype=torch.float32, device=dev)
+    for i, mat in enumerate(fmats):
+        if mat is not None:
+            fscale[offs[i]:offs[i + 1]] = unit * torch.linalg.vector_norm(
+                mat.to(torch.float32), dim=1)
+    for i in range(1, len(meta) - 1):
+        rscale[offs[i - 1]:offs[i]] = unit * torch.linalg.vector_norm(
+            layers[i]["wh_hi"], dim=1)
+    return (pack_mma_tiles(fmats).to(dev), pack_mma_tiles(rev_mma_mats(meta, layers)).to(dev),
+            fscale, rscale)
+
+
+def gate_words(meta) -> int:
+    """The kernels' gate bitmask words a tile: [64][ceil(out_p / 32)] for
+    every layer but the last."""
+    return sum(TILE * ((m.out_p + 31) // 32) for m in meta[:-1])
+
+
+def act_width(meta) -> int:
+    """The kernels' activation buffer width: every layer's outputs and
+    inputs rounded up to 16, a split layer's input twice ([hi | lo])."""
+    w = 16
+    for m in meta:
+        w = max(w, _round_up(m.out_p, 16),
+                (2 if m.split and m.has_wh else 1) * _round_up(m.in_p, 16))
+    return w
+
+
+def precise_smem_bytes(packed: PackedPrecise) -> int:
+    """The dynamic shared memory K3 and K4 ask for with this decoder:
+    csrc/recompute.cu's smem_plan (two [64, w16] bf16 activation buffers,
+    the weight ring, the gates, a layer's biases and near-tie scales,
+    positions, directions, the xyz gradient, row 0's preactivation and s,
+    row norms, the near-tie queue and its overflow bits, barriers). The
+    kernels' own sum, drt_precise_smem, is held equal to this one on the
+    card."""
+    w16 = act_width(packed.meta)
+    act = (2 * TILE * w16 * 2 + 1023) // 1024 * 1024
+    return (act + RING_STAGES * STAGE_BYTES + 4 * gate_words(packed.meta) + 8 * w16
+            + 4 * TILE * 15 + 4 * QCAP + 16 + TILE * w16 // 8 + 16 * RING_STAGES)
+
+
+def mma_values(packed: PackedPrecise, n: int, k4: bool = False) -> int:
+    """The values K3 (or, with k4, K4) computes on the tensor cores for n
+    points (the tiles' padded rows included): the near-tie queue's
+    denominator. K4 runs the reverse of a layer on CUDA cores where the
+    latent enters the layer below it."""
+    meta, exact = packed.meta, exact_layers(packed.meta)
+    per_row = sum(m.out_p for i, m in enumerate(meta[:-1]) if not exact[i])
+    per_row += sum(m.in_p for i, m in enumerate(meta) if 0 < i < len(meta) - 1
+                   and not (k4 and meta[i - 1].takes_z))
+    return _round_up(max(n, 0), TILE) * per_row
+
+
+def check_precise_plan(packed: PackedPrecise, device) -> None:
+    """Raise if the packed weights are not on ``device`` or the
+    shared-memory plan of K3 and K4 cannot hold the decoder."""
+    bufs = (packed.flat, packed.ftiles, packed.rtiles, packed.fscale, packed.rscale)
+    if any(t.device != device for t in bufs):
+        raise ValueError("packed weights must sit on the points' device")
+    need = precise_smem_bytes(packed)
+    if need > SMEM_LIMIT:
+        width = max(m.out_p for m in packed.meta)
+        raise ValueError(f"a decoder of width {width} needs {need} bytes of shared memory "
+                         f"per block for K3/K4, more than the {SMEM_LIMIT} an H100 block "
+                         "can use")
+
+
+def _mma_ptrs(packed: PackedPrecise):
+    return (build.ptr(packed.flat), build.ptr(packed.ftiles), build.ptr(packed.rtiles),
+            build.ptr(packed.fscale), build.ptr(packed.rscale))
 
 
 def fold_bias_precise(params: Params, latent: torch.Tensor,
@@ -273,32 +429,31 @@ def precise_sdg_call(packed: PackedPrecise, biases, points: torch.Tensor,
                              "tensors on one CUDA device")
     if points.shape != (n, 3) or dirs.shape != (n, 3):
         raise ValueError("points and dirs must both be [N, 3]")
-    if packed.flat.device != points.device:
-        raise ValueError("packed weights must sit on the points' device")
+    check_precise_plan(packed, points.device)
     out = torch.empty((5, n), dtype=torch.float32, device=points.device)
+    ties = torch.zeros(2, dtype=torch.int32, device=points.device)
     tab = (ctypes.c_int * len(packed.table))(*packed.table)
     lib = build.load()
     lib.call("drt_precise_sdg", build.ptr(points), build.ptr(dirs), n,
-             build.ptr(packed.flat), build.ptr(bias), tab, len(packed.meta),
-             build.ptr(out), build.stream_of(points))
+             *_mma_ptrs(packed), build.ptr(bias), tab, len(packed.meta),
+             build.ptr(out), build.ptr(ties), build.stream_of(points))
     precise_sdg_call.launches += 1
+    precise_sdg_call.ties = ties
     # g contiguous [N, 3] like the plain version's: a reduction over it
     # (the normal's length) then runs the same way on either
     return out[0], out[1], out[2:5].T.contiguous()
 
 
 precise_sdg_call.launches = 0
-
-
-TILE = 32       # points per CUDA thread block (csrc/march_body.cuh)
-SUM_CHUNK = 64  # per-tile partials K4 adds per thread, per pass
+# the last launch's [values queued as near ties, values past the queue]
+precise_sdg_call.ties = None
 
 
 def _seed_cols(ct: torch.Tensor, n: int) -> torch.Tensor:
     """ct [N] or [N, seed_rows] -> contiguous fp32 [N, seed_rows]."""
     if ct.shape[0] != n or ct.ndim not in (1, 2):
         raise ValueError("ct must be [N] or [N, seed_rows] for N points")
-    return ct.reshape(n, -1).to(torch.float32).contiguous()
+    return (ct[:, None] if ct.ndim == 1 else ct).to(torch.float32).contiguous()
 
 
 def precise_bias_grads_plain(packed: PackedPrecise, biases,
@@ -354,25 +509,26 @@ def precise_bias_grads_call(packed: PackedPrecise, biases,
     if cols.shape[1] > meta[-1].out_p:
         raise ValueError(f"ct has {cols.shape[1]} seed rows; the last layer "
                          f"has {meta[-1].out_p}")
-    if packed.flat.device != points.device:
-        raise ValueError("packed weights must sit on the points' device")
+    check_precise_plan(packed, points.device)
     dev = points.device
     u_rows = sum(m.out_p for m in meta if m.takes_z)
-    tiles = max((n + TILE - 1) // TILE, 1)
-    partials = torch.empty(tiles * u_rows, dtype=torch.float64, device=dev)
-    scratch = torch.empty(((tiles + SUM_CHUNK - 1) // SUM_CHUNK) * u_rows,
+    slots = k4_slots(n)
+    partials = torch.empty(slots * u_rows, dtype=torch.float64, device=dev)
+    scratch = torch.empty(((slots + SUM_CHUNK - 1) // SUM_CHUNK) * u_rows,
                           dtype=torch.float64, device=dev)
     u = torch.empty(u_rows, dtype=torch.float32, device=dev)
     gx = torch.empty((n, 3), dtype=torch.float32, device=dev) if want_gx else None
+    ties = torch.zeros(2, dtype=torch.int32, device=dev)
     tab = (ctypes.c_int * len(packed.table))(*packed.table)
     lib = build.load()
     lib.call("drt_precise_bias_grads", build.ptr(points), build.ptr(cols), n,
-             cols.shape[1], int(scalar_chain), build.ptr(packed.flat),
+             cols.shape[1], int(scalar_chain), *_mma_ptrs(packed),
              build.ptr(bias), tab, len(meta),
              build.ptr(gx) if want_gx else None, build.ptr(partials),
-             build.ptr(scratch), tiles, SUM_CHUNK, build.ptr(u),
-             build.stream_of(points))
+             build.ptr(scratch), slots, SUM_CHUNK, build.ptr(u),
+             build.ptr(ties), build.stream_of(points))
     precise_bias_grads_call.launches += 1
+    precise_bias_grads_call.ties = ties
     us, off = [], 0
     for m in meta:
         if m.takes_z:
@@ -382,6 +538,13 @@ def precise_bias_grads_call(packed: PackedPrecise, biases,
 
 
 precise_bias_grads_call.launches = 0
+precise_bias_grads_call.ties = None
+
+
+def k4_slots(n: int) -> int:
+    """K4's partial sums for n points: one per 32 points of each 64-point
+    tile (at least one tile, so n = 0 still has a buffer)."""
+    return K4_SLOTS * max((n + TILE - 1) // TILE, 1)
 
 
 def latent_grad(packed: PackedPrecise, us) -> torch.Tensor:

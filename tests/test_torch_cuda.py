@@ -201,9 +201,15 @@ K3_ARCHS = [
 ]
 
 
+# point counts: not a multiple of the 64-point tile, under one tile, and
+# one past a multiple of it
+K34_SIZES = [3000, 40, 64 * 5 + 1]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", K34_SIZES)
 @pytest.mark.parametrize("arch", range(len(K3_ARCHS) + 1))
-def test_cuda_k3_matches_plain(arch, k_order):
+def test_cuda_k3_matches_plain(arch, n, k_order):
     dev = _device()
     rng = np.random.default_rng(arch)
     if arch == len(K3_ARCHS):  # the 8x512 bench decoder
@@ -216,7 +222,6 @@ def test_cuda_k3_matches_plain(arch, k_order):
              "b": 0.1 * rng.standard_normal(o)} for i, o in cfg.layer_dims]}, dev)
         z = torch.as_tensor(0.3 * rng.standard_normal(cfg.latent_size),
                             dtype=torch.float32, device=dev)
-    n = 3000  # not a multiple of the tile
     pts = torch.as_tensor(0.6 * rng.standard_normal((n, 3)), dtype=torch.float32,
                           device=dev)
     dirs = torch.nn.functional.normalize(
@@ -262,15 +267,16 @@ K4_MODES = [dict(scalar_chain=True, want_gx=False), dict(scalar_chain=True, want
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", K34_SIZES)
 @pytest.mark.parametrize("mode", range(len(K4_MODES)))
 @pytest.mark.parametrize("arch", range(len(K3_ARCHS) + 1))
-def test_cuda_k4_matches_plain(arch, mode, k_order):
+def test_cuda_k4_matches_plain(arch, mode, n, k_order):
     """K4 against its in-order plain version: gx bit for bit; u (a sum
-    over 3,000 points, in fp64 in either, in another order) within
+    over the points, in fp64 in either, in another order) within
     relative L2 1e-6; two launches give the same bits."""
     dev = _device()
     kw = K4_MODES[mode]
-    _, _, _, pk, b, pts, cts = _k4_inputs(arch, dev)
+    _, _, _, pk, b, pts, cts = _k4_inputs(arch, dev, n)
     ct = cts[1 if kw["scalar_chain"] else 3]
     n0 = rc.precise_bias_grads_call.launches
     out = rc.precise_bias_grads_call(pk, b, pts, ct, **kw)
@@ -290,6 +296,186 @@ def test_cuda_k4_matches_plain(arch, mode, k_order):
     if kw["want_gx"]:
         assert torch.equal(us[1], ur[1]) and torch.equal(us[1], us2[1])
         assert torch.isfinite(us[1]).all()
+
+
+def _u_in_slot_order(delta: torch.Tensor) -> torch.Tensor:
+    """K4's sum of delta [N, R] over the points, emulated: per 32 points a
+    warp's shuffle-down tree in fp64 (x[i] + x[i + 16], then + the
+    partner 8, 4, 2, 1 on), then the slots added in order, 64 a pass
+    (recompute.SUM_CHUNK), rounded once to fp32."""
+    n, rows = delta.shape
+    slots = rc.k4_slots(n)
+    x = torch.zeros((slots * 32, rows), dtype=torch.float64, device=delta.device)
+    x[:n] = delta.double()
+    s = x.reshape(slots, 32, rows)
+    s = s[:, :16] + s[:, 16:]
+    for off in (8, 4, 2, 1):
+        s = s[:, :off] + s[:, off:2 * off]
+    parts = s[:, 0]
+    while True:
+        chunks = [parts[c:c + rc.SUM_CHUNK] for c in range(0, parts.shape[0], rc.SUM_CHUNK)]
+        sums = []
+        for ch in chunks:
+            acc = torch.zeros(rows, dtype=torch.float64, device=delta.device)
+            for q in range(ch.shape[0]):
+                acc = acc + ch[q]
+            sums.append(acc)
+        parts = torch.stack(sums)
+        if len(chunks) == 1:
+            return parts[0].float()
+
+
+def _u_deltas(pk, b, pts, ct):
+    """The plain version's fp32 delta of each layer the latent enters, in
+    ascending order, from the scalar chain's seed ct (its reverse sweep,
+    keeping what u sums)."""
+    from dist_renderer_tpu_torch.models.decoder import round_bf16
+
+    pre, gates = rc._forward_plain(pk, b, pts)
+    _, delta = rc._seed_last(pk, pre, ct)
+    deltas = []
+    for i in range(len(pk.meta) - 1, -1, -1):
+        m, ops = pk.meta[i], pk.layers[i]
+        if m.takes_z:
+            deltas.append(delta)
+        if not m.has_wh:
+            break
+        delta = rc.dot_f32(round_bf16(delta), ops["wh_hi"].T) * gates[i - 1].float()
+    return deltas[::-1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", [0, len(K3_ARCHS)])
+def test_cuda_k4_u_is_the_in_order_deltas_summed_in_slot_order(arch, k_order):
+    """K4's u, bit for bit: the in-order plain version's fp32 delta of each
+    layer the latent enters, summed per 32 points by the shuffle-down tree
+    and the slots in order (the sum of K4 on CUDA cores, so the tasks' fits
+    keep their trajectories), for 3,000 and 40 points."""
+    dev = _device()
+    for n in (3000, 40):
+        _, _, _, pk, b, pts, cts = _k4_inputs(arch, dev, n)
+        us = rc.precise_bias_grads_call(pk, b, pts, cts[1])
+        deltas = _u_deltas(pk, b, pts, cts[1])
+        torch.cuda.synchronize()
+        assert len(us) == len(deltas) == 2
+        for u, d in zip(us, deltas):
+            assert torch.equal(u, _u_in_slot_order(d)), n
+
+
+@pytest.mark.gpu
+def test_cuda_k3_k4_latent_in_the_last_layers_match_plain(k_order):
+    """A 4x48 decoder whose latent also enters the last two layers: the
+    layer below a split layer is itself split (three in-order passes on
+    CUDA cores), the last layer's value reads hi and lo, and K4 sums u of
+    the last layer and of the one below it from CUDA-core values. K3's s,
+    dd, g and K4's gx equal the in-order plain version's in every mode, u
+    within relative L2 1e-6 and in K4's slot order bit for bit."""
+    dev = _device()
+    cfg = DecoderConfig(latent_size=16, hidden_dims=(48,) * 4, latent_in=(3, 4))
+    rng = np.random.default_rng(5)
+    params = params_from_numpy({"layers": [
+        {"w": rng.standard_normal((i, o)) * np.sqrt(2.0 / i),
+         "b": 0.1 * rng.standard_normal(o)} for i, o in cfg.layer_dims]}, dev)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    z = t(0.3 * rng.standard_normal(16))
+    n = 700
+    pts = t(0.6 * rng.standard_normal((n, 3)))
+    dirs = torch.nn.functional.normalize(t(rng.standard_normal((n, 3))), dim=-1)
+    cts = {1: t(rng.standard_normal(n)), 3: t(rng.standard_normal((n, 3)))}
+    pk = rc.pack_precise(params, cfg)
+    b = rc.fold_bias_precise(params, z, cfg, pk)
+    assert rc.exact_layers(pk.meta) == (True, False, True, True, False)
+    out = rc.precise_sdg_call(pk, b, pts, dirs)
+    ref = rc.precise_sdg_call(pk, b, pts, dirs, use_kernel=False)
+    for name, a, r in zip(("s", "dd", "g"), out, ref):
+        assert torch.equal(a, r), name
+    for kw in K4_MODES:
+        ct = cts[1 if kw["scalar_chain"] else 3]
+        (uk, gk), (ur, gr) = (rc.precise_bias_grads_call(pk, b, pts, ct, use_kernel=k,
+                                                         **dict(kw, want_gx=True))
+                              for k in (True, False))
+        assert torch.equal(gk, gr), kw
+        assert len(uk) == 3
+        for a, r in zip(uk, ur):
+            rel = ((a.double() - r.double()).norm() / r.double().norm()).item()
+            assert rel <= 1e-6, (kw, rel)
+    # the scalar chain's u in K4's slot order, from the in-order deltas
+    us = rc.precise_bias_grads_call(pk, b, pts, cts[1])
+    deltas = _u_deltas(pk, b, pts, cts[1])
+    torch.cuda.synchronize()
+    for u, d in zip(us, deltas):
+        assert torch.equal(u, _u_in_slot_order(d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", range(len(K4_MODES)))
+def test_cuda_k4_of_no_points_is_zero(mode):
+    """K4 over no points: u is zero, gx empty, and no kernel of the sweep
+    runs."""
+    dev = _device()
+    kw = K4_MODES[mode]
+    _, _, _, pk, b, pts, cts = _k4_inputs(1, dev, n=8)
+    ct = cts[1 if kw["scalar_chain"] else 3][:0]
+    out = rc.precise_bias_grads_call(pk, b, pts[:0].contiguous(), ct.contiguous(), **kw)
+    torch.cuda.synchronize()
+    us = out[0] if kw["want_gx"] else out
+    assert all(torch.equal(u, torch.zeros_like(u)) for u in us)
+    if kw["want_gx"]:
+        assert out[1].shape == (0, 3)
+
+
+def _tie_decoder(dev, seed=7):
+    """A 4x48 decoder whose tensor-core values sit on near ties: layer 1's
+    outputs come in equal pairs and layer 2's input rows in opposite
+    pairs, so half of layer 2's preactivations (zero bias) cancel to 0
+    forward, and the reverse of layer 1 cancels to 0 wherever delta
+    flows: 64 rows x 24 or more values a tile, past the near-tie queue."""
+    cfg = DecoderConfig(latent_size=8, hidden_dims=(48,) * 4, latent_in=())
+    rng = np.random.default_rng(seed)
+    layers = [{"w": rng.standard_normal((i, o)) * np.sqrt(2.0 / i),
+               "b": 0.1 * rng.standard_normal(o)} for i, o in cfg.layer_dims]
+    w1, b1 = layers[1]["w"], layers[1]["b"]
+    w1[:, 1::2], b1[1::2] = w1[:, 0::2], b1[0::2]
+    w2, b2 = layers[2]["w"], layers[2]["b"]
+    w2[1::2] = -w2[0::2]
+    b2[:24], b2[24:] = 0.0, 0.5
+    params = params_from_numpy({"layers": layers}, dev)
+    z = torch.as_tensor(0.3 * rng.standard_normal(8), dtype=torch.float32, device=dev)
+    return params, cfg, z
+
+
+@pytest.mark.gpu
+def test_cuda_k3_k4_near_tie_overflow_matches_plain(k_order):
+    """Past the near-tie queue (QCAP values a layer) the overflow bits
+    carry the rest: on _tie_decoder K3's s, dd, g and K4's gx equal the
+    in-order plain version's, and both kernels' counters show values past
+    the queue. u: layer 0's delta cancels to 0 in the plain version; K4
+    computes that delta in o order from the settled bf16(delta_1) (the
+    overflow's bits among them) and sums it in its slot order, so u is
+    that sum of the in-order deltas bit for bit, and 0."""
+    dev = _device()
+    params, cfg, z = _tie_decoder(dev)
+    rng = np.random.default_rng(3)
+    n = 300
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    pts, ct = t(0.6 * rng.standard_normal((n, 3))), t(rng.standard_normal(n))
+    dirs = torch.nn.functional.normalize(t(rng.standard_normal((n, 3))), dim=-1)
+    pk = rc.pack_precise(params, cfg)
+    b = rc.fold_bias_precise(params, z, cfg, pk)
+    out = rc.precise_sdg_call(pk, b, pts, dirs)
+    ref = rc.precise_sdg_call(pk, b, pts, dirs, use_kernel=False)
+    (uk, gk), (ur, gr) = (rc.precise_bias_grads_call(pk, b, pts, ct, use_kernel=k, want_gx=True)
+                          for k in (True, False))
+    torch.cuda.synchronize()
+    for name, a, r in zip(("s", "dd", "g"), out, ref):
+        assert torch.equal(a, r), name
+    assert torch.equal(gk, gr)
+    assert len(uk) == 1 and torch.equal(ur[0], torch.zeros_like(ur[0]))
+    (d0,) = _u_deltas(pk, b, pts, ct)
+    assert torch.equal(uk[0], _u_in_slot_order(d0)) and torch.equal(uk[0], ur[0])
+    for fn in (rc.precise_sdg_call, rc.precise_bias_grads_call):
+        queued, past = fn.ties.tolist()
+        assert past > 0 and queued > past, (fn.__name__, queued, past)
 
 
 @pytest.mark.gpu
@@ -1220,6 +1406,35 @@ def test_cuda_march_registers_unchanged():
         assert got == [want], (key, got)
     assert any("point_mlp_kernel" in name for name in regs)
     assert sum("march_mma_kernel" in name for name in regs) == 2
+    # K5, K6, K1 and K1-multi share point_mlp.cuh's wgmma loop and
+    # producer with K3 and K4: their registers stay the parent's 168
+    mma = {n: r for n, r in regs.items() if "point_mlp_kernel" in n or "march_mma_kernel" in n}
+    assert set(mma.values()) == {168}, mma
+    assert sum("precise_kernel" in name for name in regs) == 2
+
+
+@pytest.mark.gpu
+def test_cuda_precise_smem_plan_matches_the_host():
+    """K3's and K4's shared-memory plan (drt_precise_smem, recompute.cu's
+    smem_plan) and the wrappers' own sum (precise_smem_bytes) agree on the
+    card tests' decoders, the bench 8x512 (227,136 bytes, under the
+    232,448 a block may use) and the 8x512 color decoder."""
+    import ctypes
+
+    from dist_renderer_tpu_torch.models.color_decoder import (
+        init_color_params, make_color_config,
+    )
+
+    _device()
+    lib = build.load()
+    packs = [_k4_inputs(arch, torch.device("cpu"), n=4)[3] for arch in range(len(K3_ARCHS) + 1)]
+    ccfg = make_color_config()
+    packs.append(rc.pack_precise(init_color_params(torch.Generator().manual_seed(0), ccfg,
+                                                   "cpu"), ccfg))
+    for pk in packs:
+        tab = (ctypes.c_int * len(pk.table))(*pk.table)
+        assert lib.drt_precise_smem(tab, len(pk.meta)) == rc.precise_smem_bytes(pk)
+    assert rc.precise_smem_bytes(packs[len(K3_ARCHS)]) == 227_136
 
 
 @pytest.mark.gpu
@@ -1254,9 +1469,9 @@ def sass_functions(sass: str) -> dict:
 
 @pytest.mark.gpu
 def test_cuda_point_evals_run_on_tensor_cores():
-    """Every K5 and K6 kernel of the built library, and K1's and
-    K1-multi's, issues warpgroup MMAs (HGMMA in its SASS); K1-grid and K2
-    issue none."""
+    """Every K5 and K6 kernel of the built library, K1's and K1-multi's,
+    and K3's and K4's (precise_kernel), issues warpgroup MMAs (HGMMA in
+    its SASS); K1-grid and K2 issue none."""
     import shutil
     import subprocess
 
@@ -1268,8 +1483,9 @@ def test_cuda_point_evals_run_on_tensor_cores():
     funcs = sass_functions(sass)
     point = {k: v for k, v in funcs.items() if "point_mlp_kernel" in k}
     march = {k: v for k, v in funcs.items() if "march_mma_kernel" in k}
-    assert len(point) >= 4 and len(march) == 2, sorted(funcs)
-    for name, text in {**point, **march}.items():
+    precise = {k: v for k, v in funcs.items() if "precise_kernel" in k}
+    assert len(point) >= 4 and len(march) == 2 and len(precise) == 2, sorted(funcs)
+    for name, text in {**point, **march, **precise}.items():
         assert "HGMMA" in text, name
     for name, text in funcs.items():
         if "sphere_trace_grid" in name or "queue_generation" in name:

@@ -90,7 +90,7 @@ def test_plain_k3_matches_pallas_precise_sdg(kw):
 
 def test_pack_precise_kernel_layout():
     """The CUDA buffer holds every operand the plain version multiplies:
-    forward input-major hi/lo, reverse output-major, x rows hi/lo."""
+    hi input-major, lo and hi output-major, x rows hi/lo."""
     kw = ARCHS[0]
     params, *_ = _setup(kw, n=4)
     pk = trec.pack_precise(params_from_numpy(params), DecoderConfig(**kw))
@@ -105,7 +105,7 @@ def test_pack_precise_kernel_layout():
             assert torch.equal(blk(fhi, in_p, out_p), ops["wh_hi"])
             assert torch.equal(blk(rev, out_p, in_p), ops["wh_hi"].T)
             if m.split:
-                assert torch.equal(blk(flo, in_p, out_p), ops["wh_lo"])
+                assert torch.equal(blk(flo, out_p, in_p), ops["wh_lo"].T)
         if m.has_wx:
             assert torch.equal(flat[xhi:xhi + 3 * out_p].reshape(3, out_p), ops["wx_hi"])
             assert torch.equal(flat[xlo:xlo + 3 * out_p].reshape(3, out_p), ops["wx_lo"])
