@@ -21,8 +21,9 @@ server, in process, on the committed torus 8x512 decoder; then
 bench.py's batched headline: 64 frames of the bench cell through
 render_batched_c2f on the rounds scheduler in the three verify modes,
 with the multi-frame grid march (K1-multi) held to K1 and to its plain
-version and K1 to the CUDA-core K1-grid on every ray of the first verify
-round, and with the certification path (verify_mode="cert" and the
+version and K1 and K1-grid to the in-order witness (the CUDA-core march,
+every sum in k order) on every ray of the first verify round, and with
+the certification path (verify_mode="cert" and the
 hybrid, on the banked point eval K6, which phase 3 holds against its
 plain version, as phases 4 and 8 do at their own shapes, and phase 4
 serves once each); and last the bulk point
@@ -340,6 +341,45 @@ TRACE_FIELDS = ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf",
                 "unresolved", "steps_per_ray", "bracketed")
 
 
+def k2_generations(torch, run):
+    """K2's generations in run() (one queue_march call on the card), read
+    through queue_march.generation_watch: each one's queued rays, device
+    time (CUDA events between its launches, in a run that reads nothing
+    else), and active ray-steps against its 64-row tiles' lane-steps (a
+    second run, the queues and step counts copied between launches)."""
+    from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+    from dist_renderer_tpu_torch.ops.kernels import queue_march as qm
+
+    events, snaps = [], []
+
+    def timed(state, queue, count):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    def read(state, queue, count):
+        snaps.append((state[10].clone(), queue[:int(count.item())].clone()))
+
+    try:
+        qm.generation_watch = timed
+        run()
+        torch.cuda.synchronize()
+        qm.generation_watch = read
+        run()
+        torch.cuda.synchronize()
+    finally:
+        qm.generation_watch = None
+    rows = []
+    for g in range(len(snaps) - 1):
+        steps0, q = snaps[g]
+        delta = (snaps[g + 1][0] - steps0)[q.long()].to(torch.int32)
+        tiles = bm.march_tile_steps(delta)
+        lanes = bm.MARCH_TILE * int(tiles.sum())
+        rows.append(dict(rays=q.numel(), ms=events[g].elapsed_time(events[g + 1]),
+                         ray_steps=int(delta.sum()), lane_steps=lanes,
+                         lane_share=int(delta.sum()) / max(lanes, 1)))
+    return rows
+
+
 def k1_grid_phase(torch, dev, params, dcfg, latent, cfg, origins, dirs):
     """Phase 3, K1-grid on the bench decoder folded at the bench latent,
     every ray of the 512^2 bench camera: (a) one full-budget march from
@@ -594,9 +634,10 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
     (verify_band="probe"), the certification on K6, whose calls in the
     warm-up batch of (d) and (e) are held against its plain version;
     render_depth_batched at F=64. Then, outside the counted run: K1-multi
-    against K1, K1 against K1-grid frame by frame (the tensor-core march
-    against the CUDA-core one, every ray's bits), both against their plain
-    version, and the round's active ray-steps against its lane-steps, on
+    against K1, K1 and K1-grid (frame by frame) against the in-order
+    witness (the tensor-core march against the CUDA-core one summing in k
+    order, every ray's bits), both against their plain version, and the
+    round's active ray-steps against its lane-steps, on
     the verify stage's first round at F=64, render_depth_batched against
     K1, and the kernel path of
     (a) and of (d) against the plain versions at F=4 ((d) on three sets of
@@ -736,23 +777,37 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
         b.record()
         torch.cuda.synchronize()
         plain_ms = a.elapsed_time(b)
-        # K1 against the CUDA-core march (K1-grid, sphere_trace.cuh's
-        # mlp_tile) on the same rays, frame by frame, each frame's bank
-        # column as K1-grid's folded biases: every ray's bits
+        # K1 and K1-grid against the in-order witness (csrc/march_in_order.cu:
+        # the decoder on CUDA cores, every sum in k order) on the same rays:
+        # K1 in one launch over every frame, K1-grid frame by frame with that
+        # frame's bank column as its folded biases; every ray's bits
         from dist_renderer_tpu_torch.ops.kernels import fused_march as fm
+        from dist_renderer_tpu_torch.ops.kernels.march_in_order import trace_in_order
 
         f_r, r_r = v_r.shape[0], v_r.shape[1]
         r_pad = k1.steps_per_ray.shape[0] // f_r
-        k1_steps = k1.steps_per_ray.reshape(f_r, r_pad)[:, :r_r]
-        cross = 0
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        w = trace_in_order(packed[0], bank, o_r, v_r, m_r, seed_r, act_r, salvage)
+        b.record()
+        torch.cuda.synchronize()
+        witness_ms = a.elapsed_time(b)
+        w_steps = w.steps_per_ray.reshape(f_r, r_pad)[:, :r_r]
+        fields = ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf", "unresolved",
+                  "bracketed")
+        bad = k1.steps_per_ray.reshape(f_r, r_pad)[:, :r_r] != w_steps
+        for f in fields:
+            bad |= differ(getattr(k1, f), getattr(w, f))
+        cross = int(bad.sum())
+        cross_grid = 0
         for i in range(f_r):
             g = fm.sphere_trace_grid(fm.PackedFolded(packed[0], bank[:, i:i + 1].contiguous()),
                                      o_r[i], v_r[i], m_r, seed_r[i], act_r[i], salvage)
-            bad = g.steps_per_ray != k1_steps[i]
-            for f in ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf", "unresolved",
-                      "bracketed"):
-                bad |= differ(getattr(g, f), getattr(k1, f)[i])
-            cross += int(bad.sum())
+            bad = g.steps_per_ray != w_steps[i]
+            for f in fields:
+                bad |= differ(getattr(g, f), getattr(w, f)[i])
+            cross_grid += int(bad.sum())
         torch.cuda.synchronize()
     # the round's lanes: a 64-ray tile steps while any of its rays is active
     tile_steps = bm.march_tile_steps(k1.steps_per_ray)
@@ -760,15 +815,16 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
                  lane_steps=bm.MARCH_TILE * int(tile_steps.sum()),
                  live_tiles=int((tile_steps > 0).sum()), tiles=tile_steps.numel(),
                  lane_steps_32=bm.TILE * int(k1.steps_per_ray.reshape(-1, bm.TILE).amax(1).sum()))
-    print(f"K1 == K1-grid (the CUDA-core march, frame by frame) on the verify stage's "
-          f"first round: {cross} rays differ of {f_r * r_r}; lanes of K1 and K1-multi "
+    print(f"the in-order witness (CUDA cores, {witness_ms:.1f} ms) on the verify stage's "
+          f"first round: K1 differs on {cross} rays of {f_r * r_r}, K1-grid (frame by "
+          f"frame) on {cross_grid}; lanes of K1 and K1-multi "
           f"(64-ray tiles): {lanes['ray_steps']} active ray-steps of {lanes['lane_steps']} "
           f"lane-steps ({lanes['ray_steps'] / max(lanes['lane_steps'], 1):.4f}; 32-ray "
           f"tiles would spend {lanes['lane_steps_32']}), {lanes['tile_steps']} tile "
           f"evaluations, {lanes['live_tiles']} of {lanes['tiles']} tiles marched",
           flush=True)
-    check(cross == 0, f"K1 differs from K1-grid on {cross} rays of the verify stage's "
-          "first round")
+    check(cross == 0 and cross_grid == 0, f"K1 differs from the in-order witness on "
+          f"{cross} rays of the verify stage's first round, K1-grid on {cross_grid}")
     plain = types.SimpleNamespace(**{f: torch.cat([getattr(p, f) for p in parts])
                                      for f in ("depth", "hit", "min_sdf", "depth_at_min")})
     d_multi = march_diff(km, plain)
@@ -925,8 +981,8 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
             "cert", use_kernel=k, return_anchor=True)), f"seed {seed}"))
     return dict(rows=rows, launches=launches, k1_multi=dict(
         ms=km_ms, k1_ms=k1_ms, plain_ms=plain_ms, d=d_multi, d_k1=d_k1, bound_ms=b_multi[0],
-        bound_by=b_multi[1], ray_steps=steps, exact=exact, k1_grid_differ=cross,
-        lanes=lanes),
+        bound_by=b_multi[1], ray_steps=steps, exact=exact, k1_in_order_differ=cross,
+        k1_grid_in_order_differ=cross_grid, witness_ms=witness_ms, lanes=lanes),
         render_depth_ms=dd_ms, path_vs_plain=paths, k6=k6_rows)
 
 
@@ -1723,6 +1779,7 @@ def main():
         batched_trace_padded, fold_bias_bank, merge_skip, pack_shared,
         sphere_trace_persistent, verify_plan,
     )
+    from dist_renderer_tpu_torch.ops.kernels.march_in_order import trace_in_order
     from dist_renderer_tpu_torch.ops.kernels.mlp_eval import point_eval_banked
     from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
     from dist_renderer_tpu_torch.ops.kernels.recompute import (
@@ -1804,25 +1861,44 @@ def main():
         ob, vb = origins[None, :1], dirs[None]
 
         def queue_pair(sh, bk, key_, seed_, stage):
-            qk = queue_march(sh, bk, ob, vb, key_, seed_, march,
-                             gen_caps=march.queue_caps)
+            run = lambda: queue_march(sh, bk, ob, vb, key_, seed_, march,
+                                      gen_caps=march.queue_caps)
+            qk = run()
             qp = queue_march(sh, bk, ob, vb, key_, seed_, march,
                              gen_caps=march.queue_caps, use_kernel=False)
             k1 = batched_trace_padded(sh, bk, ob.expand(1, n, 3), vb, march,
                                       seed_, key_ != 2, use_kernel=True)
+            # the in-order witness (csrc/march_in_order.cu) on the same rays
+            w = trace_in_order(sh, bk, ob, vb, march, seed_, key_ != 2)
             torch.cuda.synchronize()
-            exact = all(torch.equal(a, b) for a, b in (
-                (qk.depth, k1.depth), (qk.hit, k1.hit), (qk.min_sdf, k1.min_sdf),
-                (qk.depth_at_min, k1.depth_at_min), (qk.last_sdf, k1.last_sdf),
-                (qk.unresolved, k1.unresolved)))
+            same = lambda r: [torch.equal(a, b) for a, b in (
+                (qk.depth, r.depth), (qk.hit, r.hit), (qk.min_sdf, r.min_sdf),
+                (qk.depth_at_min, r.depth_at_min), (qk.last_sdf, r.last_sdf),
+                (qk.unresolved, r.unresolved),
+                (qk.steps[0], r.steps_per_ray[:n].to(qk.steps.dtype)))]
+            exact, in_order = all(same(k1)), all(same(w))
+            w_differ = int((~(qk.depth == w.depth) | (qk.hit != w.hit)
+                            | ~(qk.min_sdf == w.min_sdf) | (qk.steps[0] != w.steps_per_ray[:n])
+                            ).sum())
             d = march_diff(qk, qp)
+            gens = k2_generations(torch, run)
             print(f"K2 {stage}: {int((key_ != 2).sum())} active rays, K2 == K1 "
-                  f"bit for bit: {exact}; vs plain: {march_line(d)}")
+                  f"bit for bit: {exact}, == the in-order witness: {in_order} ({w_differ} "
+                  f"rays differ in depth, hit, margin or steps); vs plain: "
+                  f"{march_line(d)}", flush=True)
+            for g, r in enumerate(gens):
+                print(f"  generation {g} (cap {([*march.queue_caps, march.max_steps])[g]}): "
+                      f"{r['rays']} rays, {r['ms']:.3f} ms, {r['ray_steps']} active "
+                      f"ray-steps of {r['lane_steps']} lane-steps ({r['lane_share']:.4f})",
+                      flush=True)
             check(exact, f"K2 ({stage}) differs from K1 on the same inputs")
+            check(in_order, f"K2 ({stage}) differs from the in-order witness on "
+                  f"{w_differ} rays")
             k2_steps.append((int(qk.steps.sum()), macs_per_eval(sh), march_bytes(n, sh, bk)))
+            k2_gens[stage] = dict(generations=gens, in_order_rays_differing=w_differ)
             return qp, d
 
-        k2_steps = []
+        k2_steps, k2_gens = [], {}
 
         fine_p, d_fine = queue_pair(shared_p, bank_p, key, init_depth, "proxy fine")
         fine = merge_skip(fine_p, skip, maps.anchor.reshape(1, n),
@@ -2173,7 +2249,8 @@ def main():
              max_abs_err=max([max_err(km["d_k1"])] + [max_err(lv[0]) for lv in k1_levels]),
              ms=km["k1_ms"], plain_ms=km["plain_ms"], bound_ms=km["bound_ms"],
              bound_by=km["bound_by"], library_ms=None),
-        dict(name="queue_march (K2)", route="cuda", source=src + "queue_march.cu",
+        dict(name="queue_march (K2, tensor cores)", route="cuda",
+             source=src + "queue_march.cu",
              replaces="dist_renderer_tpu/ops/pallas/queue_march.py:463",
              launches=launches["queue_march"],
              max_abs_err=max(max_err(d_fine), max_err(d_ver)),
@@ -2193,7 +2270,7 @@ def main():
              max_abs_err=max(max(r["u_abs"], r["gx"]) for r in k4),
              ms=k4[0]["ms"], plain_ms=k4[0]["plain_ms"], bound_ms=b_k4[0],
              bound_by=b_k4[1], library_ms=t_k4c),
-        dict(name="sphere_trace_grid (K1-grid)", route="cuda",
+        dict(name="sphere_trace_grid (K1-grid, tensor cores)", route="cuda",
              source=src + "fused_march.cu",
              replaces="dist_renderer_tpu/ops/pallas/fused_march.py:148",
              launches=g6["launches"],
@@ -2236,6 +2313,7 @@ def main():
                       "k3_k4": dict(near_ties=ties, k3_in_order_differing=k3_differ,
                                     k4=[{k: v for k, v in r.items() if k != "same"}
                                         for r in k4]),
+                      "k2_stages": k2_gens,
                       "k1_grid_cases": [dict(case=r["case"], ms=r["ms"],
                                              plain_ms=r["plain_ms"],
                                              ray_steps=r["steps"],
@@ -2252,7 +2330,9 @@ def main():
                           k1_multi_ms=km["ms"], k1_same_inputs_ms=km["k1_ms"],
                           k1_multi_plain_ms=km["plain_ms"],
                           k1_multi_ray_steps=km["ray_steps"],
-                          k1_grid_rays_differing=km["k1_grid_differ"],
+                          k1_in_order_rays_differing=km["k1_in_order_differ"],
+                          k1_grid_in_order_rays_differing=km["k1_grid_in_order_differ"],
+                          in_order_witness_ms=km["witness_ms"],
                           verify_round_lanes=km["lanes"],
                           render_depth_batched_ms=b8["render_depth_ms"],
                           k6_vs_plain=b8["k6"],

@@ -27,7 +27,8 @@ extern "C" int drt_sphere_trace_persistent(
     const void* wrows, const float* wscale, const int* table, int n_layers,
     const float* bank, int bank_stride, int final_tanh, float eps, float deps,
     float alpha, float margin, int max_steps, int salvage, float* out, void* stream) {
-  return drt::mm::launch<true>(rays, n, rays_per_frame, W, tiles, wrows, wscale, table,
-                               n_layers, bank, bank_stride, final_tanh, eps, deps, alpha,
-                               margin, max_steps, salvage, out, stream);
+  using namespace drt::mm;
+  return launch_range(march_mma_kernel<true>, true, rays, n, rays_per_frame, W, tiles,
+                      wrows, wscale, table, n_layers, bank, bank_stride, final_tanh, eps,
+                      deps, alpha, margin, max_steps, salvage, out, stream);
 }

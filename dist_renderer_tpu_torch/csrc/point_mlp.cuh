@@ -1,10 +1,11 @@
 // The tensor-core MLP body of the point evals K5 and K6 (point_eval.cu)
-// and of the march kernels K1 and K1-multi (march_mma.cuh): one
-// evaluation of the latent-folded decoder for a tile of M = 64 rows
-// (points, or a march step's sample positions), on Hopper's warpgroup
-// MMA. K1-grid and K2 keep march_body.cuh's CUDA-core mlp_tile. K3 and
-// K4 (recompute.cu) run their forward and reverse sweeps on its MMA loop
-// (mma_chunk), producer (stream_layer), ring and near-tie queue.
+// and of every routed march kernel, K1, K1-multi, K1-grid and K2
+// (march_mma.cuh, once a step): one evaluation of the latent-folded
+// decoder for a tile of M = 64 rows (points, or a march step's sample
+// positions), on Hopper's warpgroup MMA. K3 and K4 (recompute.cu) run
+// their forward and reverse sweeps on its MMA loop (mma_chunk), producer
+// (stream_layer), ring and near-tie queue. Only the in-order witness
+// (march_in_order.cu, no route) evaluates the decoder on CUDA cores.
 //
 // Replaces, with point_eval.cu, the JAX package's TPU kernels
 // dist_renderer_tpu/ops/pallas/mlp_eval.py::pallas_point_eval (K5) and
@@ -55,7 +56,7 @@
 //   even to bf16; the last layer's first OUT_ROWS outputs through tanhf
 //   when the decoder ends in one. Biases and x weights are staged per
 //   layer in shared memory; K6 and the march read a bias column per row
-//   where a tile straddles two frames.
+//   where a tile's rows belong to more than one frame.
 // - One evaluation is eval_tile: the producer warp streams the weights
 //   from a running stream-tile count, so the march evaluates a tile many
 //   times on one ring (the weight sequence is the same every time).
@@ -96,13 +97,14 @@ inline int act_width(const Decoder& dec) {
 // near-tie scales [w16] and x weights [3][w16] in fp32, positions [6][M]
 // fp32, frames [M] int32, row norms [M] fp32, the near-tie queue and its
 // count, the near ties the queue could not hold as a bit a value, and the
-// ring's 2 * STAGES mbarriers. The march (march_mma.cuh) adds its rays'
-// carries [12][M] and geometry [8][M] and the step's values [M], fp32.
+// ring's 2 * STAGES mbarriers. The march (march_mma.cuh) adds its rows'
+// carries [12][M] and geometry [8][M] and the step's values [M], fp32,
+// and their ray or pixel indices [M], int32.
 // ops/kernels/mlp_eval.py's smem_plan_bytes is the same sum for the CPU
 // side; a card test holds the two equal (drt_point_mlp_smem,
 // drt_march_mma_smem).
 struct Plan {
-  int act, ring, bias, wn, wx, x, frame, hn, q, qn, mask, bar, carry, geo, sdf, bytes;
+  int act, ring, bias, wn, wx, x, frame, hn, q, qn, mask, bar, carry, geo, sdf, pix, bytes;
 };
 
 __host__ __device__ inline Plan smem_plan(int w16, bool march = false) {
@@ -122,7 +124,8 @@ __host__ __device__ inline Plan smem_plan(int w16, bool march = false) {
   p.carry = p.bar + 2 * STAGES * 8;
   p.geo = p.carry + 12 * M * 4;
   p.sdf = p.geo + 8 * M * 4;
-  p.bytes = march ? p.sdf + M * 4 : p.carry;
+  p.pix = p.sdf + M * 4;
+  p.bytes = march ? p.pix + M * 4 : p.carry;
   return p;
 }
 

@@ -13,33 +13,28 @@
 // a queue is a dense list of pixel indices.
 //   - drt_queue_seed writes every ray's fresh carry and compacts the
 //     active rays into queue 0: a warp ballot, then one atomicAdd per
-//     warp reserves the warp's slots.
-//   - drt_queue_generation marches the queued rays, TILE per block, up to
-//     the generation's cap, writes each carry back to its pixel slot and
-//     compacts the rays still active into the next queue the same way.
-//     The block count is what fits on the card; each block reads the
-//     queue length from device memory, so no generation waits on the host.
+//     warp reserves the warp's slots (CUDA cores: no MLP work).
+//   - drt_queue_generation is march_mma.cuh's tensor-core tile march over
+//     the queue: 64 queued pixels a tile, each carry loaded from its pixel
+//     slot, marched up to the generation's cap, stored back, and the rays
+//     still active compacted into the next queue the same way. A
+//     persistent grid (what fits on the card, each block striding over
+//     the queue's tiles); each block reads the queue's length from device
+//     memory, so no generation waits on the host.
 // A queue holds one slot per ray and cannot overflow. Regrouping the
 // stragglers densely after each cap keeps a tile's march (which runs to
-// its slowest ray) close to its rays' own step counts. The TPU kernel's
-// one-hot bf16x3 matmul compaction was a Mosaic workaround; ballots and
-// atomics are its counterpart here. What bounds the march is in
-// march_body.cuh; the queue traffic is 52 bytes per ray per generation.
+// its slowest ray) close to its rays' own step counts. A queue tile may
+// hold rays of any number of frames; each reads its own frame's biases. A
+// ray's bits depend on its own carry and frame only, never on the rays
+// beside it in a tile or on the queue's order, which the atomics leave
+// open. The TPU kernel's one-hot bf16x3 matmul compaction was a Mosaic
+// workaround; ballots and atomics are its counterpart here. What bounds
+// the march is in march_mma.cuh; the queue traffic is 52 bytes per ray per
+// generation.
 
-#include "march_body.cuh"
+#include "march_mma.cuh"
 
 namespace drt {
-
-__device__ __forceinline__ void append_warp(bool flag, int value, int* queue,
-                                            int* count) {
-  const unsigned lane = threadIdx.x & 31u;
-  const unsigned m = __ballot_sync(0xffffffffu, flag);
-  if (m == 0u) return;
-  int base = 0;
-  if (lane == 0) base = atomicAdd(count, __popc(m));
-  base = __shfl_sync(0xffffffffu, base, 0);
-  if (flag) queue[base + __popc(m & ((1u << lane) - 1u))] = value;
-}
 
 __global__ void queue_seed_kernel(const float* __restrict__ rays, int n,
                                   float* __restrict__ state, int* queue,
@@ -51,47 +46,13 @@ __global__ void queue_seed_kernel(const float* __restrict__ rays, int n,
     store_carry(c, state, n, i);
     act = c.act > 0.5f;
   }
-  append_warp(act, i, queue, count);
+  mm::append_warp(act, i, queue, count);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-queue_generation_kernel(const float* __restrict__ rays, int n,
-                        int rays_per_frame, Decoder dec,
-                        const __nv_bfloat16* __restrict__ W,
-                        const float* __restrict__ bank, int bank_stride,
-                        MarchParams mp, int kmax, float* __restrict__ state,
-                        const int* __restrict__ q_in, const int* cnt_in,
-                        int* __restrict__ q_out, int* cnt_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* s_h = reinterpret_cast<__nv_bfloat16*>(smem);
-  __shared__ float s_x[3 * TILE];
-  __shared__ float s_sdf[TILE];
-  __shared__ int s_frame[TILE];
-  const int t = threadIdx.x;
-  const int count = *cnt_in;  // written by the previous launch on the stream
-  for (long long tile = blockIdx.x; tile * TILE < count; tile += gridDim.x) {
-    const int i = (int)(tile * TILE) + t;
-    const bool mine = t < TILE && i < count;
-    const int pix = mine ? q_in[i] : 0;
-    float o[3] = {0.0f, 0.0f, 0.0f}, v[3] = {0.0f, 0.0f, 0.0f};
-    float near_lo = 0.0f, far = 0.0f;
-    Carry c = fresh_carry(0.0f, 0.0f);
-    if (mine) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        o[a] = rays[a * n + pix];
-        v[a] = rays[(3 + a) * n + pix];
-      }
-      c = load_carry(state, n, pix);
-      near_lo = rays[7 * n + pix] - mp.margin;
-      far = rays[8 * n + pix];
-    }
-    if (t < TILE) s_frame[t] = mine ? pix / rays_per_frame : 0;
-    march_tile(dec, W, bank, bank_stride, mp, kmax, c, o, v, near_lo, far,
-               s_frame, s_x, s_h, s_sdf);
-    if (mine) store_carry(c, state, n, pix);
-    if (t < 32) append_warp(mine && c.act > 0.5f, pix, q_out, cnt_out);
-  }
+// One generation: the queue's pixels, a persistent grid.
+__global__ void __launch_bounds__(pm::THREADS, 1)
+queue_generation_kernel(const __grid_constant__ mm::MarchArgs a) {
+  mm::march_tiles<true, true>(a);
 }
 
 }  // namespace drt
@@ -110,29 +71,29 @@ extern "C" int drt_queue_seed(const float* rays, int n, float* state,
 
 // One generation: march the rays listed in q_in[0:*cnt_in] for at most
 // kmax steps (salvage on, budget max_steps), append survivors to q_out
-// (*cnt_out zeroed by the caller). Returns cudaGetLastError().
+// (*cnt_out zeroed by the caller). W, tiles, wrows, wscale and table as
+// for K1 (batched_march.cu); bank [total][bank_stride] fp32, pixel p
+// reading column p / rays_per_frame. A decoder whose plan does not fit a
+// block is refused before launch. Returns cudaGetLastError().
 extern "C" int drt_queue_generation(
-    const float* rays, int n, int rays_per_frame, const void* W,
-    const int* table, int n_layers, const float* bank, int bank_stride,
-    int final_tanh, float eps, float deps, float alpha, float margin,
-    int max_steps, int kmax, float* state, const int* q_in, const int* cnt_in,
+    const float* rays, int n, int rays_per_frame, const void* W, const void* tiles,
+    const void* wrows, const float* wscale, const int* table, int n_layers,
+    const float* bank, int bank_stride, int final_tanh, float eps, float deps, float alpha,
+    float margin, int max_steps, int kmax, float* state, const int* q_in, const int* cnt_in,
     int* q_out, int* cnt_out, void* stream) {
   using namespace drt;
-  Decoder dec;
-  cudaError_t err = make_decoder(table, n_layers, final_tanh, &dec);
+  mm::MarchArgs a;
+  cudaError_t err = mm::march_args(rays, n, rays_per_frame, W, tiles, wrows, wscale, table,
+                                   n_layers, bank, bank_stride, final_tanh, eps, deps, alpha,
+                                   margin, max_steps, 1, &a);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaGetLastError();
   if (rays_per_frame <= 0 || kmax <= 0) return (int)cudaErrorInvalidValue;
-  const MarchParams mp{eps, deps, alpha, margin, max_steps, 1};
-  const size_t smem = march_smem_bytes(dec);
-  err = cudaFuncSetAttribute(queue_generation_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = persistent_grid(queue_generation_kernel, smem,
-                                   (n + TILE - 1) / TILE);
-  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
-  queue_generation_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      rays, n, rays_per_frame, dec, static_cast<const __nv_bfloat16*>(W), bank,
-      bank_stride, mp, kmax, state, q_in, cnt_in, q_out, cnt_out);
-  return (int)cudaGetLastError();
+  a.kmax = kmax;
+  a.state = state;
+  a.q_in = q_in;
+  a.cnt_in = cnt_in;
+  a.q_out = q_out;
+  a.cnt_out = cnt_out;
+  return mm::launch(queue_generation_kernel, true, (n + pm::M - 1) / pm::M, a, stream);
 }

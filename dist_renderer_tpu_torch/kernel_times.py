@@ -20,6 +20,10 @@ Inputs (the committed bench fixture; seeded):
     verify round of the batched headline at F=64 (chip_smoke.py phase
     8's: the 8x512 decoder, the rays the rounds scheduler gives it, cap 2);
   - K2: one 512x512 frame against the proxy, 50 steps, every ray live;
+    "K2 (verify)": the 8x512 bench decoder at the same frame's latent on
+    the rays that march leaves to verify (``verify_plan`` of its result:
+    its hits backed off the proxy's margin, its band and unresolved rays),
+    the verify stage's work on the bench cell;
   - K1-grid: one 256x256 frame against the folded proxy, 50 steps;
   - K3 and K4 (a): chip_smoke.py phase 3's shapes, the bench 8x512
     decoder at its latent on 65,536 points, the compose bucket's count.
@@ -192,9 +196,20 @@ def main(argv=None) -> int:
         o2, v2 = pixel_rays(cam2, 512, 512)
         key = torch.zeros((1, 512 * 512), dtype=torch.int32, device=dev)
         seed = torch.full((1, 512 * 512), float("nan"), device=dev)
+        bank_p1 = bank_p[:, :1].contiguous()
         times["K2"] = _ms(torch, lambda: queue_march(
-            shared_p, bank_p[:, :1].contiguous(), o2[None, :1], v2[None], key, seed,
-            cfg.march, gen_caps=cfg.march.queue_caps))
+            shared_p, bank_p1, o2[None, :1], v2[None], key, seed, cfg.march,
+            gen_caps=cfg.march.queue_caps))
+        if want("K2 (verify)"):
+            fine = queue_march(shared_p, bank_p1, o2[None, :1], v2[None], key, seed,
+                               cfg.march, gen_caps=cfg.march.queue_caps)
+            key2, seed2 = bm.verify_plan(fine, cfg.march.proxy_band,
+                                         cfg.march.proxy_backoff)
+            shared_b = bm.pack_shared(params, dcfg)
+            bank_b = bm.fold_bias_bank(params, lats[:1], dcfg, shared_b)
+            times["K2 (verify)"] = _ms(torch, lambda: queue_march(
+                shared_b, bank_b, o2[None, :1], v2[None], key2, seed2, cfg.march,
+                gen_caps=cfg.march.queue_caps))
     times = {k: v for k, v in times.items() if want(k)}
     return _report(times, root, smi, args.out)
 

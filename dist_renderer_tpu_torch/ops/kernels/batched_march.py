@@ -11,11 +11,11 @@ K1, ``sphere_trace_persistent``, replaces the JAX package's
 ``ops/pallas/batched_march.py::pallas_sphere_trace_persistent``
 (``csrc/batched_march.cu``: a persistent grid striding over 64-ray tiles);
 K1-multi, ``sphere_trace_batched``, replaces ``pallas_sphere_trace_batched``
-(``csrc/fused_march.cu``: one block per 64-ray tile). Both run one
-tensor-core tile march (``csrc/march_mma.cuh`` on ``csrc/point_mlp.cuh``'s
-body, the point evals' wgmma MLP with near ties summed again in k order),
-so they give the same bits as each other and as K1-grid and K2, which keep
-the CUDA-core ``mlp_tile``. On a CUDA tensor each wrapper launches its
+(``csrc/fused_march.cu``: one block per 64-ray tile). Both run the one
+tensor-core tile march of every routed march kernel (``csrc/march_mma.cuh``
+on ``csrc/point_mlp.cuh``'s body, the point evals' wgmma MLP with near
+ties summed again in k order), as K1-grid and K2 do, so the four give the
+same bits on the same rays. On a CUDA tensor each wrapper launches its
 kernel; on a CPU tensor, or with ``use_kernel=False``, it runs the plain
 version (``march_rows_plain``, built on ``march_body.march_loop``).
 """
@@ -39,8 +39,9 @@ from dist_renderer_tpu_torch.ops.kernels.march_body import (
 from dist_renderer_tpu_torch.ops.tracer import TraceResult, live_counts_from_steps
 
 FRAME_TILE = 128  # bias-bank frame padding (the JAX package's layout)
-TILE = 32         # rays per K1-grid/K2 thread block; frames pad to a multiple
-MARCH_TILE = 64   # rays per K1/K1-multi thread block (csrc/march_mma.cuh)
+TILE = 32         # frames pad to a multiple of this many rays (the plain
+                  # version's layout; no kernel's block width)
+MARCH_TILE = 64   # rows per tile of every march kernel (csrc/march_mma.cuh)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -327,6 +328,15 @@ def march_args(shared: SharedDecoder, bank: torch.Tensor):
             bank.shape[1], int(shared.final_tanh))
 
 
+def mma_march_args(shared: SharedDecoder, bank: torch.Tensor):
+    """The (weights, MMA tiles, weight rows, near-tie scales, layer table,
+    n_layers, bank, bank stride, final_tanh) argument group of the
+    tensor-core march entry points (K1, K1-multi, K1-grid, K2)."""
+    w, tab, n_layers, bank_ptr, stride, tanh = march_args(shared, bank)
+    return (w, build.ptr(shared.tiles), build.ptr(shared.wrows),
+            build.ptr(shared.wscale), tab, n_layers, bank_ptr, stride, tanh)
+
+
 def pack_rays(origins, dirs, rs: RaySetup) -> torch.Tensor:
     """[16, N] fp32 ray rows: origin 0-2, dir 3-5, d0, near, far, active."""
     n = origins.shape[0]
@@ -355,11 +365,9 @@ def march_rows_cuda(shared, bank, rays_per_frame: int, origins, dirs,
     check_cuda_inputs(shared, bank, rays)
     check_mma_plan(shared, rays.device, march=True)
     out = torch.empty((8, n), dtype=torch.float32, device=rays.device)
-    w, tab, n_layers, bank_ptr, stride, tanh = march_args(shared, bank)
-    args = (build.ptr(rays), n, rays_per_frame, w, build.ptr(shared.tiles),
-            build.ptr(shared.wrows), build.ptr(shared.wscale), tab, n_layers,
-            bank_ptr, stride, tanh, march.convergence_eps, march.depth_eps,
-            march.alpha, march.far_margin, march.max_steps, int(salvage))
+    args = (build.ptr(rays), n, rays_per_frame, *mma_march_args(shared, bank),
+            march.convergence_eps, march.depth_eps, march.alpha, march.far_margin,
+            march.max_steps, int(salvage))
     build.load().call("drt_sphere_trace_persistent" if persistent
                       else "drt_sphere_trace_batched", *args, build.ptr(out),
                       build.stream_of(rays))
@@ -460,10 +468,12 @@ def trace_from_rows(out: torch.Tensor, rs: RaySetup, origins, dirs,
 
 
 def march_tile_steps(steps_per_ray: torch.Tensor) -> torch.Tensor:
-    """[ceil(N / 64)] the steps each of K1's and K1-multi's 64-ray tiles
-    marched: the most of its rays' step counts (a tile steps while any of
-    its rays is active). Times 64, summed, the lane-steps a launch spent
-    on its steps_per_ray.sum() active ray-steps."""
+    """[ceil(N / 64)] the steps each 64-row tile of a march kernel
+    marched, its rows in this order (a range's rays, or one K2
+    generation's queue with each ray's steps in it): the most of its rays'
+    step counts (a tile steps while any of its rays is active). Times 64,
+    summed, the lane-steps a launch spent on its steps_per_ray.sum()
+    active ray-steps."""
     s = steps_per_ray.reshape(-1)
     pad = (-s.numel()) % MARCH_TILE
     if pad:
@@ -471,11 +481,27 @@ def march_tile_steps(steps_per_ray: torch.Tensor) -> torch.Tensor:
     return s.reshape(-1, MARCH_TILE).amax(dim=1)
 
 
+def tile_frames(rows: torch.Tensor, rays_per_frame: int):
+    """The frames of a march kernel's 64-row tiles whose rows are these ray
+    or pixel indices in order (a range, or one K2 generation's queue):
+    [T, 64] each row's frame (index // rays_per_frame), rows past the end
+    taking row 0's, and [T] bool ``pure``, every row's frame equal to row
+    0's. csrc/march_mma.cuh's rule: a pure tile stages one bias column a
+    layer, an impure one reads a bias per row."""
+    p = rows.reshape(-1).to(torch.int64)
+    tiles = (p.numel() + MARCH_TILE - 1) // MARCH_TILE
+    pad = tiles * MARCH_TILE - p.numel()
+    if pad:
+        p = torch.cat([p, p[(tiles - 1) * MARCH_TILE].expand(pad)])
+    frames = (p // rays_per_frame).reshape(tiles, MARCH_TILE)
+    return frames, (frames == frames[:, :1]).all(dim=1)
+
+
 def pad_frames(o, v, seed, active):
     """[F, R, *] -> flat frame-major [F * r_pad, *] with each frame padded
-    to a multiple of 32 rays, K1-grid's tile (pad rays point along +1 and
-    never march; K1's 64-ray tiles may straddle two frames). Returns (o,
-    v, seed, active, frame_of_ray, r_pad)."""
+    to a multiple of TILE = 32 rays, the plain version's layout (pad rays
+    point along +1 and never march; the kernels' 64-ray tiles may straddle
+    two frames). Returns (o, v, seed, active, frame_of_ray, r_pad)."""
     f, r = o.shape[0], o.shape[1]
     r_pad = _round_up(max(r, TILE), TILE)
     pad = r_pad - r
@@ -518,6 +544,12 @@ def batched_trace_padded(
     res = trace(shared, bank, frame_of_ray, o_p, v_p, march, s_p,
                 init_active=a_p, block=block, salvage=salvage,
                 rays_per_frame=r_pad, use_kernel=use_kernel)
+    return unpad_frames(res, f, r, r_pad)
+
+
+def unpad_frames(res: TraceResult, f: int, r: int, r_pad: int) -> TraceResult:
+    """A trace of pad_frames' flat rays with its per-ray fields back
+    [F, R]; steps_per_ray stays in the padded flat layout."""
     unflat = lambda x: x.reshape(f, r_pad)[:, :r]
     return TraceResult(
         depth=unflat(res.depth), hit=unflat(res.hit),

@@ -45,13 +45,15 @@ SIGNATURES = {
     "drt_sphere_trace_persistent": [
         _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
     "drt_sphere_trace_grid": [
-        _P, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
+        _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
     "drt_sphere_trace_batched": [
         _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
     "drt_queue_seed": [_P, _I, _P, _P, _P, _P],
     "drt_queue_generation": [
-        _P, _I, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I,
+        _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I,
         _P, _P, _P, _P, _P, _P],
+    "drt_march_in_order": [
+        _P, _I, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
     "drt_precise_sdg": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "drt_precise_bias_grads": [
         _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,

@@ -7,11 +7,11 @@ grid of 512-ray blocks over the latent-folded decoder, per-layer bias
 refs, a dead-block fast path). On a CUDA tensor it launches
 ``csrc/fused_march.cu``; on a CPU tensor, or with ``use_kernel=False``,
 it runs the plain version, K1's ``march_rows_plain`` on the folded
-layers. Its step body is ``csrc/march_body.cuh``'s CUDA-core ``mlp_tile``
-and K1's is the tensor-core ``csrc/march_mma.cuh``; both sum in the plain
-version's k order (K1 summing near ties again in that order), so on the
-same rays it equals ``sphere_trace_persistent`` with a one-column bias bank
-bit for bit.
+layers. It runs K1's tensor-core tile march (``csrc/march_mma.cuh``, one
+block per 64-ray tile) with the folded biases as a one-column bias bank,
+so on the same rays it equals ``sphere_trace_persistent`` with that bank
+bit for bit, and both equal the in-order plain version up to a near tie
+the margin misses (``NEAR_TIE`` in batched_march.py).
 
 ``sphere_trace_rounds`` is the counterpart of ``pallas_sphere_trace_rounds``
 (step-capped rounds without salvage, a stable difficulty re-pack between
@@ -32,7 +32,7 @@ from dist_renderer_tpu_torch.models.folded import FoldedLayer
 from dist_renderer_tpu_torch.ops.camera import dot3, ray_sphere_entry
 from dist_renderer_tpu_torch.ops.kernels import build
 from dist_renderer_tpu_torch.ops.kernels.batched_march import (
-    POS_BIG, SharedDecoder, check_cuda_inputs, march_args, march_rows_plain,
+    POS_BIG, SharedDecoder, check_cuda_inputs, march_rows_plain, mma_march_args,
     pack_layers, pack_rays, ray_setup, trace_from_rows,
 )
 from dist_renderer_tpu_torch.ops.tracer import (
@@ -68,18 +68,32 @@ def pack_folded(folded: Sequence[FoldedLayer], cfg: DecoderConfig,
     return PackedFolded(shared, bias)
 
 
+def grid_args(packed: PackedFolded, rays: torch.Tensor, march: MarchConfig,
+              salvage: bool, out: torch.Tensor):
+    """drt_sphere_trace_grid's arguments but the stream: the rays [16, N],
+    the shared weights with their MMA layout, and the folded biases as a
+    one-column bank (column 0 is read)."""
+    return (build.ptr(rays), rays.shape[1],
+            *mma_march_args(packed.shared, packed.bias), march.convergence_eps,
+            march.depth_eps, march.alpha, march.far_margin, march.max_steps,
+            int(salvage), build.ptr(out))
+
+
 def grid_rows_cuda(packed: PackedFolded, origins, dirs, rs, march: MarchConfig,
                    salvage: bool) -> torch.Tensor:
-    """K1-grid on the card: one launch, a block per 32-ray tile -> [8, N]."""
+    """K1-grid on the card: one launch, a block per 64-ray tile -> [8, N].
+    A decoder whose shared-memory plan does not fit a block raises before
+    the launch."""
+    from dist_renderer_tpu_torch.ops.kernels.mlp_eval import check_mma_plan
+
     n = origins.shape[0]
     rays = pack_rays(origins, dirs, rs)
     check_cuda_inputs(packed.shared, packed.bias, rays)
+    check_mma_plan(packed.shared, rays.device, march=True)
     out = torch.empty((8, n), dtype=torch.float32, device=rays.device)
-    lib = build.load()
-    lib.call("drt_sphere_trace_grid", build.ptr(rays), n,
-             *march_args(packed.shared, packed.bias), march.convergence_eps,
-             march.depth_eps, march.alpha, march.far_margin, march.max_steps,
-             int(salvage), build.ptr(out), build.stream_of(rays))
+    build.load().call("drt_sphere_trace_grid",
+                      *grid_args(packed, rays, march, salvage, out),
+                      build.stream_of(rays))
     sphere_trace_grid.launches += 1
     return out
 
@@ -96,7 +110,7 @@ def sphere_trace_grid(packed: PackedFolded, origins: torch.Tensor,
     instead of taking the bracket midpoint. CUDA tensors launch the
     kernel; CPU tensors, or use_kernel=False, run the plain version. The
     TPU kernel's ``block`` (its grid's block width) has no counterpart:
-    the CUDA grid is one block per 32-ray tile."""
+    the CUDA grid is one block per 64-ray tile."""
     rs = ray_setup(origins, dirs, march, init_depth, init_active)
     if use_kernel and origins.is_cuda:
         out = grid_rows_cuda(packed, origins, dirs, rs, march, salvage)

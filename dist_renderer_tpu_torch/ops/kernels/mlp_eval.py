@@ -59,14 +59,15 @@ SMEM_LIMIT = 232_448
 
 
 def mma_smem_bytes(shared, march: bool = False) -> int:
-    """The dynamic shared memory K5 and K6 (or, with march, K1 and
-    K1-multi) ask for with this decoder: point_mlp.cuh's smem_plan (two
-    [M, w16] bf16 activation buffers, the weight ring, a layer's biases,
-    near-tie scales and x weights in fp32, positions, frames, row norms, the
-    near-tie queue and its overflow bits, barriers, and for the march its
-    rays' carries, geometry and step values; w16 the widest layer rounded
-    up to 16). The kernels' own sums, drt_point_mlp_smem and
-    drt_march_mma_smem, are held equal to this one on the card."""
+    """The dynamic shared memory K5 and K6 (or, with march, the march
+    kernels K1, K1-multi, K1-grid and K2) ask for with this decoder:
+    point_mlp.cuh's smem_plan (two [M, w16] bf16 activation buffers, the
+    weight ring, a layer's biases, near-tie scales and x weights in fp32,
+    positions, frames, row norms, the near-tie queue and its overflow bits,
+    barriers, and for the march its rows' carries, geometry, step values
+    and ray or pixel indices; w16 the widest layer rounded up to 16). The
+    kernels' own sums, drt_point_mlp_smem and drt_march_mma_smem, are held
+    equal to this one on the card."""
     t = shared.table
     widths = [t[i] for i in range(0, len(t), 5)] + [t[i + 1] for i in range(0, len(t), 5)]
     return smem_plan_bytes(max([16] + [_round16(w) for w in widths]), march)
@@ -77,8 +78,9 @@ def smem_plan_bytes(w16: int, march: bool = False) -> int:
     act = (2 * MMA_M * w16 * 2 + 1023) // 1024 * 1024
     point = (act + MMA_STAGES * MMA_STAGE_BYTES + 20 * w16 + 32 * MMA_M
              + 4 * MMA_QCAP + 16 + MMA_M * w16 // 8 + 16 * MMA_STAGES)
-    # the march's carries [12][M], geometry [8][M] and step values [M], fp32
-    return point + (4 * 21 * MMA_M if march else 0)
+    # the march's carries [12][M], geometry [8][M] and step values [M],
+    # fp32, and its rows' ray or pixel indices [M], int32
+    return point + (4 * 22 * MMA_M if march else 0)
 
 
 def _round16(x: int) -> int:
@@ -87,7 +89,7 @@ def _round16(x: int) -> int:
 
 def check_mma_plan(shared, device, march: bool = False) -> None:
     """Raise if the MMA weight layout is not bf16 on ``device`` or the
-    shared-memory plan of K5 and K6 (with march, of K1 and K1-multi)
+    shared-memory plan of K5 and K6 (with march, of the march kernels)
     cannot hold the decoder."""
     if any(t.device != device for t in (shared.tiles, shared.wrows, shared.wscale)) or (
             shared.tiles.dtype, shared.wrows.dtype, shared.wscale.dtype) != (
@@ -98,9 +100,10 @@ def check_mma_plan(shared, device, march: bool = False) -> None:
     if need > SMEM_LIMIT:
         t = shared.table
         width = max(t[i] for i in range(0, len(t), 5))
+        who = "the march kernels K1/K1-multi/K1-grid/K2" if march else "K5/K6"
         raise ValueError(f"a decoder of width {width} needs {need} bytes of shared "
-                         f"memory per block for {'K1/K1-multi' if march else 'K5/K6'}, "
-                         f"more than the {SMEM_LIMIT} an H100 block can use")
+                         f"memory per block for {who}, more than the {SMEM_LIMIT} an "
+                         "H100 block can use")
 
 
 def point_eval_plain(packed: PackedFolded, points: torch.Tensor,

@@ -12,11 +12,15 @@ march (K1) bit for bit.
 On the card (``csrc/queue_march.cu``): a seed kernel writes every ray's
 fresh carry in pixel order and compacts the active rays' pixel indices
 into a dense queue (a warp ballot plus one atomicAdd per warp). Each
-generation kernel marches the queued rays up to its cap, writes each
-ray's carry back to its pixel slot and compacts the survivors into the
+generation kernel is the tensor-core tile march of every march kernel
+(``csrc/march_mma.cuh``, K1's) over the queue: 64 queued rays a tile,
+of any frames, each carry loaded from its pixel slot, marched up to the
+generation's cap and written back, the survivors compacted into the
 next generation's queue. The last generation has the full budget. The
 queues hold one slot per ray, so they cannot overflow: the TPU's
-overflow fallback has no counterpart here.
+overflow fallback has no counterpart here. A ray's bits depend on its
+own carry and frame only, not on the rays beside it in a tile nor on the
+queue's order, which the atomics leave open.
 
 On a CPU tensor, or with ``use_kernel=False``, the wrapper runs the
 plain version: the same generation schedule at full width with per-ray
@@ -33,7 +37,7 @@ from dist_renderer_tpu_torch.config import MarchConfig
 from dist_renderer_tpu_torch.ops.kernels import build
 from dist_renderer_tpu_torch.ops.kernels.batched_march import (
     POS_BIG, SharedDecoder, StageResult, check_cuda_inputs, geo_margin,
-    march_args, pack_rays, pad_frames, plain_layers, ray_setup,
+    mma_march_args, pack_rays, pad_frames, plain_layers, ray_setup,
 )
 from dist_renderer_tpu_torch.ops.kernels.march_body import (
     Carry, make_carry, march_loop, mlp_apply, rows_from_carry,
@@ -60,28 +64,51 @@ def _rows_plain(shared, bank, frame_of_ray, o, v, rs, march, caps,
     return rows_from_carry(c)
 
 
+# None, or a function the card's schedule calls after the seed kernel and
+# after each generation with (state [12, N], the next generation's queue,
+# its count [1]), all on the card and on the launches' stream: the smoke's
+# per-generation times and lane shares. It may reorder the queue's first
+# count entries (a card test does: the bits must not move), nothing else.
+generation_watch = None
+
+
+def generation_args(shared, bank, rays, rays_per_frame, march: MarchConfig,
+                    cap: int, state, q_in, cnt_in, q_out, cnt_out):
+    """drt_queue_generation's arguments but the stream: march the pixels
+    q_in[:cnt_in] for at most cap steps, survivors to q_out."""
+    return (build.ptr(rays), rays.shape[1], rays_per_frame,
+            *mma_march_args(shared, bank), march.convergence_eps,
+            march.depth_eps, march.alpha, march.far_margin, march.max_steps, cap,
+            build.ptr(state), build.ptr(q_in), build.ptr(cnt_in), build.ptr(q_out),
+            build.ptr(cnt_out))
+
+
 def _rows_cuda(shared, bank, rays_per_frame, o, v, rs, march, caps):
+    from dist_renderer_tpu_torch.ops.kernels.mlp_eval import check_mma_plan
+
     n = o.shape[0]
     rays = pack_rays(o, v, rs)
     check_cuda_inputs(shared, bank, rays)
+    check_mma_plan(shared, rays.device, march=True)
     dev = rays.device
     state = torch.empty((12, n), dtype=torch.float32, device=dev)
     queues = torch.empty((2, max(n, 1)), dtype=torch.int32, device=dev)
     counts = torch.zeros(len(caps) + 1, dtype=torch.int32, device=dev)
     lib = build.load()
     stream = build.stream_of(rays)
+    watch = generation_watch
     lib.call("drt_queue_seed", build.ptr(rays), n, build.ptr(state),
              build.ptr(queues[0]), build.ptr(counts[0:1]), stream)
     queue_march.launches += 1
-    margs = march_args(shared, bank)
+    if watch is not None:
+        watch(state, queues[0], counts[0:1])
     for g, cap in enumerate(caps):
-        lib.call("drt_queue_generation", build.ptr(rays), n, rays_per_frame,
-                 *margs, march.convergence_eps, march.depth_eps, march.alpha,
-                 march.far_margin, march.max_steps, cap, build.ptr(state),
-                 build.ptr(queues[g % 2]), build.ptr(counts[g:g + 1]),
-                 build.ptr(queues[(g + 1) % 2]),
-                 build.ptr(counts[g + 1:g + 2]), stream)
+        lib.call("drt_queue_generation", *generation_args(
+            shared, bank, rays, rays_per_frame, march, cap, state, queues[g % 2],
+            counts[g:g + 1], queues[(g + 1) % 2], counts[g + 1:g + 2]), stream)
         queue_march.launches += 1
+        if watch is not None:
+            watch(state, queues[(g + 1) % 2], counts[g + 1:g + 2])
     return rows_from_carry(Carry(*state.unbind(0)))
 
 

@@ -40,6 +40,7 @@ from dist_renderer_tpu_torch.ops.camera import Camera, pixel_rays
 from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
 from dist_renderer_tpu_torch.ops.kernels import build, march_body
 from dist_renderer_tpu_torch.ops.kernels import fused_march as fm
+from dist_renderer_tpu_torch.ops.kernels import queue_march as qm
 from dist_renderer_tpu_torch.ops.kernels import recompute as rc
 from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
 from dist_renderer_tpu_torch.ops.renderer import (
@@ -192,6 +193,118 @@ def test_cuda_k2_equals_k1_exactly(caps, k_order):
     assert torch.equal(q.steps, ref.steps_per_ray.reshape(o.shape[0], r_pad)[:, :o.shape[1]])
     for a, b in zip(q, plain):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _k2_fields_equal(q, ref, f, r):
+    """K2's StageResult equals a padded trace (K1's, the witness's) on
+    every field, bit for bit."""
+    for a, b in [(q.depth, ref.depth), (q.hit, ref.hit), (q.min_sdf, ref.min_sdf),
+                 (q.depth_at_min, ref.depth_at_min), (q.last_sdf, ref.last_sdf),
+                 (q.unresolved, ref.unresolved)]:
+        assert torch.equal(a, b)
+    r_pad = ref.steps_per_ray.shape[0] // f
+    assert torch.equal(q.steps, ref.steps_per_ray.reshape(f, r_pad)[:, :r])
+
+
+class _Queues:
+    """queue_march.generation_watch: keeps each generation's queue and, with
+    shuffle_at, permutes that generation's queue (seeded) before it runs."""
+
+    def __init__(self, shuffle_at=None):
+        self.queues, self.shuffle_at = [], shuffle_at
+
+    def __call__(self, state, queue, count):
+        c = int(count.item())
+        if len(self.queues) == self.shuffle_at:
+            gen = torch.Generator(device="cpu").manual_seed(11)
+            queue[:c] = queue[:c][torch.randperm(c, generator=gen).to(queue.device)]
+        self.queues.append(queue[:c].clone())
+
+
+@pytest.mark.gpu
+def test_cuda_k2_impure_queue_tiles_equal_k1_and_plain(k_order, monkeypatch):
+    """K2 at F=4 with 900 rays a frame (padded to 928, not a multiple of
+    the 64-row tile): its queue tiles hold rays of two frames or more
+    (impure: a bias per row), and every field equals K1's and the
+    in-order plain version's bit for bit."""
+    dev = _device()
+    shared, bank, o, v, key, seed_d = _scene(dev, img=30, frames=4, seed=5)
+    watch = _Queues()
+    monkeypatch.setattr(qm, "generation_watch", watch)
+    q = queue_march(shared, bank, o, v, key, seed_d, MARCH, gen_caps=(1, 2, 6, 16))
+    monkeypatch.setattr(qm, "generation_watch", None)
+    ref = bm.batched_trace_padded(shared, bank, o, v, MARCH, seed_d, key != 2)
+    plain = queue_march(shared, bank, o, v, key, seed_d, MARCH, gen_caps=(1, 2, 6, 16),
+                        use_kernel=False)
+    torch.cuda.synchronize()
+    r_pad = ref.steps_per_ray.shape[0] // 4
+    assert r_pad == 928
+    impure = sum(int((~bm.tile_frames(qu, r_pad)[1]).sum()) for qu in watch.queues[:-1])
+    assert impure > 0 and q.hit.sum() > 100
+    _k2_fields_equal(q, ref, 4, o.shape[1])
+    for a, b in zip(q, plain):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["proxy", "bench"])
+def test_cuda_k2_shuffled_queue_keeps_every_bit(which, monkeypatch):
+    """K2 with generation 1's queue permuted on the card before it runs
+    (the order the atomics leave is open) gives the same bits as K2
+    unshuffled and as K1: a ray's march does not depend on its tile."""
+    dev = _device()
+    shared, bank, o, v, key, seed_d = _scene(dev, img=48, frames=2, seed=3)
+    if which == "bench":
+        params, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+        shared = bm.pack_shared(params, DecoderConfig())
+        bank = bm.fold_bias_bank(params, torch.stack([z0, z0 + 0.001]), DecoderConfig(),
+                                 shared)
+    run = lambda: queue_march(shared, bank, o, v, key, seed_d, MARCH, gen_caps=(1, 2, 6, 16))
+    a = run()
+    watch = _Queues(shuffle_at=1)
+    monkeypatch.setattr(qm, "generation_watch", watch)
+    b = run()
+    monkeypatch.setattr(qm, "generation_watch", None)
+    ref = bm.batched_trace_padded(shared, bank, o, v, MARCH, seed_d, key != 2)
+    torch.cuda.synchronize()
+    assert watch.queues[1].numel() > 100
+    for x, y in zip(a, b):
+        assert (x is None and y is None) or torch.equal(x, y)
+    _k2_fields_equal(b, ref, 2, o.shape[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["proxy", "bench"])
+def test_cuda_k1_grid_and_k2_equal_the_in_order_march(which):
+    """K1-grid (one frame, seeded and inactive rays, salvage on and off)
+    and K2 (two frames) on the tensor cores equal the in-order witness
+    (csrc/march_in_order.cu: the decoder on CUDA cores, every sum in k
+    order) bit for bit: the near-tie margin missed no tie on these rays."""
+    from dist_renderer_tpu_torch.ops.kernels.march_in_order import trace_in_order
+
+    dev = _device()
+    packed, shared, bank, o, v, key, seed_d = _grid_scene(dev, which)
+    for salvage in (True, False):
+        a = fm.sphere_trace_grid(packed, o, v, MARCH, seed_d, init_active=key != 2,
+                                 salvage=salvage)
+        w = trace_in_order(shared, bank, o[None], v[None], MARCH, seed_d[None],
+                           (key != 2)[None], salvage)
+        torch.cuda.synchronize()
+        assert a.hit.sum() > 100
+        for name in TRACE_FIELDS:
+            x, y = getattr(a, name), getattr(w, name)
+            assert torch.equal(x, y[:x.shape[0]] if name == "steps_per_ray" else y[0]), name
+    shared2, bank2, o2, v2, key2, seed2 = _scene(dev, img=48, frames=2, seed=3)
+    if which == "bench":
+        params, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+        shared2 = shared
+        bank2 = bm.fold_bias_bank(params, torch.stack([z0, z0 + 0.001]), DecoderConfig(),
+                                  shared)
+    q = queue_march(shared2, bank2, o2, v2, key2, seed2, MARCH)
+    w = trace_in_order(shared2, bank2, o2, v2, MARCH, seed2, key2 != 2)
+    torch.cuda.synchronize()
+    assert q.hit.sum() > 100
+    _k2_fields_equal(q, w, 2, o2.shape[1])
 
 
 K3_ARCHS = [
@@ -1044,7 +1157,7 @@ def test_kernel_build_is_keyed_by_source_hash():
     assert len(h) == 16 and h == build.source_hash()
     names = {os.path.basename(p) for p in build._sources()}
     assert {"march_body.cuh", "batched_march.cu", "queue_march.cu",
-            "recompute.cu", "fused_march.cu", "sphere_trace.cuh",
+            "recompute.cu", "fused_march.cu", "march_in_order.cu",
             "dot_in_order.cu", "point_eval.cu", "point_mlp.cuh",
             "march_mma.cuh"} <= names
     assert "-use_fast_math" not in build.NVCC_FLAGS
@@ -1371,14 +1484,15 @@ def test_cpu_tensors_take_the_k6_plain_version_uncounted():
     assert mlp_eval.point_eval_banked.launches == n0
 
 
-# ptxas's registers per thread for the CUDA-core march kernels as the
-# parent tree's build reported them (NVIDIA H100 80GB HBM3, CUDA 12.8):
-# march_body.cuh's mlp_tile, which K1, K1-multi, K5 and K6 left for
-# point_mlp.cuh, must keep their code as it was.
-PARENT_REGISTERS = {
-    "sphere_trace_grid_kernel": 176,            # K1-grid
-    "queue_generation_kernel": 183,             # K2
+# ptxas's registers per thread for the in-order witness
+# (csrc/march_in_order.cu), as this tree's build reported them (NVIDIA
+# H100 80GB HBM3, CUDA 12.8): its mlp_tile, the CUDA-core body the routed
+# march kernels left for point_mlp.cuh, must keep its code as it was.
+WITNESS_REGISTERS = {
+    "march_in_order_kernel": 176,
 }
+# every tensor-core kernel's spill stores stay a few words (ptxas -v)
+MMA_SPILL_BYTES = 64
 
 
 def ptxas_registers(log: str) -> dict:
@@ -1397,19 +1511,42 @@ def ptxas_registers(log: str) -> dict:
     return regs
 
 
+def ptxas_spills(log: str) -> dict:
+    """{mangled kernel name: spill store bytes} from nvcc -Xptxas -v output."""
+    import re
+
+    spills, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name is not None:
+            spills[name] = int(m.group(1))
+    return spills
+
+
+MARCH_KERNELS = ("march_mma_kernel", "sphere_trace_grid_kernel", "queue_generation_kernel")
+
+
 @pytest.mark.gpu
 def test_cuda_march_registers_unchanged():
     _device()
-    regs = ptxas_registers(build.load().build_log)
-    for key, want in PARENT_REGISTERS.items():
+    log = build.load().build_log
+    regs, spills = ptxas_registers(log), ptxas_spills(log)
+    for key, want in WITNESS_REGISTERS.items():
         got = [r for name, r in regs.items() if key in name]
         assert got == [want], (key, got)
     assert any("point_mlp_kernel" in name for name in regs)
-    assert sum("march_mma_kernel" in name for name in regs) == 2
-    # K5, K6, K1 and K1-multi share point_mlp.cuh's wgmma loop and
-    # producer with K3 and K4: their registers stay the parent's 168
-    mma = {n: r for n, r in regs.items() if "point_mlp_kernel" in n or "march_mma_kernel" in n}
+    # K1, K1-multi, K1-grid and K2's generations: march_mma.cuh's tile march
+    march = {n: r for n, r in regs.items() if any(k in n for k in MARCH_KERNELS)}
+    assert len(march) == 4, sorted(regs)
+    # K5, K6 and the march kernels share point_mlp.cuh's wgmma loop and
+    # producer with K3 and K4: their registers stay the parent's 168, and
+    # the march kernels spill a few words at most
+    mma = {n: r for n, r in regs.items() if "point_mlp_kernel" in n or n in march}
     assert set(mma.values()) == {168}, mma
+    assert all(spills[n] <= MMA_SPILL_BYTES for n in march), {n: spills[n] for n in march}
     assert sum("precise_kernel" in name for name in regs) == 2
 
 
@@ -1469,9 +1606,10 @@ def sass_functions(sass: str) -> dict:
 
 @pytest.mark.gpu
 def test_cuda_point_evals_run_on_tensor_cores():
-    """Every K5 and K6 kernel of the built library, K1's and K1-multi's,
-    and K3's and K4's (precise_kernel), issues warpgroup MMAs (HGMMA in
-    its SASS); K1-grid and K2 issue none."""
+    """Every K5 and K6 kernel of the built library, every march kernel
+    (K1's, K1-multi's, K1-grid's and K2's generations), and K3's and
+    K4's (precise_kernel), issues warpgroup MMAs (HGMMA in its SASS); the
+    in-order witness issues none."""
     import shutil
     import subprocess
 
@@ -1482,14 +1620,15 @@ def test_cuda_point_evals_run_on_tensor_cores():
                           check=True).stdout
     funcs = sass_functions(sass)
     point = {k: v for k, v in funcs.items() if "point_mlp_kernel" in k}
-    march = {k: v for k, v in funcs.items() if "march_mma_kernel" in k}
+    march = {k: v for k, v in funcs.items() if any(m in k for m in MARCH_KERNELS)}
     precise = {k: v for k, v in funcs.items() if "precise_kernel" in k}
-    assert len(point) >= 4 and len(march) == 2 and len(precise) == 2, sorted(funcs)
+    assert len(point) >= 4 and len(march) == 4 and len(precise) == 2, sorted(funcs)
+    assert any("sphere_trace_grid" in k for k in march)
+    assert any("queue_generation" in k for k in march)
     for name, text in {**point, **march, **precise}.items():
         assert "HGMMA" in text, name
-    for name, text in funcs.items():
-        if "sphere_trace_grid" in name or "queue_generation" in name:
-            assert "HGMMA" not in text, name
+    witness = [k for k in funcs if "march_in_order_kernel" in k]
+    assert len(witness) == 1 and "HGMMA" not in funcs[witness[0]]
 
 
 def test_sass_functions_splits_a_dump():
@@ -1508,3 +1647,14 @@ def test_ptxas_registers_parses_the_build_log():
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
            "ptxas info    : Used 184 registers, used 1 barriers, 640 bytes smem\n")
     assert ptxas_registers(log) == {"_ZN3drt19sphere_trace_kernelEv": 184}
+
+
+def test_ptxas_spills_parses_the_build_log():
+    log = ("ptxas info    : Compiling entry function '_ZN3drt23queue_generation_kernelE' "
+           "for 'sm_90a'\nptxas info    : Function properties for x\n"
+           "16 bytes stack frame, 28 bytes spill stores, 28 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN3drt17queue_seed_kernelE' "
+           "for 'sm_90a'\n0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n")
+    assert ptxas_spills(log) == {"_ZN3drt23queue_generation_kernelE": 28,
+                                 "_ZN3drt17queue_seed_kernelE": 0}

@@ -147,7 +147,7 @@ def test_batched_trace_padded_pads_to_tile(scene):
     res = tbm.batched_trace_padded(s["tshared"], s["tbank"], o, v,
                                    MarchConfig(**MARCH_KW), seed, act)
     assert res.depth.shape == (F, 1000)
-    assert res.steps_per_ray.shape == (F * 1024,)  # padded to the 32-ray tile
+    assert res.steps_per_ray.shape == (F * 1024,)  # frames padded to 32 rays
     full = tbm.sphere_trace_persistent(
         s["tshared"], s["tbank"], torch.arange(F).repeat_interleave(1024),
         T(s["o"]), T(s["v"]), MarchConfig(**MARCH_KW), T(s["idep"]),

@@ -32,8 +32,9 @@ from test_torch_point_mma import DECODERS, _shared
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MARCH = MarchConfig(max_steps=50, convergence_eps=2e-3, depth_eps=5e-4)
-# the march's rays' carries [12][64], geometry [8][64] and step values [64]
-MARCH_STATE_BYTES = 4 * 21 * 64
+# the march's rows' carries [12][64], geometry [8][64] and step values
+# [64], fp32, and their ray or pixel indices [64], int32
+MARCH_STATE_BYTES = 4 * 22 * 64
 
 
 def _wide(width: int) -> bm.SharedDecoder:
@@ -47,15 +48,15 @@ def _wide(width: int) -> bm.SharedDecoder:
 
 @pytest.mark.parametrize("which", DECODERS + ["4x528"])
 def test_march_smem_plan_fits_an_h100_block(which):
-    """The march's plan is K5's with the rays' march state added, and it
+    """The march's plan is K5's with the rows' march state added, and it
     fits the 232,448 bytes an H100 block may use for every decoder the
-    repo marches (226,640 bytes at width 512) and up to width 528."""
+    repo marches (226,896 bytes at width 512) and up to width 528."""
     shared = _shared(which)
     need = mlp_eval.mma_smem_bytes(shared, march=True)
     assert need == mlp_eval.mma_smem_bytes(shared) + MARCH_STATE_BYTES
     assert need <= mlp_eval.SMEM_LIMIT == 232_448
     if which in ("bench", "color"):
-        assert need == 226_640
+        assert need == 226_896
     mlp_eval.check_mma_plan(shared, shared.tiles.device, march=True)
 
 
@@ -94,8 +95,8 @@ def test_plain_k1_on_tile_slices_equals_the_whole_run(salvage, monkeypatch):
     64-ray slice of two frames of 90 rays (padded to 96, so the middle
     tile straddles the frames) gives the whole run's [8, N] rows: a ray's
     march depends on its own frame's biases and nothing else in its tile,
-    which is what lets one tensor-core tile march equal K1-grid's and K2's
-    32-ray tiles bit for bit."""
+    which is what lets the tensor-core tile march equal the in-order
+    witness's 32-ray tiles bit for bit."""
     monkeypatch.setattr(march_body, "dot_f32", _dot_k_order)
     params, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"))
     _, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"))
