@@ -31,9 +31,14 @@ eval (K5) against its plain version,
 mesh extraction of the bench shape through it at 128^3 and 256^3, and
 the color render (SDFRendererColor with the differentiable color head)
 at 512x512, forward and backward, against the plain versions. The CLIs
-also extract meshes (--mesh) and run evaluate. Prints the timings, one
-JSON line of per-kernel results, the card's name and power limit, and
-last a JSON status line.
+also extract meshes (--mesh) and run evaluate. Phase 10 drives the
+counterparts of the TPU probe scripts (dist_renderer_tpu_torch.diag):
+each probe kernel (P1-P24) against its plain version, then the launch
+costs (an empty kernel to the main path's kernels at zero work, eager
+and in CUDA graphs), the host's waits in a bench frame, chain20, the
+work-queue building blocks and the bf16 and int8 MLP chains, printed as
+one "probes" JSON line. Prints the timings, one JSON line of per-kernel
+results, the card's name and power limit, and last a JSON status line.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -49,6 +54,8 @@ import time
 import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+from dist_renderer_tpu_torch.utils.profiling import bound_ms, cuda_ms  # noqa: E402
 IMG = 512
 REQUESTS = 5
 SEED = 0
@@ -70,23 +77,6 @@ def nvidia_smi_line():
         capture_output=True, text=True, timeout=60)
     check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
     return proc.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps=3):
-    """Median device time of fn() in ms (CUDA events, after one warm-up)."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[len(times) // 2]
 
 
 # Kernel vs plain version at the main path's shapes. Both sum every
@@ -142,23 +132,10 @@ def grad_diff(a, b):
                 rel=((a - b).norm() / b.norm()).item())
 
 
-# The least time the card could take for a kernel's work: the larger of
-# its multiply-adds at the bf16 dense tensor-core peak and the bytes it
-# must move (each input read once, each output written once) at the
-# memory rate; an NVIDIA H100 SXM's published peaks.
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
-
-
 def macs_per_eval(shared):
     from dist_renderer_tpu_torch.profile_render import macs_per_eval as macs
 
     return macs(shared)
-
-
-def bound(macs, nbytes):
-    t_ops, t_bytes = 2.0 * macs / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def march_bytes(n, shared, bank):
@@ -425,8 +402,8 @@ def k1_grid_phase(torch, dev, params, dcfg, latent, cfg, origins, dirs):
         steps = int(rk.steps_per_ray.sum())
         r = dict(case=name, d=d, steps=steps, ms=cuda_ms(lambda: run(True)),
                  plain_ms=cuda_ms(lambda: run(False), 1))
-        r["bound_ms"], r["bound_by"] = bound(steps * macs,
-                                             march_bytes(n, shared, packed.bias))
+        r["bound_ms"], r["bound_by"] = bound_ms(march_bytes(n, shared, packed.bias),
+                                                2 * steps * macs)
         if name == "a":
             # the same tile march on K1's persistent grid: bits, and the
             # time the one-block-per-tile grid is kept for
@@ -831,7 +808,7 @@ def batched_phase(torch, dev, params, dcfg, cfg, origins, dirs, smi):
     d_k1 = march_diff(k1, plain)
     steps = int(km.steps_per_ray.sum())
     n_rays = km.steps_per_ray.numel()
-    b_multi = bound(steps * macs_per_eval(packed[0]), march_bytes(n_rays, packed[0], bank))
+    b_multi = bound_ms(march_bytes(n_rays, packed[0], bank), 2 * steps * macs_per_eval(packed[0]))
     print(f"K1-multi on the verify stage's first round ({o_r.shape[0]} frames x "
           f"{o_r.shape[1]} rays, cap {m_r.max_steps}, {steps} active ray-steps): == K1 bit "
           f"for bit: {exact}; {km_ms:.3f} ms vs K1 {k1_ms:.3f} ms; vs plain "
@@ -1256,8 +1233,8 @@ def k6_row(torch, dev, smi):
                max=err.max().item(), within=(err <= 1e-5).float().mean().item(),
                ms=cuda_ms(lambda: run(True)), plain_ms=cuda_ms(lambda: run(False)),
                library_ms=cuda_ms(lambda: chain(pts_l, frame_l)), library_max=lib_err)
-    row["bound_ms"], row["bound_by"] = bound(n_eval * k6_macs(shared),
-                                             k6_bytes(row["n"], fob.numel(), shared, bank))
+    row["bound_ms"], row["bound_by"] = bound_ms(k6_bytes(row["n"], fob.numel(), shared, bank),
+                                                2 * n_eval * k6_macs(shared))
     print(f"K6 banked point eval, phase 8's cert probes at F={F8_PLAIN} ({row['n']} "
           f"lanes, {row['active']} active, {n_eval} evaluated in live tiles): vs plain "
           f"(GEMM) on active lanes max |diff| {row['max']:.3e}, within 1e-5 "
@@ -1436,8 +1413,8 @@ def k5_phase(torch, dev, params, dcfg, latent, cam, smi):
                    max=err.max().item(), within=(err <= 1e-5).float().mean().item(),
                    ms=cuda_ms(lambda: run(True)), plain_ms=cuda_ms(lambda: run(False)),
                    library_ms=cuda_ms(lambda: chain(pts, r)), library_max=lib_err)
-        row["bound_ms"], row["bound_by"] = bound(K5_POINTS * k5_macs(packed.shared, r),
-                                                 k5_bytes(K5_POINTS, packed, r))
+        row["bound_ms"], row["bound_by"] = bound_ms(k5_bytes(K5_POINTS, packed, r),
+                                                    2 * K5_POINTS * k5_macs(packed.shared, r))
         rows_a.append(row)
         print(f"K5 ({name}, {r} row{'s' if r > 1 else ''}) {K5_POINTS} points: vs plain "
               f"(GEMM) max |diff| {row['max']:.3e}, within 1e-5 {row['within']:.6f}; == "
@@ -1603,6 +1580,62 @@ DC_STEPS, MV_STEPS = 8, 10
 DC_CHAMFER_MAX = 0.5
 
 
+def probes_phase(torch, dev):
+    """Phase 10: the TPU probe scripts' kernels (P1-P24), each held to its
+    plain version at the scripts' shapes by the diag modules' checks
+    (equal where the math is exact, within each module's stated bar
+    where sums run in another order), then the probe path itself with
+    the launch counts set to 0: the launch-cost tables (host us eager,
+    device us in a CUDA graph), the zero-work launches of K1-K4, chain20,
+    the building blocks, the frame split, and the MLP chains at
+    diag_int8.py's defaults, each held to its plain version on every
+    column it is timed on. Returns (kernel rows, launches, the probes
+    line)."""
+    from dist_renderer_tpu_torch.diag import (
+        diag_int8, diag_launch2, diag_launch3, diag_launch4, diag_launch_cost,
+    )
+    from dist_renderer_tpu_torch.ops.kernels import mlp_chain, probes
+
+    print("\n== phase 10: the probes (P1-P24) ==", flush=True)
+    t0 = time.perf_counter()
+    modules = (diag_launch_cost, diag_launch2, diag_launch3, diag_launch4)
+    wrappers = probes.KERNELS + (mlp_chain.chain_bf16, mlp_chain.chain_int8)
+    try:
+        rows = [r for m in modules for r in m.check(dev)]
+        for w in wrappers:
+            w.launches = 0
+        res = {m.__name__.rsplit(".", 1)[1]: m.measure(dev) for m in modules}
+        # the chains are held to their plain versions at the size they are timed
+        res["diag_int8"] = chain = diag_int8.measure(dev)
+    except AssertionError as e:
+        fail(f"phase 10: {e}")
+    launches = {w.__name__: w.launches for w in wrappers}
+    for name, v in launches.items():
+        check(v > 0, f"phase 10 never launched {name}")
+    rows += [chain["bf16"], chain["int8"]]
+    for kind in ("bf16", "int8"):
+        chain[kind] = {k: v for k, v in chain[kind].items() if k != "kernel"}
+    rows.sort(key=lambda r: int(r["id"][1:]))
+    for r in rows:
+        print(f"{r['id']:>4} {r['kernel'].__name__:<13} ms {r['ms']:.6f}  plain "
+              f"{r['plain_ms']:.6f}  library {r['library_ms']}  bound "
+              f"{r['bound_ms']:.3e} ({r['bound_by']})  max|diff| {r['max_abs_err']:.3e}")
+    lc = res["diag_launch_cost"]
+    for name, row in lc["table"].items():
+        print(f"  launch {name:<14} host {row['host_us']:8.2f} us  graph "
+              f"{row.get('graph_us', float('nan')):8.3f} us")
+    print(f"  the main path's launches a frame: fwd {lc['frame_syncs']['fwd']['launches']}, "
+          f"{lc['host_us_per_frame_fwd']:.1f} us of host time; fwd+bwd "
+          f"{lc['frame_syncs']['fwdbwd']['launches']}, {lc['host_us_per_frame_fwdbwd']:.1f} us")
+    print(f"  chains: bf16 {chain['bf16']['ms']:.3f} ms, int8 {chain['int8']['ms']:.3f} ms, "
+          f"int8 speedup {chain['int8_speedup']:.2f}x; launches {launches}")
+    res["kernels"] = [{k: v for k, v in r.items() if k not in ("kernel", "source",
+                                                              "replaces")} for r in rows]
+    res["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"probes": res}), flush=True)
+    return rows, launches, res
+
+
 def cli_phase(torch, smi):
     """Phase 7: the command-line tasks and the server, in process, on the
     committed torus 8x512 decoder, each into a temporary --out."""
@@ -1763,7 +1796,6 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
-    sys.path.insert(0, HERE)
     from dist_renderer_tpu_torch.config import (
         DecoderConfig, GradConfig, MarchConfig, RenderConfig,
     )
@@ -2092,14 +2124,13 @@ def main():
         kg = k1_grid_phase(torch, dev, params, dcfg, latent, cfg, origins, dirs)
         k6 = k6_row(torch, dev, smi)
     # bounds at these shapes and this run's active ray-steps
-    b_k1 = bound(sum(lv[3] for lv in k1_levels) * macs_per_eval(shared_p),
-                 sum(march_bytes(lv[4], shared_p, bank_p) for lv in k1_levels))
-    b_k2 = bound(sum(st * mc for st, mc, _ in k2_steps),
-                 sum(by for _, _, by in k2_steps))
-    b_k3 = bound(pts.shape[0] * precise_macs(packed),
-                 precise_bytes(pts.shape[0], packed, 6, 5))
-    b_k4 = bound(pts.shape[0] * precise_macs(packed),
-                 precise_bytes(pts.shape[0], packed, 4, 0))
+    b_k1 = bound_ms(sum(march_bytes(lv[4], shared_p, bank_p) for lv in k1_levels),
+                    2 * sum(lv[3] for lv in k1_levels) * macs_per_eval(shared_p))
+    b_k2 = bound_ms(sum(by for _, _, by in k2_steps), 2 * sum(st * mc for st, mc, _ in k2_steps))
+    b_k3 = bound_ms(precise_bytes(pts.shape[0], packed, 6, 5),
+                    2 * pts.shape[0] * precise_macs(packed))
+    b_k4 = bound_ms(precise_bytes(pts.shape[0], packed, 4, 0),
+                    2 * pts.shape[0] * precise_macs(packed))
 
     # ---- phase 4: the slice: render() serving 5 requests ----
     print(f"\n== render(): {REQUESTS} requests at {IMG}x{IMG}, 50 steps ==")
@@ -2239,6 +2270,7 @@ def main():
     km = b8["k1_multi"]
     k9 = k5_phase(torch, dev, params, dcfg, latent, cam, smi)
     k5 = k9["a"][0]
+    p_rows, p_launches, probes = probes_phase(torch, dev)
 
     src = "dist_renderer_tpu_torch/csrc/"
     kernels = [
@@ -2294,7 +2326,11 @@ def main():
              launches=b8["launches"]["point_eval_banked"], max_abs_err=k6["max"],
              ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"]),
-    ]
+    ] + [dict(name=f"{r['kernel'].__name__} ({r['id']})", route="cuda", source=r["source"],
+              replaces=r["replaces"], launches=p_launches[r["kernel"].__name__],
+              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
+         for r in p_rows]
     print(json.dumps({"fwd_ms_per_frame": fwd_ms, "plain_fwd_ms": plain_ms,
                       "fwdbwd_ms_per_frame": fb["fwdbwd_ms"],
                       "plain_fwdbwd_ms": fb["plain_fwdbwd_ms"],
@@ -2344,6 +2380,7 @@ def main():
                                         for r in k9["a"]],
                                  mesh=k9["mesh"], triangle_route=k9["route"],
                                  color=k9["color"]),
+                      "probes_seconds": probes["seconds"],
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -33,7 +33,9 @@ Inputs (the committed bench fixture; seeded):
     (K3) and cotangents (K4); K3 (b) and K4 (b) on K5's 262,144 points
     (the lazy margin's width: its backward runs K3, then K4, on every
     anchor), K4 (c) with 3 seed rows and the xyz gradient.
-Each: CUDA events around the wrapper, median of 3 after a warm-up.
+Each: CUDA events around the wrapper, median of 3 after a warm-up
+(``utils/profiling.py``'s ``cuda_ms``, imported from the tree timed: a
+``--root`` tree needs that module).
 ``--only K3,K4`` times just the entries whose names start so (K3 and
 K4's four: "K4" also takes "K4 (a)" .. "K4 (c)"). Prints one JSON
 object, {name: ms}, with the card's name and power limit.
@@ -47,21 +49,6 @@ import json
 import os
 import subprocess
 import sys
-
-
-def _ms(torch, fn, reps=3):
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b))
-    return sorted(out)[len(out) // 2]
 
 
 def main(argv=None) -> int:
@@ -92,6 +79,7 @@ def main(argv=None) -> int:
     from dist_renderer_tpu_torch.ops.kernels import recompute as rc
     from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
     from dist_renderer_tpu_torch.profile_render import batched_setup, bench_setup
+    from dist_renderer_tpu_torch.utils.profiling import cuda_ms
 
     import dist_renderer_tpu_torch as pkg
     if not os.path.abspath(pkg.__file__).startswith(root):
@@ -109,7 +97,7 @@ def main(argv=None) -> int:
         pts = torch.as_tensor(np.random.default_rng(0).uniform(-1.0, 1.0, (262_144, 3)),
                               dtype=torch.float32, device=dev)
         if want("K5"):
-            times["K5"] = _ms(torch, lambda: mlp_eval.point_eval(packed, pts))
+            times["K5"] = cuda_ms(lambda: mlp_eval.point_eval(packed, pts))
 
         pk = rc.pack_precise(params, dcfg)
         bs = rc.fold_bias_precise(params, latent, dcfg, pk)
@@ -130,7 +118,7 @@ def main(argv=None) -> int:
         }
         for name, fn in precise.items():
             if want(name):
-                times[name] = _ms(torch, fn)
+                times[name] = cuda_ms(fn)
         if not want("K6", "K1", "K2"):
             return _report(times, root, smi, args.out)
 
@@ -149,7 +137,7 @@ def main(argv=None) -> int:
         finally:
             mlp_eval.point_eval_banked = real
         a6, kw6 = seen[0]
-        times["K6"] = _ms(torch, lambda: real(*a6, **kw6))
+        times["K6"] = cuda_ms(lambda: real(*a6, **kw6))
         del batch
 
         batch64, _, packed64 = batched_setup(dev, 64, 512, 9)
@@ -167,7 +155,7 @@ def main(argv=None) -> int:
             bm.batched_trace_padded = real_tp
         verify = rounds[0][:8]  # bank, o, v, march, seed, active, block, salvage
         for name, persistent in (("K1 verify", True), ("K1-multi verify", False)):
-            times[name] = _ms(torch, lambda: real_tp(packed64[0], *verify, True, persistent))
+            times[name] = cuda_ms(lambda: real_tp(packed64[0], *verify, True, persistent))
         del batch64, rounds, verify
 
         _, _, _, _, cfg, _ = bench_setup(dev, 512)
@@ -185,19 +173,19 @@ def main(argv=None) -> int:
         coarse = dataclasses.replace(cfg.march, max_steps=16)
         o4, v4 = o.repeat(4, 1).contiguous(), v.repeat(4, 1).contiguous()
         frame = torch.arange(4, device=dev).repeat_interleave(n)
-        times["K1"] = _ms(torch, lambda: bm.sphere_trace_persistent(
+        times["K1"] = cuda_ms(lambda: bm.sphere_trace_persistent(
             shared_p, bank_p, frame, o4, v4, coarse, rays_per_frame=n))
-        times["K1-multi"] = _ms(torch, lambda: bm.sphere_trace_batched(
+        times["K1-multi"] = cuda_ms(lambda: bm.sphere_trace_batched(
             shared_p, bank_p, frame, o4, v4, coarse, rays_per_frame=n))
         folded_p = fm.pack_folded(fold_latent(pparams, latent, pcfg), pcfg)
-        times["K1-grid"] = _ms(torch, lambda: fm.sphere_trace_grid(folded_p, o, v, cfg.march))
+        times["K1-grid"] = cuda_ms(lambda: fm.sphere_trace_grid(folded_p, o, v, cfg.march))
         cam2 = Camera.looking_at((0.0, 0.0, -2.5), focal=512 * 1.2, img_hw=(512, 512),
                                  device=dev)
         o2, v2 = pixel_rays(cam2, 512, 512)
         key = torch.zeros((1, 512 * 512), dtype=torch.int32, device=dev)
         seed = torch.full((1, 512 * 512), float("nan"), device=dev)
         bank_p1 = bank_p[:, :1].contiguous()
-        times["K2"] = _ms(torch, lambda: queue_march(
+        times["K2"] = cuda_ms(lambda: queue_march(
             shared_p, bank_p1, o2[None, :1], v2[None], key, seed, cfg.march,
             gen_caps=cfg.march.queue_caps))
         if want("K2 (verify)"):
@@ -207,7 +195,7 @@ def main(argv=None) -> int:
                                          cfg.march.proxy_backoff)
             shared_b = bm.pack_shared(params, dcfg)
             bank_b = bm.fold_bias_bank(params, lats[:1], dcfg, shared_b)
-            times["K2 (verify)"] = _ms(torch, lambda: queue_march(
+            times["K2 (verify)"] = cuda_ms(lambda: queue_march(
                 shared_b, bank_b, o2[None, :1], v2[None], key2, seed2, cfg.march,
                 gen_caps=cfg.march.queue_caps))
     times = {k: v for k, v in times.items() if want(k)}

@@ -65,6 +65,23 @@ SIGNATURES = {
         _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     "drt_point_mlp_smem": [_I],
     "drt_march_mma_smem": [_I],
+    # the TPU probe scripts' kernels (ops/kernels/probes.py, mlp_chain.py)
+    "drt_probe_empty": [_P, _P, _P],
+    "drt_probe_scratch": [_P, _P, _I, _I, _P],
+    "drt_probe_scalar_while": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "drt_probe_index_loop": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "drt_probe_vec_while": [_P, _P, _I, _P],
+    "drt_probe_dma_loop": [_P, _P, _P, _I, _P],
+    "drt_probe_copy": [_P, _P, _I, _P],
+    "drt_probe_add_one": [_P, _P, _I, _P],
+    "drt_probe_small_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "drt_probe_compact": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "drt_probe_f32dot": [_P, _P, _P, _I, _I, _I, _P],
+    "drt_probe_roll": [_P, _P, _I, _I, _I, _P],
+    "drt_probe_scan": [_P, _P, _I, _I, _I, _P],
+    "drt_mlp_chain_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "drt_mlp_chain_int8": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "drt_mlp_chain_smem": [_I, _I],
 }
 
 

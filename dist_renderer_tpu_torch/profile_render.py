@@ -87,6 +87,32 @@ def bench_setup(dev, img=512, seed=0):
             {"decoder": (params, dcfg), "proxy": (pparams, pcfg)})
 
 
+def bench_frames(dev):
+    """The bench cell's frame, (fwd, fwdbwd, decoders): fwd() serves one
+    render(); fwdbwd() is bench.py's fwd+bwd, a depth L1 loss's gradient
+    to the latent."""
+    import torch
+
+    from dist_renderer_tpu_torch.ops.renderer import render
+    from dist_renderer_tpu_torch.utils.losses import masked_l1
+
+    sdf_fn, factory, z, cam, cfg, decs = bench_setup(dev)
+    img = cfg.img_h
+    target = torch.full((img, img), 1.5, device=dev)
+    everywhere = torch.ones((img, img), dtype=torch.bool, device=dev)
+
+    def fwd():
+        return render(sdf_fn, z, cam, cfg, factory)
+
+    def fwdbwd():
+        zz = z.detach().clone().requires_grad_(True)
+        out = render(sdf_fn, zz, cam, cfg, factory)
+        torch.autograd.grad(masked_l1(out.depth, target, everywhere), zz)
+        return out
+
+    return fwd, fwdbwd, decs
+
+
 # The batched step's verify modes: render_batched_c2f's options for each
 BATCHED_MODES = {
     "march": {}, "polish": dict(verify_hits="polish"),
@@ -331,28 +357,13 @@ def main(argv=None):
     from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
     from dist_renderer_tpu_torch.ops.kernels import queue_march as qm
     from dist_renderer_tpu_torch.ops.kernels import recompute as rc
-    from dist_renderer_tpu_torch.ops.renderer import render
-    from dist_renderer_tpu_torch.utils.losses import masked_l1
 
     dev = torch.device("cuda", 0)
     set_fp32_matmul()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    sdf_fn, factory, z, cam, cfg, decs = bench_setup(dev)
-    img = cfg.img_h
-    target = torch.full((img, img), 1.5, device=dev)
-    everywhere = torch.ones((img, img), dtype=torch.bool, device=dev)
-
-    def fwd():
-        return render(sdf_fn, z, cam, cfg, factory)
-
-    def fwdbwd():
-        # bench.py's fwd+bwd: a depth L1 loss, its gradient to the latent
-        zz = z.detach().clone().requires_grad_(True)
-        out = render(sdf_fn, zz, cam, cfg, factory)
-        torch.autograd.grad(masked_l1(out.depth, target, everywhere), zz)
-        return out
+    fwd, fwdbwd, decs = bench_frames(dev)
 
     med = lambda xs: sorted(xs)[len(xs) // 2]
     queue_names = ("proxy fine march (K2)", "verify march (K2)")

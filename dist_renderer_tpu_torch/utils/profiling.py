@@ -1,0 +1,232 @@
+"""Tracing and timing on a CUDA card (the JAX package's
+``utils/profiling.py``): named regions in the profile, a device trace,
+a wall-clock timer that waits for the card, the march's live-ray
+telemetry as work-efficiency numbers, and the launch-cost timers the
+probes (``dist_renderer_tpu_torch.diag``) measure with.
+
+Device time comes from CUDA events (``cuda_ms``, ``graph_us``); the host
+cost of a launch from ``time.perf_counter`` around each launch
+(``host_us``). A timer that needs the card raises without one: a CPU
+time is never reported as the card's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import statistics
+import time
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named region in the profile: a ``record_function`` range, and an
+    NVTX range when CUDA is present."""
+    nvtx = torch.cuda.is_available()
+    with torch.profiler.record_function(name):
+        if nvtx:
+            torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            if nvtx:
+                torch.cuda.nvtx.range_pop()
+
+
+@contextlib.contextmanager
+def device_profile(out_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the block (CPU activity, and the card's when CUDA is
+    present) and write a Chrome trace, ``out_dir/trace.json``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+
+
+def _devices(result: Any, found: set) -> set:
+    if isinstance(result, torch.Tensor):
+        if result.is_cuda:
+            found.add(result.device)
+    elif isinstance(result, dict):
+        for v in result.values():
+            _devices(v, found)
+    elif isinstance(result, (tuple, list)):
+        for v in result:
+            _devices(v, found)
+    return found
+
+
+def block_until_ready(result: Any) -> Any:
+    """Wait until the cards that hold result's tensors have finished
+    their queued work (JAX's ``block_until_ready``)."""
+    for dev in _devices(result, set()):
+        torch.cuda.synchronize(dev)
+    return result
+
+
+class Timer:
+    """Wall-clock timing that waits for the card's queued work."""
+
+    def __init__(self):
+        self.records: Dict[str, list] = {}
+
+    @contextlib.contextmanager
+    def time(self, name: str, result: Any = None) -> Iterator[None]:
+        t0 = time.perf_counter()
+        yield
+        if result is not None:
+            block_until_ready(result)
+        self.records.setdefault(name, []).append(time.perf_counter() - t0)
+
+    def timeit(self, name: str, fn, *args, warmup: int = 1, iters: int = 5):
+        out = None
+        for _ in range(warmup):
+            out = fn(*args)
+        block_until_ready(out)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn(*args)
+        block_until_ready(out)
+        self.records.setdefault(name, []).append(
+            (time.perf_counter() - t0) / iters
+        )
+        return out
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        return {
+            k: {
+                "mean_ms": float(np.mean(v) * 1e3),
+                "min_ms": float(np.min(v) * 1e3),
+                "count": len(v),
+            }
+            for k, v in self.records.items()
+        }
+
+    def dump(self, path: Optional[str] = None) -> str:
+        s = json.dumps(self.summary(), indent=2)
+        if path:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            with open(path, "w") as f:
+                f.write(s)
+        return s
+
+
+def march_efficiency(trace_result) -> Dict[str, float]:
+    """Live-ray telemetry -> work-efficiency stats: the ray-steps the
+    march took, the ray-steps of marching every ray that started for as
+    many steps as the march ran, and their ratio."""
+    live = np.asarray(torch.as_tensor(trace_result.live_counts).cpu())
+    live = live[live > 0]
+    if live.size == 0:
+        return {"ray_steps": 0.0, "naive_ray_steps": 0.0, "savings": 1.0}
+    n0 = float(live[0])
+    total = float(live.sum())
+    naive = n0 * len(live)
+    return {
+        "ray_steps": total,
+        "naive_ray_steps": naive,
+        "savings": naive / max(total, 1.0),
+        "steps_used": int(len(live)),
+    }
+
+
+# An NVIDIA H100 SXM's published dense peaks (bf16 and int8 tensor
+# cores, fp32 CUDA cores; operations a second) and memory rate (bytes a
+# second)
+PEAK_BF16, PEAK_INT8, PEAK_FP32, PEAK_BYTES = 989e12, 1979e12, 67e12, 3.35e12
+
+
+def bound_ms(nbytes: float, ops: float = 0.0, peak: float = PEAK_BF16):
+    """The least time the card could take for a function's work: (ms,
+    "bytes" or "operations"), the larger of the bytes it must move at the
+    memory rate and its operations (2 a multiply-add) at ``peak``."""
+    t_b, t_o = nbytes / PEAK_BYTES, ops / peak
+    return 1e3 * max(t_b, t_o), "operations" if t_o > t_b else "bytes"
+
+
+def _need_card() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("this timer measures the CUDA card, and there is none")
+
+
+def timed(fn: Callable[[], Any]) -> Tuple[Any, float]:
+    """fn()'s result and its device time in ms: CUDA events around one
+    call."""
+    _need_card()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def cuda_ms(fn: Callable[[], Any], reps: int = 3, warmup: int = 1) -> float:
+    """Median device time of one fn() in ms: CUDA events around each of
+    ``reps`` calls, after ``warmup`` calls."""
+    _need_card()
+    for _ in range(warmup):
+        fn()
+    return statistics.median(timed(fn)[1] for _ in range(reps))
+
+
+def host_us(fn: Callable[[], Any], n: int = 200, warmup: int = 5) -> float:
+    """The host's cost of one fn() in us: the median over ``n``
+    back-to-back calls of ``time.perf_counter`` around each (what a
+    launch costs the caller, not the card). The card is drained before
+    the first and after the last."""
+    _need_card()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
+def capture(fn: Callable[[], Any], n: int) -> torch.cuda.CUDAGraph:
+    """One CUDA graph of ``n`` back-to-back fn() calls (warmed up on a
+    side stream first, as capture needs). A call that cannot be captured
+    raises here."""
+    _need_card()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return graph
+
+
+def graph_us(fn: Callable[[], Any], n: int = 200, reps: int = 3) -> float:
+    """Device time of one fn() in us inside a CUDA graph of ``n`` of
+    them: the median over ``reps`` timed replays (CUDA events) / n."""
+    graph = capture(fn, n)
+    return 1e3 * cuda_ms(graph.replay, reps) / n
+
+
+def per_call_ms(fn: Callable[[], Any], calls: int = 20, reps: int = 3) -> float:
+    """Device time of one fn() in ms when issued eagerly: CUDA events
+    around ``calls`` back-to-back calls, median of ``reps``, / calls."""
+    return cuda_ms(lambda: [fn() for _ in range(calls)], reps) / calls

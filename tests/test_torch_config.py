@@ -83,6 +83,16 @@ def test_port_imports_no_jax():
         "dist_renderer_tpu_torch.ops.kernels.batched_march",
         "dist_renderer_tpu_torch.ops.kernels.queue_march",
         "dist_renderer_tpu_torch.ops.kernels.recompute",
+        "dist_renderer_tpu_torch.ops.kernels.probes",
+        "dist_renderer_tpu_torch.ops.kernels.mlp_chain",
+        "dist_renderer_tpu_torch.utils.profiling",
+        "dist_renderer_tpu_torch.utils.debug",
+        "dist_renderer_tpu_torch.diag",
+        "dist_renderer_tpu_torch.diag.diag_launch_cost",
+        "dist_renderer_tpu_torch.diag.diag_launch2",
+        "dist_renderer_tpu_torch.diag.diag_launch3",
+        "dist_renderer_tpu_torch.diag.diag_launch4",
+        "dist_renderer_tpu_torch.diag.diag_int8",
     ]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -1658,3 +1658,131 @@ def test_ptxas_spills_parses_the_build_log():
            "for 'sm_90a'\n0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n")
     assert ptxas_spills(log) == {"_ZN3drt23queue_generation_kernelE": 28,
                                  "_ZN3drt17queue_seed_kernelE": 0}
+
+
+# ---- the TPU probe scripts' kernels (csrc/probe_launch.cu, probe_blocks.cu,
+# mlp_chain.cu): each against its plain version ----
+
+PROBE_MODULES = ("diag_launch_cost", "diag_launch2", "diag_launch3", "diag_launch4")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("module", PROBE_MODULES)
+def test_cuda_probe_kernels_match_plain_at_the_scripts_shapes(module):
+    """Each diag module's check: P1-P22 at the TPU scripts' inputs (and
+    seeded ones), equal to the plain versions where the math is exact and
+    within the module's bars where sums run in another order."""
+    import importlib
+
+    dev = _device()
+    rows = importlib.import_module(f"dist_renderer_tpu_torch.diag.{module}").check(dev)
+    assert rows and all(r["ms"] > 0 for r in rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int_pos", [False, True])
+def test_cuda_compaction_drops_what_names_no_slot(int_pos):
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    rng = np.random.default_rng(5)
+    d = torch.from_numpy(rng.uniform(-4, 4, (24, 512)).astype(np.float32)).to(dev)
+    surv = torch.from_numpy((rng.random((1, 512)) < 0.6).astype(np.float32)).to(dev)
+    pos = rng.permutation(np.arange(-40, 1100))[:512].astype(np.float32)
+    pos[:7] += 0.25  # non-integral: no slot in fp32, truncated with int_pos
+    pos = torch.from_numpy(pos[None]).to(dev)
+    assert torch.equal(pk.compact(d, pos, surv, int_pos=int_pos),
+                       pk.compact_plain(d, pos, surv, int_pos=int_pos))
+
+
+@pytest.mark.gpu
+def test_cuda_building_blocks_on_seeded_inputs():
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    g = torch.Generator().manual_seed(6)
+    x = (torch.rand((3, 1000), generator=g) * 200 - 100).to(dev)
+    assert torch.equal(pk.scan(x), pk.scan_plain(x))          # the TPU kernel's adds
+    b = torch.randint(0, 2, (5, 512), generator=g).to(torch.bfloat16).to(dev)
+    assert torch.equal(pk.scan(b), torch.cumsum(b.float(), 1))  # 0/1: exact
+    for shift in (-512, 0, 1, 513, 1023):
+        xr = x[:, :1000].contiguous()
+        assert torch.equal(pk.roll_lanes(xr, shift), pk.roll_lanes_plain(xr, shift))
+    xm = (torch.rand((24, 512), generator=g) * 2 - 1).to(dev)
+    w = (torch.rand((512, 256), generator=g) * 2 - 1).to(torch.bfloat16).to(dev)
+    # 24 rows: a full and a ragged 16-row tile
+    diff = (pk.small_mm(xm, w) - pk.small_mm_plain(xm, w)).abs().max().item()
+    assert diff <= 1e-3
+    m = (torch.rand((300, 512), generator=g) * 2 - 1).to(dev)
+    assert (pk.f32dot(xm, m) - pk.f32dot_plain(xm, m)).abs().max().item() <= 1e-4
+    rays = torch.rand((16, 4096), generator=g).to(dev)
+    for trips in (0, 2):
+        t = torch.tensor([trips], dtype=torch.int32, device=dev)
+        dflt = torch.rand((8, 4096), generator=g).to(dev)
+        assert torch.equal(pk.dma_loop(t, rays, dflt.clone()),
+                           pk.dma_loop_plain(t, rays, dflt.clone()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [128, 256])
+def test_cuda_mlp_chains_match_plain(width):
+    from dist_renderer_tpu_torch.ops.kernels import mlp_chain as mc
+
+    dev = _device()
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy(rng.standard_normal((width, 192)).astype(np.float32)).to(dev)
+    wi = torch.from_numpy(rng.integers(-127, 128, (3, width, width)).astype(np.int8)).to(dev)
+    wb = torch.from_numpy((0.05 * rng.standard_normal((3, width, width)))
+                          .astype(np.float32)).to(torch.bfloat16).to(dev)
+    before = (mc.chain_bf16.launches, mc.chain_int8.launches)
+    for steps in (0, 1, 3):
+        assert torch.equal(mc.chain_int8(x, wi, steps), mc.chain_int8_plain(x, wi, steps))
+        diff = (mc.chain_bf16(x, wb, steps) - mc.chain_bf16_plain(x, wb, steps)).abs()
+        assert diff.max().item() <= 2e-3
+    assert (mc.chain_bf16.launches, mc.chain_int8.launches) == (before[0] + 3, before[1] + 3)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_replay_of_probes_equals_eager():
+    """A CUDA graph of the port's ctypes launches replays them: an aliased
+    empty kernel leaves its operand as it was, and a graph of small_mm
+    gives eager's bits."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+    from dist_renderer_tpu_torch.utils.profiling import capture
+
+    dev = _device()
+    g = torch.Generator().manual_seed(7)
+    x = (torch.rand((8, 512), generator=g) * 2 - 1).to(dev)
+    w = (torch.rand((512, 512), generator=g) * 2 - 1).to(torch.bfloat16).to(dev)
+    keep = x.clone()
+    eager = pk.small_mm(x, w)
+    outs = []
+    graph = capture(lambda: outs.append((pk.empty(x, aliased=True), pk.small_mm(x, w))), 3)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(e is x for e, _ in outs[-3:])
+    assert torch.equal(x, keep)
+    for _, mm in outs[-3:]:
+        assert torch.equal(mm, eager)
+
+
+@pytest.mark.gpu
+def test_cuda_probe_wrappers_reject_bad_inputs():
+    from dist_renderer_tpu_torch.ops.kernels import mlp_chain as mc
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    x = torch.zeros((8, 512), device=dev)
+    with pytest.raises(ValueError):
+        pk.copy(x.double())
+    with pytest.raises(ValueError):
+        pk.small_mm(x, torch.zeros((512, 512), device=dev))  # fp32 weights
+    with pytest.raises(ValueError):
+        pk.scan(torch.zeros((1, 2048), device=dev))
+    with pytest.raises(ValueError):
+        pk.dma_loop(torch.zeros(1, dtype=torch.int32, device=dev), x, x)
+    with pytest.raises(ValueError):
+        mc.chain_int8(torch.zeros((100, 64), device=dev),
+                      torch.zeros((1, 100, 100), dtype=torch.int8, device=dev), 1)
+    with pytest.raises(ValueError):
+        pk.copy(torch.zeros((8, 512)).to(dev)[:, ::2])  # not contiguous
