@@ -37,8 +37,17 @@ each probe kernel (P1-P24) against its plain version, then the launch
 costs (an empty kernel to the main path's kernels at zero work, eager
 and in CUDA graphs), the host's waits in a bench frame, chain20, the
 work-queue building blocks and the bf16 and int8 MLP chains, printed as
-one "probes" JSON line. Prints the timings, one JSON line of per-kernel
-results, the card's name and power limit, and last a JSON status line.
+one "probes" JSON line. Phase 11 trains at full width, in a temporary
+directory: bench.py's decoder fit of the bench shape (its K1-grid render
+against the committed fixture's), its distilled 4x256 proxy (error
+report, the proxy file read back, three trace_frame requests held to the
+plain versions and to the K1-grid render), tasks/train.py at its
+defaults exported as a DeepSDF experiment directory and loaded back bit
+for bit (render_demo --experiment-dir), make_synthetic_data's layouts
+and the three --data fits, and a resumed depth_completion against an
+uninterrupted one; it checks that K1-grid, K1, K2, K3 and K4 launched.
+Prints the timings, one JSON line of per-kernel results, the card's name
+and power limit, and last a JSON status line.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -1791,6 +1800,308 @@ def cli_phase(torch, smi):
     return times
 
 
+# Phase 11: training and data at full width. (a) bench.py's decoder fit
+# (the 8x512/256 DeepSDF decoder, batch 8192, bench.py's 1,500 steps), its
+# K1-grid render's hits against the committed fixture's (IoU over hits);
+# (b) its 4x256 proxy (latent jitter 0.002, bench.py's 6,000 steps), served
+# through trace_frame and held to the K1-grid render under phase 4's bars;
+# (c) tasks/train.py at its defaults for 200 steps, exported and loaded
+# back; (d) make_synthetic_data and the three --data fits; (e) a resumed
+# depth_completion against an uninterrupted one.
+FIT_STEPS, FIT_BATCH = 1500, 8192
+DISTILL_STEPS = 6000
+TRAIN_STEPS = 200
+DATA_STEPS = 5
+# the fresh fit against the committed fixture (fitted by the JAX package
+# from other random draws): the same shape, not the same bits
+FIT_IOU_MIN = 0.9
+
+
+def train_phase(torch, dev, smi, bench_params, bench_latent, cam):
+    """Phase 11: fit, distill, train, export and load, data on disk and
+    resume, in a temporary directory, every render on the kernels; the
+    launch counters are set to 0 at its start and read at its end.
+    Returns its timings and checks for the JSON line."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from dist_renderer_tpu_torch.config import (
+        DecoderConfig, GradConfig, MarchConfig, RenderConfig,
+    )
+    from dist_renderer_tpu_torch.models.analytic import round_union, sphere_sdf, torus_sdf
+    from dist_renderer_tpu_torch.models.checkpoint import load_decoder, load_latent_codes
+    from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
+    from dist_renderer_tpu_torch.models.pretrain import fit_decoder_to_sdf
+    from dist_renderer_tpu_torch.models.proxy import (
+        default_proxy_cfg, distill_proxy, load_proxy_meta, load_proxy_npz,
+        proxy_error_report, proxy_march_margins, save_proxy_npz,
+    )
+    from dist_renderer_tpu_torch.ops.kernels.batched_march import sphere_trace_persistent
+    from dist_renderer_tpu_torch.ops.kernels.fused_march import sphere_trace_grid
+    from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
+    from dist_renderer_tpu_torch.ops.kernels.recompute import (
+        precise_bias_grads_call, precise_sdg_call,
+    )
+    from dist_renderer_tpu_torch.ops.renderer import SDFRenderer, make_march_factory, render
+    from dist_renderer_tpu_torch.tasks import (
+        depth_completion, make_synthetic_data, multiview, pose_refine, render_demo, train,
+    )
+
+    print("\n== phase 11: training and data at full width ==", flush=True)
+    counters = (sphere_trace_grid, sphere_trace_persistent, queue_march,
+                precise_sdg_call, precise_bias_grads_call)
+    for c in counters:
+        c.launches = 0
+    t_phase = time.perf_counter()
+    res = {}
+    dcfg = DecoderConfig()
+    grid_cfg = RenderConfig(
+        march=MarchConfig(max_steps=50, convergence_eps=2e-3, depth_eps=5e-4),
+        grad=GradConfig(mode="ift", compact_frac=4, recompute="pallas"),
+        compute_dtype="bfloat16", use_pallas=True)
+
+    def grid_render(params, z, pcfg=dcfg):
+        with torch.no_grad():
+            return SDFRenderer(params, cam.K, (IMG, IMG), decoder_cfg=pcfg,
+                               cfg=grid_cfg).render(z, cam.R, cam.T)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def loss_line(losses):
+        h = torch.stack(losses).cpu()
+        check(bool(torch.isfinite(h).all()), "a training loss is not finite")
+        k = min(50, len(h))
+        return h, dict(first=float(h[0]), last=float(h[-1]),
+                       first50=float(h[:k].mean()), last50=float(h[-k:].mean()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) bench.py's fit of the bench shape
+        shape = round_union(torus_sdf(0.55, 0.18), sphere_sdf(0.35, (0.0, 0.25, 0.0)), 0.08)
+        losses = []
+        (params, z0), s = timed(lambda: fit_decoder_to_sdf(
+            lambda p: shape(None, p), dcfg, steps=FIT_STEPS, batch=FIT_BATCH, device=dev,
+            losses=losses))
+        _, fl = loss_line(losses)
+        res["fit"] = dict(steps=FIT_STEPS, batch=FIT_BATCH, seconds=s,
+                          ms_per_step=1e3 * s / FIT_STEPS, **fl)
+        print(f"(a) fit_decoder_to_sdf, 8x512/256, batch {FIT_BATCH}: {FIT_STEPS} steps in "
+              f"{s:.2f} s, {res['fit']['ms_per_step']:.3f} ms/step; loss {fl['first']:.5f} "
+              f"-> {fl['last']:.5f} (mean of the first / last 50: {fl['first50']:.5f} -> "
+              f"{fl['last50']:.5f})  [{smi}]", flush=True)
+        check(fl["last50"] < 0.5 * fl["first50"], "the decoder fit's loss did not fall")
+        fresh = grid_render(params, z0)
+        ref = grid_render(bench_params, bench_latent)
+        inter = int((fresh.mask & ref.mask).sum())
+        union = int((fresh.mask | ref.mask).sum())
+        iou = inter / max(union, 1)
+        res["fit"].update(iou=iou, hits=int(fresh.mask.sum()), fixture_hits=int(ref.mask.sum()))
+        print(f"    K1-grid render at {IMG}x{IMG}: {res['fit']['hits']} hits; the committed "
+              f".bench_decoder.npz's {res['fit']['fixture_hits']}; IoU over hits {iou:.5f} "
+              f"(bar {FIT_IOU_MIN})", flush=True)
+        check(all(torch.isfinite(getattr(fresh, k)).all().item()
+                  for k in ("depth", "normal", "min_sdf")), "non-finite fresh render")
+        check(iou >= FIT_IOU_MIN, f"the fresh decoder's hits differ from the fixture's: "
+              f"IoU {iou:.4f} < {FIT_IOU_MIN}")
+
+        # (b) its proxy, bench.py's distillation
+        losses = []
+        (proxy, pcfg), s = timed(lambda: distill_proxy(
+            params, dcfg, z0[None], proxy_cfg=default_proxy_cfg(dcfg, width=256, depth=4),
+            steps=DISTILL_STEPS, latent_jitter=0.002, losses=losses))
+        _, dl = loss_line(losses)
+        rep, s_rep = timed(lambda: proxy_error_report(params, dcfg, proxy, pcfg, z0[None]))
+        ppath = os.path.join(tmp, "proxy.npz")
+        save_proxy_npz(ppath, proxy, pcfg, err_report=rep)
+        proxy2, pcfg2 = load_proxy_npz(ppath, dev)
+        check(pcfg2 == pcfg and all(torch.equal(a[k], b[k]) for a, b in
+                                    zip(proxy["layers"], proxy2["layers"]) for k in "wb"),
+              "the proxy file did not read back bit for bit")
+        meta = load_proxy_meta(ppath)
+        check(meta == {k: rep[k] for k in ("p50", "p95", "p99", "max")},
+              "the proxy file's error quantiles did not read back")
+        res["distill"] = dict(steps=DISTILL_STEPS, seconds=s,
+                              ms_per_step=1e3 * s / DISTILL_STEPS, report=rep,
+                              report_seconds=s_rep, **dl)
+        print(f"(b) distill_proxy 4x256, latent jitter 0.002: {DISTILL_STEPS} steps in "
+              f"{s:.2f} s, {res['distill']['ms_per_step']:.3f} ms/step; loss "
+              f"{dl['first50']:.5f} -> {dl['last50']:.5f}; error report ({s_rep:.2f} s): "
+              f"{rep}  [{smi}]", flush=True)
+        check(dl["last50"] < dl["first50"], "the distillation's loss did not fall")
+        backoff, band = proxy_march_margins(meta, 2e-3)
+        cfg = RenderConfig(
+            img_h=IMG, img_w=IMG,
+            march=MarchConfig(max_steps=50, convergence_eps=2e-3, depth_eps=5e-4,
+                              coarse_to_fine=True, c2f_strides=(16, 4),
+                              c2f_coarse_steps=16, proxy_backoff=backoff,
+                              proxy_band=band),
+            grad=GradConfig(mode="ift", compact_frac=4, recompute="pallas"),
+            compute_dtype="bfloat16", use_pallas=True)
+        sdf_fn = make_precise_sdf(params, dcfg)
+        factory = make_march_factory(params, dcfg, cfg, march_params=proxy2,
+                                     march_dcfg=pcfg2)
+        gen = torch.Generator().manual_seed(SEED)
+        lats = [z0] + [z0 + 0.001 * torch.randn(z0.shape, generator=gen).to(dev)
+                       for _ in range(2)]
+        before = {c.__name__: c.launches for c in counters}
+        outs, ms = [], []
+        for z in lats:
+            with torch.no_grad():
+                out, s = timed(lambda: render(sdf_fn, z, cam, cfg, factory))
+            outs.append(out)
+            ms.append(1e3 * s)
+        served = {c.__name__: c.launches - before[c.__name__] for c in counters}
+        for k in ("sphere_trace_persistent", "queue_march", "precise_sdg_call"):
+            check(served[k] > 0, f"phase 11's trace_frame requests never launched {k}")
+        check(all(torch.isfinite(o.depth).all().item() for o in outs),
+              "a trace_frame request's depth is not finite")
+        # phase 4's bars: the same request on the plain versions
+        plain_fac = make_march_factory(params, dcfg, cfg, march_params=proxy2,
+                                       march_dcfg=pcfg2, use_kernel=False)
+        with torch.no_grad():
+            plain = render(make_precise_sdf(params, dcfg, use_kernel=False), z0, cam, cfg,
+                           plain_fac)
+        p_agree = (plain.mask == outs[0].mask).float().mean().item()
+        both = plain.mask & outs[0].mask
+        p_within = ((plain.depth - outs[0].depth).abs()[both] <= 1e-3).float().mean().item()
+        # against the K1-grid render: the same hits, as near the full
+        # decoder's surface. The two marches stop at different points of
+        # the convergence band, so depths differ beyond 1e-3 on a few % of
+        # hits for the bench fixture too (phase 6's line): they are
+        # printed, and each render's share of hits with precise |f| <=
+        # convergence eps is compared (measured on an H100: 99.24% for
+        # both; the rest are grazing hits whose IFT step was clamped)
+        agree = (outs[0].mask == fresh.mask).float().mean().item()
+        both = outs[0].mask & fresh.mask
+        dq = quantiles((outs[0].depth - fresh.depth).abs()[both], (0.5, 0.99, 0.999, 1.0))
+        bench_sdf = make_precise_sdf(bench_params, dcfg)
+        with torch.no_grad():
+            resid = {name: f(z, o.points[o.mask]).abs() for name, f, z, o in (
+                ("trace_frame", sdf_fn, z0, outs[0]), ("K1-grid", sdf_fn, z0, fresh),
+                ("fixture K1-grid", bench_sdf, bench_latent, ref))}
+        eps = cfg.march.convergence_eps
+        on_surface = {k: (v <= eps).float().mean().item() for k, v in resid.items()}
+        rq = {k: quantiles(v, (0.5, 0.999, 1.0)) for k, v in resid.items()}
+        res["serve"] = dict(ms=ms, launches=served, plain_hit_agreement=p_agree,
+                            plain_depth_within_1e3=p_within, grid_hit_agreement=agree,
+                            grid_depth_quantiles=dq, on_surface=on_surface,
+                            residual_quantiles=rq, margins=(backoff, band))
+        print(f"    3 trace_frame requests with the fresh proxy (margins {backoff:.3e} / "
+              f"{band:.3e}): ms {[round(m, 2) for m in ms]}, launches {served}; vs the "
+              f"plain versions: hit agreement {p_agree:.5f}, depth within 1e-3 "
+              f"{p_within:.5f}; vs the K1-grid render: hit agreement {agree:.5f}, |depth "
+              f"diff| on {int(both.sum())} common hits p50/p99/p99.9/max "
+              f"{[f'{x:.2e}' for x in dq]}; precise |f| at the hits p50/p99.9/max "
+              f"{ {k: [f'{x:.2e}' for x in v] for k, v in rq.items()} }, within eps "
+              f"{on_surface}  [{smi}]", flush=True)
+        check(p_agree >= 0.99 and p_within >= 0.999, "the fresh proxy's trace_frame "
+              "render differs from its plain versions' beyond phase 4's bars")
+        check(agree >= 0.99, f"the fresh proxy's render disagrees with K1-grid's: hit "
+              f"agreement {agree:.4f} < 0.99")
+        check(on_surface["trace_frame"] >= on_surface["K1-grid"] - 1e-3,
+              "the fresh proxy's hits are off the full decoder's surface more often "
+              f"than K1-grid's: {on_surface}")
+
+        # (c) tasks/train.py at its defaults, exported, loaded, rendered
+        exp = os.path.join(tmp, "exp")
+        (tparams, tlat, h, ms_step), s = timed(lambda: train.main(
+            ["--shapes", "sphere", "torus", "union", "--steps", str(TRAIN_STEPS),
+             "--out", exp]))
+        res["train"] = dict(steps=TRAIN_STEPS, seconds=s, ms_per_step=ms_step,
+                            first50=float(h[:50].mean()), last50=float(h[-50:].mean()))
+        print(f"(c) tasks.train, 3 shapes, 8x512/256, 4 x 4096 points: {TRAIN_STEPS} steps, "
+              f"{ms_step:.3f} ms/step; loss {res['train']['first50']:.5f} -> "
+              f"{res['train']['last50']:.5f}  [{smi}]", flush=True)
+        check(bool(np.isfinite(h).all()) and res["train"]["last50"] < res["train"]["first50"],
+              "tasks.train's loss did not fall")
+        lparams, lcfg = load_decoder(exp, device=dev)
+        llat = load_latent_codes(exp, device=dev)
+        check(lcfg == dcfg, f"the exported specs read back as {lcfg}")
+        check(all(torch.equal(a[k], b[k]) for a, b in zip(tparams["layers"],
+                                                          lparams["layers"]) for k in "wb")
+              and torch.equal(llat, tlat), "the exported experiment dir did not load "
+              "back bit for bit")
+        a, b = grid_render(tparams, tlat[1], lcfg), grid_render(lparams, llat[1], lcfg)
+        same = all(torch.equal(getattr(a, k), getattr(b, k))
+                   for k in ("depth", "mask", "normal", "min_sdf"))
+        res["train"].update(loaded_equal=True, render_equal=same, hits=int(a.mask.sum()))
+        print(f"    loaded == trained bit for bit; K1-grid render of latent 1 (torus) from "
+              f"the directory == from memory: {same} ({int(a.mask.sum())} hits)", flush=True)
+        check(same, "the render from the loaded experiment dir differs from memory's")
+        out = os.path.join(tmp, "demo")
+        render_demo.main(["--fast", "--experiment-dir", exp, "--img", "256", "--out", out])
+        check(os.path.exists(os.path.join(out, "view00.png")),
+              "render_demo --experiment-dir wrote no view")
+
+        # (d) data on disk from the committed torus 8x512 decoder, and the fits
+        data = os.path.join(tmp, "synth")
+        _, s = timed(lambda: make_synthetic_data.main(
+            ["--fast", "--img", "256", "--instances", "2", "--views", "3", "--out", data]))
+        res["data"] = dict(make_seconds=s)
+        print(f"(d) make_synthetic_data: 2 instances x 3 views at 256^2 in {s:.2f} s",
+              flush=True)
+        fit = ["--fast", "--steps", str(DATA_STEPS), "--lr", "5e-2"]
+        dc = depth_completion.main(fit + ["--data", os.path.join(data, "depth"),
+                                          "--instance", "1", "--out",
+                                          os.path.join(tmp, "dc")])
+        pr, rot, t_err = pose_refine.main(["--fast", "--steps", str(DATA_STEPS), "--data",
+                                           os.path.join(data, "depth"), "--out",
+                                           os.path.join(tmp, "pr")])
+        mv = multiview.main(fit + ["--data", os.path.join(data, "multiview"), "--out",
+                                   os.path.join(tmp, "mv")])
+        hs = {k: r.loss_history.tolist() for k, r in
+              (("depth_completion", dc), ("pose_refine", pr), ("multiview", mv))}
+        res["data"].update(losses=hs, ms_per_step={k: r.metrics["ms_per_step"] for k, r in
+                                                   (("depth_completion", dc),
+                                                    ("pose_refine", pr),
+                                                    ("multiview", mv))})
+        for k, v in hs.items():
+            print(f"    {k} --data: losses {[round(x, 6) for x in v]}; ms/step median "
+                  f"{res['data']['ms_per_step'][k]:.1f}  [{smi}]", flush=True)
+            check(all(math.isfinite(x) for x in v), f"{k} --data: a loss is not finite")
+        # the zero latent renders little of the shape: depth completion's
+        # objective rises as the shape appears, then falls
+        dh = hs["depth_completion"]
+        check(dh[-1] < 0.7 * max(dh[1:]), "depth_completion --data's objective did not fall")
+        check(hs["pose_refine"][-1] < hs["pose_refine"][0],
+              "pose_refine --data's objective did not fall")
+        check(min(hs["multiview"][1:]) < hs["multiview"][0],
+              "multiview --data's objective did not fall")
+
+        # (e) resume: 3 steps, a checkpoint, 3 more, against 6 uninterrupted
+        base = ["--fast", "--img", "256", "--lr", "5e-2", "--checkpoint-every", "3"]
+        ck = os.path.join(tmp, "ckpt")
+        whole = depth_completion.main(base + ["--steps", "6", "--out",
+                                              os.path.join(tmp, "w")])
+        first = depth_completion.main(base + ["--steps", "3", "--checkpoint-dir", ck,
+                                              "--out", os.path.join(tmp, "r1")])
+        rest = depth_completion.main(base + ["--steps", "6", "--checkpoint-dir", ck,
+                                             "--out", os.path.join(tmp, "r2")])
+        resumed = torch.cat([first.loss_history, rest.loss_history])
+        equal = (torch.equal(rest.variables, whole.variables)
+                 and torch.equal(resumed, whole.loss_history))
+        res["resume"] = dict(equal=equal, max_latent_diff=float(
+            (rest.variables - whole.variables).abs().max()))
+        print(f"(e) depth_completion resumed at step 3 == uninterrupted 6 steps, bit for "
+              f"bit: {equal} (max |latent diff| {res['resume']['max_latent_diff']:.3e}; "
+              f"losses {resumed.tolist()} vs {whole.loss_history.tolist()})", flush=True)
+        check(equal, "the resumed depth_completion differs from the uninterrupted one")
+
+    launches = {c.__name__: c.launches for c in counters}
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11: {res['seconds']:.1f} s; launches {launches}", flush=True)
+    for k, v in launches.items():
+        check(v > 0, f"phase 11 never launched {k}")
+    return res
+
+
 def main():
     import torch
 
@@ -2271,6 +2582,7 @@ def main():
     k9 = k5_phase(torch, dev, params, dcfg, latent, cam, smi)
     k5 = k9["a"][0]
     p_rows, p_launches, probes = probes_phase(torch, dev)
+    t11 = train_phase(torch, dev, smi, params, latent, cam)
 
     src = "dist_renderer_tpu_torch/csrc/"
     kernels = [
@@ -2381,6 +2693,7 @@ def main():
                                  mesh=k9["mesh"], triangle_route=k9["route"],
                                  color=k9["color"]),
                       "probes_seconds": probes["seconds"],
+                      "train": t11,
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -82,9 +82,12 @@ def check(dev) -> list:
     t8 = torch.tensor([8], **i32)
     for t in (torch.tensor([0], **i32), t8):
         err = check_equal("P7", pk.vec_while(t), pk.vec_while_plain(t))
+    # one torch add computes P7's function: the zero carry plus the trips
+    z8 = torch.zeros((8, 512), dtype=torch.float32, device=dev)
+    check_equal("P7 (one torch add)", torch.add(z8, t8), pk.vec_while(t8))
     rows.append(kernel_row("P7", pk.vec_while, SRC_L, f"{TPU}:119", err,
                            lambda: pk.vec_while(t8), lambda: pk.vec_while_plain(t8),
-                           nbytes=4 + 4 * 8 * 512))
+                           lambda: torch.add(z8, t8), nbytes=4 + 4 * 8 * 512))
     got = pk.f32dot(x, m)
     check_equal("P8 (one-hot)", got, pk.f32dot_plain(x, m))
     check_equal("P8 (the script's check)", got[:, :256], x[:, ::2])

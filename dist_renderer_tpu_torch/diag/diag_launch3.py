@@ -88,10 +88,17 @@ def check(dev) -> list:
                           pk.dma_loop_plain(t, rays, dflt.clone()))
     t1 = torch.tensor([1], dtype=torch.int32, device=dev)
     d1 = torch.zeros((8, N), dtype=torch.float32, device=dev)
+    # one torch add computes P15's function at a trip or more: rays' first
+    # 512 columns of rows 0-7, + 1, into the output's first 512 columns
+    lib = lambda d: torch.add(rays[:8, :512], 1.0, out=d[:, :512])
+    want = pk.dma_loop(t1, rays, d1.clone())
+    got = d1.clone()
+    lib(got)
+    check_equal("P15 (one torch add)", got, want)
     rows.append(kernel_row("P15", pk.dma_loop, SRC_L, f"{TPU}:145", err,
                            lambda: pk.dma_loop(t1, rays, d1),
                            lambda: pk.dma_loop_plain(t1, rays, d1),
-                           nbytes=4 + 24 * 512 * 4))
+                           lambda: lib(d1), nbytes=4 + 24 * 512 * 4))
     xs, tri = tri_inputs(dev)
     got = pk.scan(xs)
     err = check_equal("P16", got, pk.tri_cumsum_plain(xs, tri))

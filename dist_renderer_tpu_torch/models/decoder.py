@@ -15,10 +15,11 @@ which proxy hits are demoted, and an fp32 pass demotes other rays.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from dist_renderer_tpu_torch.config import DecoderConfig
 
@@ -29,6 +30,29 @@ def set_fp32_matmul() -> None:
     """Make float32 products full float32 on the card (no TF32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def init_decoder_params(generator: torch.Generator, cfg: DecoderConfig,
+                        device="cpu", dtype: torch.dtype = torch.float32
+                        ) -> Params:
+    """He-style init (std sqrt(2 / d_in), zero biases), the JAX package's
+    ``init_decoder_params``. The draws come from ``generator`` on its own
+    device and move to ``device``, so one seed gives one set of weights
+    on any device; they differ from the JAX package's for the same seed."""
+    layers = []
+    for d_in, d_out in cfg.layer_dims:
+        w = torch.randn((d_in, d_out), generator=generator, dtype=dtype,
+                        device=generator.device) * float(np.sqrt(2.0 / d_in))
+        layers.append({"w": w.to(device),
+                       "b": torch.zeros(d_out, dtype=dtype, device=device)})
+    return {"layers": layers}
+
+
+def numpy_f32(t) -> np.ndarray:
+    """A tensor (any device, detached) or array as a float32 numpy array."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, dtype=np.float32)
 
 
 def params_from_numpy(params_np: Params, device="cpu") -> Params:
@@ -237,3 +261,81 @@ class PreciseSDF:
 def make_precise_sdf(params: Params, cfg: DecoderConfig = DecoderConfig(),
                      use_kernel: bool = True) -> PreciseSDF:
     return PreciseSDF(params, cfg, use_kernel)
+
+
+def decode_sdf(params: Params, latent: torch.Tensor, points: torch.Tensor,
+               cfg: DecoderConfig = DecoderConfig(),
+               compute_dtype: torch.dtype = torch.float32,
+               chunk: Optional[int] = None) -> torch.Tensor:
+    """decoder_apply over one latent in chunks of ``chunk`` points (None:
+    one pass), the reference's ``decode_sdf``, for grids too large for one
+    pass. A value may move in its last bit with the chunking (the GEMM
+    blocks by row count), as with the JAX package's padded ``lax.map``."""
+    if chunk is None:
+        return decoder_apply(params, latent, points, cfg, compute_dtype)
+    pts = points.reshape(-1, 3)
+    out = [decoder_apply(params, latent, pts[i:i + chunk], cfg, compute_dtype)
+           for i in range(0, pts.shape[0], chunk)]
+    flat = torch.cat(out) if out else pts.new_zeros((0,))
+    return flat.reshape(points.shape[:-1])
+
+
+def sdf_gradient(params: Params, latent: torch.Tensor, points: torch.Tensor,
+                 cfg: DecoderConfig = DecoderConfig(), eps: float = 0.0
+                 ) -> torch.Tensor:
+    """d sdf / d x at each point ([..., 3]), for surface normals.
+
+    eps == 0: autograd of the sum of the values (each value depends on its
+    own point only, so one backward gives every point's gradient).
+    eps > 0: central differences with step eps (six more evaluations)."""
+    if eps > 0.0:
+        offs = torch.tensor([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                             [0, 0, 1], [0, 0, -1]], dtype=points.dtype,
+                            device=points.device) * eps
+        probe = points[..., None, :] + offs
+        s = decoder_apply(params, latent, probe.reshape(-1, 3), cfg)
+        s = s.reshape(points.shape[:-1] + (6,))
+        return torch.stack([s[..., 0] - s[..., 1], s[..., 2] - s[..., 3],
+                            s[..., 4] - s[..., 5]], dim=-1) / (2.0 * eps)
+    with torch.enable_grad():
+        p = points.detach().requires_grad_(True)
+        total = decoder_apply(params, latent.detach(), p, cfg).sum()
+        (g,) = torch.autograd.grad(total, p)
+    return g
+
+
+class DeepSDFDecoder(nn.Module):
+    """The decoder as an ``nn.Module`` (the reference's ``Decoder``): its
+    parameters are each layer's ``w`` [in, out] and ``b`` [out], named
+    ``w{i}`` and ``b{i}``, made from ``params`` (sharing its tensors) or a
+    seeded init. ``forward`` is ``decode_sdf``, ``gradient``
+    ``sdf_gradient``; ``params()`` gives the functional ``Params`` dict
+    back."""
+
+    def __init__(self, cfg: DecoderConfig = DecoderConfig(),
+                 params: Optional[Params] = None,
+                 generator: Optional[torch.Generator] = None, device="cpu"):
+        super().__init__()
+        self.cfg = cfg
+        if params is None:
+            params = init_decoder_params(
+                generator if generator is not None
+                else torch.Generator().manual_seed(0), cfg, device)
+        for i, layer in enumerate(params["layers"]):
+            self.register_parameter(f"w{i}", nn.Parameter(layer["w"]))
+            self.register_parameter(f"b{i}", nn.Parameter(layer["b"]))
+
+    def params(self) -> Params:
+        n = len(self.cfg.layer_dims)
+        return {"layers": [{"w": getattr(self, f"w{i}"), "b": getattr(self, f"b{i}")}
+                           for i in range(n)]}
+
+    def forward(self, latent: torch.Tensor, points: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32,
+                chunk: Optional[int] = None) -> torch.Tensor:
+        return decode_sdf(self.params(), latent, points, self.cfg, compute_dtype,
+                          chunk)
+
+    def gradient(self, latent: torch.Tensor, points: torch.Tensor,
+                 eps: float = 0.0) -> torch.Tensor:
+        return sdf_gradient(self.params(), latent, points, self.cfg, eps)

@@ -17,11 +17,10 @@ import numpy as np
 import torch
 
 from dist_renderer_tpu_torch.config import (
-    DecoderConfig, GradConfig, MarchConfig, RenderConfig,
+    DecoderConfig, GradConfig, MarchConfig, OptimConfig, RenderConfig,
 )
 from dist_renderer_tpu_torch.models.decoder import Params
 from dist_renderer_tpu_torch.ops.camera import Camera
-from dist_renderer_tpu_torch.ops.kernels.batched_march import not_ported
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -48,18 +47,22 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
                     help="c2f + compaction + bf16 march")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="checkpoint dir for resume")
+    ap.add_argument("--checkpoint-every", type=int,
+                    default=OptimConfig().checkpoint_every,
+                    help="steps between saves to --checkpoint-dir")
     ap.add_argument("--decoder-width", type=int, default=512,
                     help="hidden width of the cached fitted decoder")
     ap.add_argument("--decoder-depth", type=int, default=8)
     ap.add_argument("--latent-size", type=int, default=256)
     ap.add_argument("--fit-steps", type=int, default=1500,
-                    help="training steps for fitting a decoder (not ported)")
+                    help="training steps for fitting the fallback decoder")
     ap.add_argument("--recompute", default="pallas", choices=["xla", "pallas"],
                     help="differentiable recompute on the --fast path "
                     "(GradConfig.recompute): 'pallas' = the fused recompute "
                     "kernel, ops/kernels/recompute.py")
     ap.add_argument("--no-cache", action="store_true",
-                    help="fit the fallback decoder instead of loading its cache")
+                    help="fit the fallback decoder, neither reading nor writing "
+                    "its cache")
 
 
 def analytic_shape(name: str):
@@ -88,13 +91,27 @@ def task_device(args) -> torch.device:
 
 
 def load_task_decoder(args) -> Tuple[Params, torch.Tensor, DecoderConfig]:
-    """Resolve the decoder per the flags (npz > cached fitted decoder), on
-    the task's device."""
-    from dist_renderer_tpu_torch.models.pretrain import load_params_npz
+    """Resolve the decoder per the flags, on the task's device: a DeepSDF
+    experiment dir (latent code 0, or the zero latent when it has no
+    LatentCodes) > an npz > the decoder fitted to --shape, read from its
+    cache next to the repo or fitted (--fit-steps) and cached there
+    (--no-cache: fitted, not cached)."""
+    from dist_renderer_tpu_torch.models.pretrain import (
+        fit_decoder_to_sdf, get_or_fit_cached, load_params_npz,
+    )
 
     dev = task_device(args)
     if args.experiment_dir:
-        not_ported("--experiment-dir (DeepSDF checkpoint I/O)", "A2")
+        from dist_renderer_tpu_torch.models.checkpoint import (
+            load_decoder, load_latent_codes,
+        )
+
+        params, dcfg = load_decoder(args.experiment_dir, args.checkpoint, dev)
+        try:
+            latent = load_latent_codes(args.experiment_dir, args.checkpoint, dev)[0]
+        except (OSError, KeyError):
+            latent = torch.zeros(dcfg.latent_size, device=dev)
+        return params, latent, dcfg
     if args.params_npz:
         params, latent = load_params_npz(args.params_npz, dev)
         return params, latent, DecoderConfig()
@@ -102,13 +119,17 @@ def load_task_decoder(args) -> Tuple[Params, torch.Tensor, DecoderConfig]:
     dcfg = DecoderConfig(
         latent_size=args.latent_size, hidden_dims=(width,) * depth,
         latent_in=(depth // 2,) if depth >= 2 else ())
-    cache = os.path.join(
-        REPO_ROOT, f".task_decoder_{args.shape}_{width}x{depth}_{args.latent_size}.npz")
-    if args.no_cache or not os.path.exists(cache):
-        not_ported(f"fitting a decoder to the analytic {args.shape!r} "
-                   f"(no cache at {os.path.basename(cache)}; give "
-                   "--params-npz, or the committed torus 512x8/256)", "A11")
-    params, latent = load_params_npz(cache, dev)
+    shape = analytic_shape(args.shape)
+    target = lambda p: shape(None, p)
+    if args.no_cache:
+        params, latent = fit_decoder_to_sdf(target, dcfg, steps=args.fit_steps,
+                                            device=dev)
+    else:
+        cache = os.path.join(
+            REPO_ROOT,
+            f".task_decoder_{args.shape}_{width}x{depth}_{args.latent_size}.npz")
+        params, latent = get_or_fit_cached(cache, target, dcfg, steps=args.fit_steps,
+                                           device=dev)
     return params, latent, dcfg
 
 

@@ -1,28 +1,35 @@
 """Single-depth shape completion: optimize a latent code so the render
 matches one observed (partial) depth map.
 
-The observation is synthesized by rendering the decoder's own latent and
-keeping the left ``--partial`` of the image columns; the fit starts from
-the zero latent.
+Observation sources:
+  --data ROOT [--instance I]  an on-disk observation through
+      data/datasets.py's ShapeNetDepthDataset (depth.npy, mask, camera.json
+      [, normalization.npz]);
+  (default) the decoder's own latent rendered from the default camera,
+      the left ``--partial`` of the image columns kept.
+The fit starts from the zero latent.
 
     python -m dist_renderer_tpu_torch.tasks.depth_completion --fast --img 256 --steps 50
+    python -m dist_renderer_tpu_torch.tasks.depth_completion --data data/synth/depth
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import torch
 
 from dist_renderer_tpu_torch.config import OptimConfig
+from dist_renderer_tpu_torch.data.datasets import ShapeNetDepthDataset
 from dist_renderer_tpu_torch.eval.chamfer import (
     chamfer_distance, sample_surface_points,
 )
 from dist_renderer_tpu_torch.eval.mesh import extract_mesh, save_obj
 from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
 from dist_renderer_tpu_torch.models.folded import make_point_fn
-from dist_renderer_tpu_torch.ops.kernels.batched_march import not_ported
+from dist_renderer_tpu_torch.ops.camera import Camera
 from dist_renderer_tpu_torch.ops.renderer import (
     make_march_factory, render, render_with_warm, warm_from_trace,
 )
@@ -45,8 +52,10 @@ def main(argv=None):
     ap.add_argument("--partial", type=float, default=0.5,
                     help="fraction of image columns observed (partial depth)")
     ap.add_argument("--data", default=None,
-                    help="ShapeNet-depth dataset root (not ported)")
-    ap.add_argument("--instance", type=int, default=0)
+                    help="ShapeNet-depth dataset root (ShapeNetDepthDataset "
+                    "layout); omit to synthesize the observation")
+    ap.add_argument("--instance", type=int, default=0,
+                    help="dataset instance index (with --data)")
     ap.add_argument("--w-depth", type=float, default=10.0)
     ap.add_argument("--w-sil", type=float, default=1.0)
     ap.add_argument("--w-reg", type=float, default=1e-4)
@@ -61,25 +70,40 @@ def main(argv=None):
                     "classification (skips the coarse pyramid), full "
                     "refresh every N steps; the trace_frame path only")
     args = ap.parse_args(argv)
-    if args.data:
-        not_ported("depth_completion --data (data/datasets.py)", "A10")
 
     dev = task_device(args)
     params, gt_latent, dcfg = load_task_decoder(args)
     sdf_fn = make_precise_sdf(params, dcfg)
+    obs = ShapeNetDepthDataset(args.data)[args.instance] if args.data else None
+    if obs is not None:
+        args.img = obs.depth.shape[0]
     cfg = make_render_cfg(args)
+    if obs is not None:
+        cfg = dataclasses.replace(cfg, img_h=obs.depth.shape[0],
+                                  img_w=obs.depth.shape[1])
     use_warm = bool(args.warm) and cfg.use_pallas
     # the warm state is a trace: it needs the march factory's trace_frame
     factory = (make_march_factory(params, dcfg, cfg) if use_warm
                else (lambda z: make_point_fn(params, z, dcfg, cfg.dtype)))
-    cam = default_camera(args.img, device=dev)
-    # synthesize the observation from the decoder's latent, a partial strip
-    with torch.no_grad():
-        gt = render(sdf_fn, gt_latent, cam, cfg, factory)
-    col_mask = torch.arange(args.img, device=dev) < int(args.img * args.partial)
-    obs_valid = gt.mask & col_mask[None, :]
-    obs_depth = torch.where(obs_valid, gt.depth, torch.zeros_like(gt.depth))
-    obs_mask = obs_valid  # silhouette supervision only where seen
+    gt = None
+    if obs is not None:
+        # the observed depth, mask and camera; no hidden complete shape
+        cam = Camera(*(t.to(dev) for t in obs.camera))
+        obs_depth = torch.as_tensor(obs.depth, device=dev)
+        obs_valid = torch.as_tensor(obs.valid, device=dev)
+        obs_mask = torch.as_tensor(obs.mask, device=dev)
+        col_mask = torch.ones(cfg.img_w, dtype=torch.bool, device=dev)
+        print(f"observation: {obs.name} ({cfg.img_h}x{cfg.img_w}, "
+              f"{int(obs.valid.sum())} valid depth px) from {args.data}")
+    else:
+        cam = default_camera(args.img, device=dev)
+        # synthesize the observation from the decoder's latent, a partial strip
+        with torch.no_grad():
+            gt = render(sdf_fn, gt_latent, cam, cfg, factory)
+        col_mask = torch.arange(args.img, device=dev) < int(args.img * args.partial)
+        obs_valid = gt.mask & col_mask[None, :]
+        obs_depth = torch.where(obs_valid, gt.depth, torch.zeros_like(gt.depth))
+        obs_mask = obs_valid  # silhouette supervision only where seen
 
     os.makedirs(args.out, exist_ok=True)
     logger = MetricsLogger(os.path.join(args.out, "metrics.csv"))
@@ -123,7 +147,8 @@ def main(argv=None):
                               out, obs_depth)
 
     res = fit(loss_fn_warm if use_warm else loss_fn, z0,
-              OptimConfig(lr=args.lr, steps=args.steps),
+              OptimConfig(lr=args.lr, steps=args.steps,
+                          checkpoint_every=args.checkpoint_every),
               checkpoint_dir=args.checkpoint_dir,
               log_every=max(args.steps // 10, 1) if args.vis_every else 0,
               callback=callback, carry_init=warm_carry)
@@ -132,28 +157,38 @@ def main(argv=None):
     with torch.no_grad():
         out = render(sdf_fn, res.variables, cam, cfg, factory)
     save_render_panel(os.path.join(args.out, "final.png"), out, obs_depth)
-    # quality: full-image depth error against the (hidden) complete render
-    err = float(L.depth_loss(out.depth, gt.depth, gt.mask, out.mask))
-    lat_err = float(torch.linalg.norm(res.variables - gt_latent))
-    print(f"final: loss {float(res.loss_history[-1]):.5f}  full-depth L1 "
-          f"{err:.5f}  |z - z_gt| {lat_err:.4f}  ms/step (median) "
-          f"{res.metrics['ms_per_step']:.1f}")
+    last = (f"{float(res.loss_history[-1]):.5f}" if len(res.loss_history)
+            else "(no step run)")
+    if gt is not None:
+        # quality: full-image depth error against the (hidden) complete render
+        err = float(L.depth_loss(out.depth, gt.depth, gt.mask, out.mask))
+        lat_err = float(torch.linalg.norm(res.variables - gt_latent))
+        print(f"final: loss {last}  full-depth L1 {err:.5f}  |z - z_gt| "
+              f"{lat_err:.4f}  ms/step (median) {res.metrics['ms_per_step']:.1f}")
+    else:
+        # observed data: no hidden complete shape; the fit on what was seen
+        err = float(L.depth_loss(out.depth, obs_depth, obs_valid, out.mask))
+        print(f"final: loss {last}  observed-depth L1 {err:.5f}  ms/step "
+              f"(median) {res.metrics['ms_per_step']:.1f}")
 
     if args.mesh:
-        # the fitted shape's mesh, and its chamfer against the hidden
-        # complete shape (surface samples of both SDFs)
+        # the fitted shape's mesh, and (when the observation was
+        # synthesized) its chamfer against the hidden complete shape
         fitted = lambda p: sdf_fn(res.variables, p)
         verts, faces = extract_mesh(fitted, resolution=args.mesh_res, device=dev)
         obj = os.path.join(args.out, "fitted.obj")
         save_obj(obj, verts, faces)
-        pa = sample_surface_points(fitted, CHAMFER_SAMPLES,
-                                   torch.Generator().manual_seed(0), device=dev)
-        pb = sample_surface_points(lambda p: sdf_fn(gt_latent, p), CHAMFER_SAMPLES,
-                                   torch.Generator().manual_seed(1), device=dev)
-        ch = float(chamfer_distance(pa, pb)[2])
-        res.metrics["chamfer"] = ch
-        print(f"mesh: {len(verts)} verts {len(faces)} faces -> {obj}  "
-              f"chamfer-sq vs GT {ch:.2e}")
+        msg = f"mesh: {len(verts)} verts {len(faces)} faces -> {obj}"
+        if gt is not None:
+            pa = sample_surface_points(fitted, CHAMFER_SAMPLES,
+                                       torch.Generator().manual_seed(0), device=dev)
+            pb = sample_surface_points(lambda p: sdf_fn(gt_latent, p),
+                                       CHAMFER_SAMPLES,
+                                       torch.Generator().manual_seed(1), device=dev)
+            ch = float(chamfer_distance(pa, pb)[2])
+            res.metrics["chamfer"] = ch
+            msg += f"  chamfer-sq vs GT {ch:.2e}"
+        print(msg)
     logger.close()
     return res
 

@@ -2,8 +2,10 @@
 ring of views; the gradients of every view accumulate on one shared
 latent.
 
-The observations are synthesized: the decoder's own latent rendered from
-each view, textured by a fixed random color decoder so that photometric
+The observations are read from a PMO-style layout with ``--data ROOT
+[--instance I]`` (data/datasets.py's PMOMultiViewDataset: images, masks
+and cameras), or synthesized: the decoder's own latent rendered from each
+view, textured by a fixed random color decoder so that photometric
 consistency has a signal. The fit starts from the zero latent.
 
     python -m dist_renderer_tpu_torch.tasks.multiview --fast --img 128 --views 8
@@ -12,20 +14,21 @@ consistency has a signal. The fit starts from the zero latent.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
 import torch
 
 from dist_renderer_tpu_torch.config import OptimConfig
+from dist_renderer_tpu_torch.data.datasets import PMOMultiViewDataset
 from dist_renderer_tpu_torch.eval.mesh import extract_mesh, save_obj
 from dist_renderer_tpu_torch.models.color_decoder import (
     color_apply, init_color_params, make_color_config,
 )
 from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
 from dist_renderer_tpu_torch.models.folded import make_point_fn
-from dist_renderer_tpu_torch.ops.camera import pixel_rays
-from dist_renderer_tpu_torch.ops.kernels.batched_march import not_ported
+from dist_renderer_tpu_torch.ops.camera import Camera, pixel_rays
 from dist_renderer_tpu_torch.ops.renderer import render_rays
 from dist_renderer_tpu_torch.tasks.common import (
     StepTimer, add_common_args, load_task_decoder, make_render_cfg,
@@ -45,8 +48,10 @@ def main(argv=None):
     add_common_args(ap)
     ap.add_argument("--views", type=int, default=8)
     ap.add_argument("--data", default=None,
-                    help="PMO-style multi-view dataset root (not ported)")
-    ap.add_argument("--instance", type=int, default=0)
+                    help="PMO-style multi-view dataset root "
+                    "(PMOMultiViewDataset layout); omit to synthesize the views")
+    ap.add_argument("--instance", type=int, default=0,
+                    help="dataset instance index (with --data)")
     ap.add_argument("--w-sil", type=float, default=1.0)
     ap.add_argument("--w-photo", type=float, default=1.0)
     ap.add_argument("--w-reg", type=float, default=1e-4)
@@ -54,14 +59,21 @@ def main(argv=None):
                     help="extract the reconstructed mesh")
     ap.add_argument("--mesh-res", type=int, default=128)
     args = ap.parse_args(argv)
-    if args.data:
-        not_ported("multiview --data (data/datasets.py)", "A10")
 
     dev = task_device(args)
     params, gt_latent, dcfg = load_task_decoder(args)
     sdf_fn = make_precise_sdf(params, dcfg)
+    mv = PMOMultiViewDataset(args.data)[args.instance] if args.data else None
+    if mv is not None:
+        args.views = mv.images.shape[0]
+        args.img = mv.images.shape[1]
     cfg = make_render_cfg(args)
-    cams = ring_cameras(args.img, args.views, device=dev)
+    if mv is not None:
+        h, w = mv.images.shape[1:3]
+        cfg = dataclasses.replace(cfg, img_h=h, img_w=w)
+        cams = [Camera(*(t.to(dev) for t in c)) for c in mv.cameras]
+    else:
+        cams = ring_cameras(args.img, args.views, device=dev)
     rays = [pixel_rays(c, cfg.img_h, cfg.img_w) for c in cams]
     hw = (cfg.img_h, cfg.img_w)
 
@@ -70,18 +82,24 @@ def main(argv=None):
         return render_rays(sdf_fn, z, o, v, cfg,
                            make_point_fn(params, z.detach(), dcfg, cfg.dtype))
 
-    # synthesize the observations: masks and images textured by a fixed
-    # random color decoder
-    ccfg = make_color_config(latent_size=dcfg.latent_size,
-                             hidden_dims=(64,) * 4, latent_in=())
-    cparams = init_color_params(torch.Generator().manual_seed(7), ccfg, dev)
-    z_color = torch.zeros(dcfg.latent_size, device=dev)
-    with torch.no_grad():
-        gt_out = [render_view(gt_latent, o, v) for o, v in rays]
-    gt_imgs = [torch.where(g.mask[:, None],
-                           color_apply(cparams, z_color, g.points, ccfg), 0.0)
-               for g in gt_out]
-    obs_masks = [g.mask for g in gt_out]
+    if mv is not None:
+        gt_imgs = [torch.as_tensor(im.reshape(-1, 3), device=dev) for im in mv.images]
+        obs_masks = [torch.as_tensor(m.reshape(-1), device=dev) for m in mv.masks]
+        print(f"observation: {mv.name} ({args.views} views, {hw[0]}x{hw[1]}) "
+              f"from {args.data}")
+    else:
+        # synthesize the observations: masks and images textured by a
+        # fixed random color decoder
+        ccfg = make_color_config(latent_size=dcfg.latent_size,
+                                 hidden_dims=(64,) * 4, latent_in=())
+        cparams = init_color_params(torch.Generator().manual_seed(7), ccfg, dev)
+        z_color = torch.zeros(dcfg.latent_size, device=dev)
+        with torch.no_grad():
+            gt_out = [render_view(gt_latent, o, v) for o, v in rays]
+        gt_imgs = [torch.where(g.mask[:, None],
+                               color_apply(cparams, z_color, g.points, ccfg), 0.0)
+                   for g in gt_out]
+        obs_masks = [g.mask for g in gt_out]
 
     os.makedirs(args.out, exist_ok=True)
     logger = MetricsLogger(os.path.join(args.out, "metrics.csv"))
@@ -118,11 +136,12 @@ def main(argv=None):
         (out.mask & m).sum() / torch.clamp((out.mask | m).sum(), min=1)
         for out, m in zip(outs, obs_masks)]).mean())
     summary = {"final_loss": float(res.loss_history[-1]), "mask_iou": iou,
-               "latent_err": float(torch.linalg.norm(res.variables - gt_latent)),
                "ms_per_step": res.metrics["ms_per_step"]}
-    print(f"final: loss {summary['final_loss']:.5f}  mask IoU {iou:.4f}  "
-          f"|z - z_gt| {summary['latent_err']:.4f}  ms/step (median) "
-          f"{summary['ms_per_step']:.1f}")
+    msg = f"final: loss {summary['final_loss']:.5f}  mask IoU {iou:.4f}"
+    if mv is None:
+        summary["latent_err"] = float(torch.linalg.norm(res.variables - gt_latent))
+        msg += f"  |z - z_gt| {summary['latent_err']:.4f}"
+    print(f"{msg}  ms/step (median) {summary['ms_per_step']:.1f}")
     with open(os.path.join(args.out, "summary.json"), "w") as fh:
         json.dump(summary, fh)
     if args.mesh:

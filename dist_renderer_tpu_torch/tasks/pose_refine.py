@@ -4,9 +4,12 @@ continuous rotation parameterization (so3 or rot6d). Gradients reach the
 pose through the ray origins and directions in the differentiable
 recompute.
 
-The observation is the decoder's own render from the default camera; the
-fit starts from that pose perturbed by ``--rot-err-deg`` about a seeded
-axis and ``--trans-err`` of seeded translation noise.
+The observation is the decoder's own render from the default camera, or
+with ``--data ROOT [--instance I]`` an on-disk one through
+data/datasets.py's ShapeNetDepthDataset (its camera the hidden pose, its
+latent.npy, when present, the frozen shape); the fit starts from that
+pose perturbed by ``--rot-err-deg`` about a seeded axis and
+``--trans-err`` of seeded translation noise.
 
     python -m dist_renderer_tpu_torch.tasks.pose_refine --fast --img 256 --steps 100
 """
@@ -21,12 +24,12 @@ import numpy as np
 import torch
 
 from dist_renderer_tpu_torch.config import OptimConfig
+from dist_renderer_tpu_torch.data.datasets import ShapeNetDepthDataset
 from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
 from dist_renderer_tpu_torch.models.folded import make_point_fn
 from dist_renderer_tpu_torch.ops.camera import (
     Camera, camera_from_pose, pixel_rays, pose_from_camera, so3_exp,
 )
-from dist_renderer_tpu_torch.ops.kernels.batched_march import not_ported
 from dist_renderer_tpu_torch.ops.renderer import (
     make_march_factory, render, render_rays, render_with_warm, warm_from_trace,
 )
@@ -53,8 +56,10 @@ def main(argv=None):
     add_common_args(ap)
     ap.add_argument("--param", default="so3", choices=["so3", "rot6d"])
     ap.add_argument("--data", default=None,
-                    help="ShapeNet-depth dataset root (not ported)")
-    ap.add_argument("--instance", type=int, default=0)
+                    help="ShapeNet-depth dataset root (ShapeNetDepthDataset "
+                    "layout); omit to synthesize the observation")
+    ap.add_argument("--instance", type=int, default=0,
+                    help="dataset instance index (with --data)")
     ap.add_argument("--rot-err-deg", type=float, default=10.0,
                     help="initial rotation perturbation")
     ap.add_argument("--trans-err", type=float, default=0.1)
@@ -68,20 +73,37 @@ def main(argv=None):
     # pose needs a hotter schedule than latent fitting
     ap.set_defaults(lr=3e-2, steps=300)
     args = ap.parse_args(argv)
-    if args.data:
-        not_ported("pose_refine --data (data/datasets.py)", "A10")
 
     dev = task_device(args)
     params, latent, dcfg = load_task_decoder(args)
+    obs = ShapeNetDepthDataset(args.data)[args.instance] if args.data else None
+    if obs is not None:
+        h, w = obs.depth.shape
+        if h != w:
+            raise ValueError(f"pose_refine takes square images, not {h}x{w}")
+        args.img = h
+        if obs.latent is not None:
+            # the dataset ships the instance's known latent: the shape is frozen
+            latent = torch.as_tensor(obs.latent, dtype=torch.float32, device=dev)
     cfg = make_render_cfg(args)
     sdf_fn = make_precise_sdf(params, dcfg)
     march_fn = make_point_fn(params, latent, dcfg, cfg.dtype)
-    # the ground-truth camera and observation
-    cam_gt = default_camera(args.img, device=dev)
-    o, v = pixel_rays(cam_gt, args.img, args.img)
-    with torch.no_grad():
-        gt = render_rays(sdf_fn, latent, o, v, cfg, march_fn)
-    obs_depth, obs_valid, obs_mask = gt.depth, gt.mask, gt.mask
+    if obs is not None:
+        # the hidden pose is the dataset camera; the fit sees its
+        # perturbation and the observed depth and mask only
+        cam_gt = Camera(*(t.to(dev) for t in obs.camera))
+        obs_depth = torch.as_tensor(obs.depth, device=dev).reshape(-1)
+        obs_valid = torch.as_tensor(obs.valid, device=dev).reshape(-1)
+        obs_mask = torch.as_tensor(obs.mask, device=dev).reshape(-1)
+        print(f"observation: {obs.name} ({h}x{w}, {int(obs.valid.sum())} valid "
+              f"depth px) from {args.data}")
+    else:
+        # the ground-truth camera and observation
+        cam_gt = default_camera(args.img, device=dev)
+        o, v = pixel_rays(cam_gt, args.img, args.img)
+        with torch.no_grad():
+            gt = render_rays(sdf_fn, latent, o, v, cfg, march_fn)
+        obs_depth, obs_valid, obs_mask = gt.depth, gt.mask, gt.mask
     hw = (args.img, args.img)
 
     # perturb the pose

@@ -1,6 +1,7 @@
 """The inverse-rendering optimizer harness: Adam over a tensor, or a
 tuple or dict of tensors (latent code, pose vector, or both), with the
-JAX package's staircase learning-rate decay and per-step loss history.
+JAX package's staircase learning-rate decay, per-step loss history and
+checkpoints to resume from.
 
 Counterpart of the JAX package's ``utils/optim.py`` (optax Adam with
 ``exponential_decay(staircase=True)``). The step loop is a Python loop:
@@ -62,19 +63,35 @@ def fit(loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, Any]]],
     carry_init: optional state that is not differentiated. When given,
     ``loss_fn(variables, carry) -> (loss, aux)`` and aux must hold
     ``"carry"``, the next carry, threaded through the loop.
-    callback(step, variables, loss) runs after each update."""
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "fit(checkpoint_dir=...) is not ported yet: the checkpoint I/O "
-            "arrives with ROADMAP item A2")
+    callback(step, variables, loss) runs after each update.
+
+    checkpoint_dir: where the variables, the optimizer's and the
+    scheduler's state are saved every cfg.checkpoint_every steps
+    (models/checkpoint.py's ``save_state``); a run that finds a saved
+    step there resumes from it, runs steps start..cfg.steps - 1 and
+    returns those steps' losses. The carry is not saved: on resume it
+    restarts from carry_init, as in the JAX package."""
     leaves, rebuild = _leaves(variables)
     leaves = [torch.as_tensor(x).detach().clone().requires_grad_(True)
               for x in leaves]
     opt, sched = make_optimizer(leaves, cfg)
+    start = 0
+    if checkpoint_dir:
+        from dist_renderer_tpu_torch.models.checkpoint import restore_state
+
+        # on the CPU: Adam keeps its step counts there and moves the
+        # moments to each variable's device as it loads them
+        saved, start = restore_state(checkpoint_dir, None)
+        if start:
+            with torch.no_grad():
+                for x, y in zip(leaves, saved["variables"]):
+                    x.copy_(y)
+            opt.load_state_dict(saved["optimizer"])
+            sched.load_state_dict(saved["scheduler"])
     losses = []
     carry = carry_init
     aux: Dict[str, Any] = {}
-    for step in range(cfg.steps):
+    for step in range(start, cfg.steps):
         opt.zero_grad(set_to_none=True)
         v = rebuild(leaves)
         if carry_init is None:
@@ -92,6 +109,13 @@ def fit(loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, Any]]],
         if callback is not None:
             callback(step, rebuild([x.detach() for x in leaves]),
                      float(loss.detach()))
+        if checkpoint_dir and cfg.checkpoint_every and (
+                (step + 1) % cfg.checkpoint_every == 0):
+            from dist_renderer_tpu_torch.models.checkpoint import save_state
+
+            save_state(checkpoint_dir, {"variables": [x.detach() for x in leaves],
+                                        "optimizer": opt.state_dict(),
+                                        "scheduler": sched.state_dict()}, step + 1)
     history = torch.stack(losses) if losses else torch.zeros((0,))
     metrics = {k: (x.detach() if isinstance(x, torch.Tensor) else x)
                for k, x in aux.items()}

@@ -2,7 +2,7 @@
 panels, PNG files and a per-iteration metrics log.
 
 Counterpart of the JAX package's ``utils/viz.py``. It needs no image
-library: PNGs are written with ``zlib`` + ``struct``, and depth is colored
+library: PNGs are written and read with ``zlib`` + ``struct``, and depth is colored
 by a small viridis-like numpy ramp (the JAX package reads matplotlib's
 viridis, so the two packages' images differ in color, not in content).
 """
@@ -65,19 +65,94 @@ def colorize_silhouette(min_sdf, scale: float = 20.0) -> np.ndarray:
     return np.stack([g, g, g], axis=-1)
 
 
-def png_bytes(rgb: np.ndarray) -> bytes:
-    """uint8 [H, W, 3] -> the bytes of an 8-bit RGB PNG."""
-    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
-    h, w = rgb.shape[:2]
-    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+def png_bytes(img: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] (RGB) or [H, W] (gray) -> the bytes of an 8-bit,
+    unfiltered PNG."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    color_type = 0 if img.ndim == 2 else 2
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
     return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples per pixel
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def png_array(data: bytes) -> np.ndarray:
+    """The pixels of an 8-bit, non-interlaced PNG (gray, gray + alpha, RGB
+    or RGBA; any of the five row filters): uint8 [H, W] for gray, else
+    [H, W, C]. Anything else raises ValueError."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, idat, head = 8, [], None
+    while pos + 8 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
+    if head is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color_type, _, _, interlace = head
+    if depth != 8 or color_type not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, color type "
+                         f"{color_type}, interlace {interlace}")
+    bpp = _PNG_CHANNELS[color_type]
+    stride = w * bpp
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) != h * (stride + 1):
+        raise ValueError("PNG image data has the wrong size")
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype = raw[y * (stride + 1)]
+        line = np.frombuffer(raw, np.uint8, stride, y * (stride + 1) + 1)
+        if ftype == 0:
+            cur = line.copy()
+        elif ftype == 1:  # sub: a running sum per channel, mod 256
+            cur = (np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.int64) % 256
+                   ).astype(np.uint8).reshape(stride)
+        elif ftype == 2:  # up
+            cur = line + prior
+        elif ftype in (3, 4):  # average, paeth: each byte needs its left one
+            cur_l, up = bytearray(stride), prior.tolist()
+            for i, x in enumerate(line.tolist()):
+                a = cur_l[i - bpp] if i >= bpp else 0
+                if ftype == 3:
+                    pred = (a + up[i]) // 2
+                else:
+                    pred = _paeth(a, up[i], up[i - bpp] if i >= bpp else 0)
+                cur_l[i] = (x + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur_l), np.uint8)
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[y] = cur
+        prior = out[y]
+    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
+
+
+def read_png(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return png_array(f.read())
 
 
 def save_image(path: str, rgb: np.ndarray) -> None:

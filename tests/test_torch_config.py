@@ -66,14 +66,19 @@ def test_render_config_dtype_and_strides():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port must not load JAX (the card
-    machine has none)."""
+    """Importing every module of the port must not load JAX, optax or
+    orbax (the card machine has none)."""
     mods = [
         "dist_renderer_tpu_torch",
         "dist_renderer_tpu_torch.models.decoder",
         "dist_renderer_tpu_torch.models.folded",
         "dist_renderer_tpu_torch.models.pretrain",
         "dist_renderer_tpu_torch.models.proxy",
+        "dist_renderer_tpu_torch.models.checkpoint",
+        "dist_renderer_tpu_torch.models.train_deepsdf",
+        "dist_renderer_tpu_torch.data.datasets",
+        "dist_renderer_tpu_torch.tasks.make_synthetic_data",
+        "dist_renderer_tpu_torch.tasks.train",
         "dist_renderer_tpu_torch.ops.camera",
         "dist_renderer_tpu_torch.ops.tracer",
         "dist_renderer_tpu_torch.ops.c2f",
@@ -98,6 +103,7 @@ def test_port_imports_no_jax():
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('jaxlib') or m.startswith('dist_renderer_tpu.')"
+            " or m.split('.')[0] in ('optax', 'orbax')"
             " or m == 'dist_renderer_tpu')\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
@@ -117,13 +123,14 @@ def _imported_roots(path):
 
 
 def test_port_and_chip_smoke_sources_name_no_jax():
-    """No source file of the port, and not chip_smoke.py, imports JAX or
-    the JAX package, even inside a function (a lazy import would escape
+    """No source file of the port, and not chip_smoke.py, imports JAX, the
+    JAX package, optax or orbax, even inside a function (a lazy import would escape
     the subprocess check above)."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "dist_renderer_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15
     for p in paths:
-        bad = {"jax", "jaxlib", "dist_renderer_tpu"} & set(_imported_roots(p))
+        bad = {"jax", "jaxlib", "dist_renderer_tpu", "optax", "orbax"} & set(
+            _imported_roots(p))
         assert not bad, (p, bad)

@@ -1786,3 +1786,85 @@ def test_cuda_probe_wrappers_reject_bad_inputs():
                       torch.zeros((1, 100, 100), dtype=torch.int8, device=dev), 1)
     with pytest.raises(ValueError):
         pk.copy(torch.zeros((8, 512)).to(dev)[:, ::2])  # not contiguous
+
+
+@pytest.mark.gpu
+def test_cuda_experiment_dir_round_trip(tmp_path):
+    """Params on the card exported as a DeepSDF experiment directory load
+    back onto the card bit for bit, and render the same bits on the
+    K1-grid path."""
+    from dist_renderer_tpu_torch.models.checkpoint import (
+        load_decoder, load_latent_codes, save_deepsdf_experiment,
+    )
+
+    dev = _device()
+    params, latent = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    exp = str(tmp_path / "exp")
+    save_deepsdf_experiment(exp, params, DecoderConfig(), latents=latent[None])
+    back, cfg = load_decoder(exp, device=dev)
+    assert cfg == DecoderConfig()
+    for a, b in zip(params["layers"], back["layers"]):
+        assert a["w"].device == b["w"].device
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+    z = load_latent_codes(exp, device=dev)[0]
+    assert torch.equal(z, latent)
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=96 * 1.2, img_hw=(96, 96), device=dev)
+    cfg_r = RenderConfig(march=MARCH, compute_dtype="bfloat16", use_pallas=True)
+    outs = [SDFRenderer(p, cam.K, (96, 96), cfg=cfg_r).render(z, cam.R, cam.T)
+            for p in (params, back)]
+    assert outs[0].mask.any()
+    for k in ("depth", "mask", "normal", "min_sdf"):
+        assert torch.equal(getattr(outs[0], k), getattr(outs[1], k)), k
+
+
+@pytest.mark.gpu
+def test_cuda_fit_step_matches_cpu():
+    """One fit_decoder_to_sdf step at 8x512 on the card against the CPU's,
+    the same draws from one CPU generator: both round the products'
+    operands to bf16 and sum in fp32 in their own orders, so a few bf16
+    roundings of activations flip (2^-8 of one point's term each, in a
+    mean over 2,048 points). Bars, set from the first reading on an
+    H100: the loss within 1e-4 relative (measured 5.7e-6); after the
+    Adam step 99.5% of the weights within 1e-6 (measured 99.84%: Adam's
+    first step is lr g / (|g| + 1e-8), so a weight whose gradient is near
+    that eps follows the gradient's last bits), and none more than 2 lr
+    apart."""
+    from dist_renderer_tpu_torch.models.analytic import round_union, sphere_sdf, torus_sdf
+    from dist_renderer_tpu_torch.models.pretrain import fit_decoder_to_sdf
+
+    dev = _device()
+    shape = round_union(torus_sdf(0.55, 0.18), sphere_sdf(0.35, (0.0, 0.25, 0.0)), 0.08)
+    runs = []
+    for d in ("cpu", dev):
+        losses = []
+        params, z0 = fit_decoder_to_sdf(lambda p: shape(None, p), DecoderConfig(), steps=1,
+                                        batch=2048, gen=torch.Generator().manual_seed(0),
+                                        device=d, losses=losses)
+        runs.append((params, z0.cpu(), float(losses[0])))
+    (pc, zc, lc), (pg, zg, lg) = runs
+    assert torch.equal(zc, zg)
+    assert abs(lc - lg) <= 1e-4 * abs(lc)
+    diff = torch.cat([(a[k] - b[k].cpu()).abs().flatten() for a, b in
+                      zip(pc["layers"], pg["layers"]) for k in ("w", "b")])
+    assert (diff <= 1e-6).float().mean() >= 0.995
+    assert diff.max() <= 2 * 5e-4 + 1e-6
+
+
+@pytest.mark.gpu
+def test_cuda_depth_completion_resume_is_bit_exact(tmp_path):
+    """depth_completion --checkpoint-dir on the card (the committed torus
+    8x512 decoder, --fast, 128^2): 3 steps, then a resume to 6, equal bit
+    for bit to 6 uninterrupted steps (the kernels are deterministic)."""
+    from dist_renderer_tpu_torch.tasks import depth_completion
+
+    _device()
+    base = ["--fast", "--img", "128", "--lr", "5e-2", "--checkpoint-every", "3"]
+    ckpt = str(tmp_path / "ckpt")
+    whole = depth_completion.main(base + ["--steps", "6", "--out", str(tmp_path / "w")])
+    first = depth_completion.main(base + ["--steps", "3", "--checkpoint-dir", ckpt,
+                                          "--out", str(tmp_path / "a")])
+    rest = depth_completion.main(base + ["--steps", "6", "--checkpoint-dir", ckpt,
+                                         "--out", str(tmp_path / "b")])
+    assert torch.equal(rest.variables, whole.variables)
+    assert torch.equal(torch.cat([first.loss_history, rest.loss_history]).cpu(),
+                       whole.loss_history.cpu())

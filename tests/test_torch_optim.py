@@ -4,6 +4,7 @@ decoder's depth-completion fit through the port's render(). Each test
 states its tolerance."""
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -260,10 +261,13 @@ def test_fit_matches_jax_on_a_quadratic(kind):
     assert float(tr.metrics["l"]) < 0.25 * float(tr.loss_history[0])
 
 
-def test_fit_schedule_carry_callback_and_checkpoint():
+def test_fit_schedule_carry_callback_and_checkpoint(tmp_path):
     """The staircase schedule (lr * rate ** floor(step / decay_steps)), a
     carry threaded through the loop, the callback's arguments, and the
-    unported checkpoint option."""
+    checkpoint option: a run stopped after 3 steps and resumed from its
+    checkpoint equals an uninterrupted run bit for bit (variables, the
+    resumed steps' losses), the lr schedule crossing a decay step inside
+    the resumed part, and the carry restarting from carry_init."""
     _, cfg = _quadratic_cfgs()
     opt, sched = make_optimizer([torch.zeros(2, requires_grad=True)], cfg)
     lrs = []
@@ -285,8 +289,26 @@ def test_fit_schedule_carry_callback_and_checkpoint():
     assert seen == [0, 1, 2, 3] and "carry" not in r.metrics
     assert [s[0] for s in steps] == [0, 1, 2, 3] and not any(s[1] for s in steps)
     assert steps[0][2] == pytest.approx(3.0)
-    with pytest.raises(NotImplementedError, match="A2"):
-        fit(lambda v: (v.sum(), {}), torch.ones(2), checkpoint_dir="ckpt")
+    def wavy(v, carry):
+        l = torch.sum((v - torch.arange(3.0)) ** 2) + torch.sum(torch.sin(3 * v))
+        return l, {"carry": carry + 1}
+
+    kw = dict(lr=0.1, lr_decay_steps=4, lr_decay_rate=0.5, checkpoint_every=3)
+    whole = fit(wavy, torch.ones(3), OptimConfig(steps=6, **kw), carry_init=0)
+    ckpt = str(tmp_path / "ckpt")
+    first = fit(wavy, torch.ones(3), OptimConfig(steps=3, **kw), checkpoint_dir=ckpt,
+                carry_init=0)
+    seen.clear()
+    rest = fit(lambda v, c: (seen.append(c), wavy(v, c))[1], torch.ones(3),
+               OptimConfig(steps=6, **kw), checkpoint_dir=ckpt, carry_init=0)
+    assert seen == [0, 1, 2]
+    assert torch.equal(rest.variables, whole.variables)
+    assert torch.equal(torch.cat([first.loss_history, rest.loss_history]),
+                       whole.loss_history)
+    assert sorted(os.listdir(ckpt)) == ["step_3.pt", "step_6.pt"]
+    done = fit(wavy, torch.ones(3), OptimConfig(steps=6, **kw), checkpoint_dir=ckpt,
+               carry_init=0)
+    assert done.loss_history.shape == (0,) and torch.equal(done.variables, whole.variables)
 
 
 def test_depth_completion_fit_lowers_its_objective():

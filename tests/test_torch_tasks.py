@@ -13,6 +13,7 @@ JAX package's draws, handed to the port's ``perturbation``).
 """
 
 import json
+import os
 import threading
 import urllib.request
 from http.server import ThreadingHTTPServer
@@ -134,18 +135,44 @@ def test_serve_answers_health_and_json(tmp_path):
 
 def test_tasks_need_the_card_unless_cpu(monkeypatch, tmp_path):
     """Without --cpu the tasks run on the card; with no card they raise
-    rather than carry on on the CPU. Unported flags name their items."""
+    rather than carry on on the CPU. With --cpu, the decoder sources and
+    the data all run: --shape sphere fits a 4x32 decoder (--fit-steps 5)
+    and caches it (the cache in a temporary directory), --no-cache fits
+    without writing one, train's export loads with --experiment-dir, and
+    make_synthetic_data's layouts feed each task's --data."""
+    from dist_renderer_tpu_torch.tasks import make_synthetic_data, train
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(common, "REPO_ROOT", str(tmp_path))
+    out = ["--out", str(tmp_path / "o")]
+    for main in (render_demo.main, depth_completion.main, pose_refine.main,
+                 multiview.main, make_synthetic_data.main):
+        with pytest.raises(RuntimeError, match="--cpu"):
+            main(["--img", "16"] + out)
     with pytest.raises(RuntimeError, match="--cpu"):
-        render_demo.main(["--img", "16", "--out", str(tmp_path)])
-    for main, flag, item in [
-            (depth_completion.main, ["--data", "x"], "A10"),
-            (pose_refine.main, ["--data", "x"], "A10"),
-            (render_demo.main, ["--experiment-dir", "x"], "A2"),
-            (render_demo.main, ["--no-cache"], "A11"),
-            (render_demo.main, ["--shape", "sphere"], "A11")]:
-        with pytest.raises(NotImplementedError, match=item):
-            main(TINY + flag + ["--out", str(tmp_path)])
+        train.main(["--steps", "1"] + out)
+
+    small = ["--shape", "sphere", "--fit-steps", "5", "--decoder-width", "32",
+             "--decoder-depth", "4", "--latent-size", "8"]
+    data = str(tmp_path / "synth")
+    make_synthetic_data.main(TINY + small + ["--out", data, "--instances", "1",
+                                             "--views", "2"])
+    assert (tmp_path / ".task_decoder_sphere_32x4_8.npz").exists()
+    render_demo.main(TINY + small + ["--no-cache"] + out)
+    assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".npz")) == [
+        ".task_decoder_sphere_32x4_8.npz"]
+    exp = str(tmp_path / "exp")
+    params, latents, h, _ = train.main(["--cpu", "--shapes", "sphere", "torus",
+                                        "--steps", "2", "--points", "64",
+                                        "--decoder-width", "32", "--decoder-depth", "4",
+                                        "--latent-size", "8", "--out", exp])
+    assert h.shape == (2,) and latents.shape == (2, 8)
+    assert (tmp_path / "exp" / "shapes.txt").read_text().split() == ["sphere", "torus"]
+    render_demo.main(TINY + ["--experiment-dir", exp] + out)
+    for main in (depth_completion.main, pose_refine.main):
+        main(TINY + small + ["--data", os.path.join(data, "depth"), "--steps", "2"] + out)
+    multiview.main(TINY + small + ["--data", os.path.join(data, "multiview"),
+                                   "--steps", "2"] + out)
 
 
 def _obj_counts(path):
