@@ -46,7 +46,15 @@ defaults exported as a DeepSDF experiment directory and loaded back bit
 for bit (render_demo --experiment-dir), make_synthetic_data's layouts
 and the three --data fits, and a resumed depth_completion against an
 uninterrupted one; it checks that K1-grid, K1, K2, K3 and K4 launched.
-Prints the timings, one JSON line of per-kernel results, the card's name
+Phase 12 spawns 4 ranks sharing the card over gloo: the sharded batched
+render (rounds on K1 and on K1-multi, the queue on K2) against the
+single-device one, the sharded K1-grid trace, 5 sharded fit steps through
+K3 and K4 against one process running the same steps, the sharded frame
+and view renders against render_rays; then the batched polish on K3
+against its plain version, fused_dd against the K3 route, the counting
+sort against torch.sort, and phase 9's mesh raycast against the K1-grid
+render and preprocessed into both dataset layouts; every kernel of the
+ranks' legs must launch in every rank. Prints the timings, one JSON line of per-kernel results, the card's name
 and power limit, and last a JSON status line.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
@@ -1572,7 +1580,8 @@ def k5_phase(torch, dev, params, dcfg, latent, cam, smi):
               f"the {k} gradient of the color render differs from the plain versions' "
               f"(bars: cos >= {GRAD_COS}, relative L2 <= {GRAD_REL})")
     launches = mesh_launches + fwd_l["point_eval"] + fb_l["point_eval"]
-    return dict(a=rows_a, mesh=rows_b, route=route, launches=launches,
+    return dict(a=rows_a, mesh=rows_b, mesh_arrays=(verts, faces), route=route,
+                launches=launches,
                 color=dict(fwd_ms=fwd_ms, fwdbwd_ms=fb_ms, plain_fwdbwd_ms=plain_fb_ms,
                            hit_frac=hit_frac, rgb_exact=rgb_exact, rgb_gemm_max=rgb_gemm,
                            grads={k: d for k, d in diffs.items()}))
@@ -2102,6 +2111,421 @@ def train_phase(torch, dev, smi, bench_params, bench_latent, cam):
     return res
 
 
+# Phase 12: parallel/ at the bench fixture's width (the sharded renders and
+# the sharded fit step on 4 ranks), the batched polish, fused_dd, the
+# counting sort, mesh raycasting and preprocessing. The 4 ranks are
+# processes sharing card 0 over gloo (their collectives go through the
+# host), so the script needs one card; it does not measure NCCL across
+# cards. The kernels are built in this process before the ranks start, and
+# each rank counts its own launches.
+F12 = 4          # frames of the sharded batched render (a)
+FIT_IMG = 128    # (c): 4 shapes at 128^2 each
+FIT_STEPS12 = 5
+FIT_JITTER = 0.05  # (c)'s latents: the bench latent + 0.05 N(0, 1) (the
+                   # batched_render CLI's --latent-noise); the 0.001 of the
+                   # renders is less than one Adam step at lr 1e-2
+FIT_REL = 1e-5   # (c): the latents against the one-process run, relative L2
+RANKS12 = 4
+
+
+def sharded_phase(torch, dev, smi, params, dcfg, latent, pparams, pcfg, cfg, key,
+                  mesh_arrays, img=IMG, fit_img=FIT_IMG, frames=F12):
+    """Phase 12, in legs (a)-(h) (the module comment above); any failed
+    check exits nonzero. Returns its numbers for the JSON line."""
+    import tempfile
+
+    import numpy as np
+
+    from dist_renderer_tpu_torch.config import GradConfig, LossConfig, RenderConfig
+    from dist_renderer_tpu_torch.data.datasets import PMOMultiViewDataset, ShapeNetDepthDataset
+    from dist_renderer_tpu_torch.eval.mesh import save_obj
+    from dist_renderer_tpu_torch.eval.native import load_library
+    from dist_renderer_tpu_torch.eval.raycast import render_mesh_depth
+    from dist_renderer_tpu_torch.models.decoder import decoder_apply, make_precise_sdf
+    from dist_renderer_tpu_torch.models.folded import fold_latent
+    from dist_renderer_tpu_torch.ops.binning import counting_sort_perm
+    from dist_renderer_tpu_torch.ops.camera import Camera, pixel_rays
+    from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+    from dist_renderer_tpu_torch.ops.kernels import build
+    from dist_renderer_tpu_torch.ops.kernels.fused_march import pack_folded, sphere_trace_grid
+    from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
+    from dist_renderer_tpu_torch.ops.kernels.recompute import (
+        precise_bias_grads_call, precise_sdg_call,
+    )
+    from dist_renderer_tpu_torch.ops.polish import polish_depth_batched
+    from dist_renderer_tpu_torch.ops.renderer import (
+        class_order, make_march_factory, render, render_rays,
+    )
+    from dist_renderer_tpu_torch.parallel import sharding
+    from dist_renderer_tpu_torch.parallel.dryrun import fit_steps, run_calls
+    from dist_renderer_tpu_torch.parallel.mesh import run_ranks
+    from dist_renderer_tpu_torch.tasks.preprocess_shapenet import preprocess_mesh
+
+    print(f"\n== phase 12: {RANKS12} ranks (parallel/), the batched polish, fused_dd, "
+          "the counting sort, mesh raycasting ==", flush=True)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    print(f"CUDA cards visible: {cards}; the {RANKS12} ranks are processes sharing "
+          "card 0 over gloo (collectives through the host); NCCL across cards is not "
+          "measured by this run", flush=True)
+    t_phase = time.perf_counter()
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+
+    def host_ms(fn, reps=1):
+        """fn()'s last result and the median wall ms of ``reps`` calls
+        after a warm-up, the card drained around each."""
+        fn()
+        ms = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return out, sorted(ms)[len(ms) // 2]
+
+    if dev.type == "cuda":
+        build.load()  # once, here: the ranks find the built library
+    march = cfg.march
+    n = img * img
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img), device=dev)
+    o, v = pixel_rays(cam, img, img)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 12)
+    lats = latent[None] + 0.001 * torch.randn((frames, latent.shape[0]), generator=gen).to(dev)
+    ob, vb = o[None].expand(frames, n, 3), v[None].expand(frames, n, 3)
+    sdf = make_precise_sdf(params, dcfg)
+    mesh22, mesh14 = (("latents", "rays"), (2, 2)), (("latents", "rays"), (1, 4))
+    counters = [bm.sphere_trace_persistent, bm.sphere_trace_batched, queue_march,
+                sphere_trace_grid, precise_sdg_call, precise_bias_grads_call]
+    names = [c.__name__ for c in counters]
+
+    # (a) the flagship: rounds on K1, rounds on K1-multi, the queue (K2)
+    bkw = dict(params=params, dcfg=dcfg, latents=lats, origins=ob, dirs=vb,
+               img_hw=(img, img), march=march, strides=(16, 4), coarse_steps=16)
+    legs_a = [("rounds", dict(scheduler="rounds")),
+              ("rounds on K1-multi", dict(scheduler="rounds", persistent=False)),
+              ("queue", dict(scheduler="queue"))]
+    calls = []
+    for _, kw in legs_a:   # each twice: a warm-up, then the timed call
+        calls += [(sharding.render_batched_c2f_sharded, *mesh22, dict(bkw, **kw))] * 2
+    # (b) K1-grid on 4 ray shards
+    packed = pack_folded(fold_latent(params, latent, dcfg), dcfg)
+    calls += [(sharding.trace_sharded_pallas, *mesh14,
+               dict(packed=packed, origins=o, dirs=v, march=march))] * 2
+    # (c) the fit step: 4 shapes at fit_img^2, the unjittered latent's render
+    fit_cfg = RenderConfig(img_h=fit_img, img_w=fit_img, march=march,
+                           grad=GradConfig(mode="ift", recompute="pallas"))
+    cam_f = Camera.looking_at((0.0, 0.0, -2.5), focal=fit_img * 1.2,
+                              img_hw=(fit_img, fit_img), device=dev)
+    with torch.no_grad():
+        gt = render(sdf, latent, cam_f, fit_cfg)
+    of, vf = pixel_rays(cam_f, fit_img, fit_img)
+    nf = fit_img * fit_img
+    obs = dict(origins=of[None].expand(4, nf, 3), dirs=vf[None].expand(4, nf, 3),
+               obs_depth=gt.depth.reshape(1, nf).expand(4, nf),
+               obs_mask=gt.mask.reshape(1, nf).expand(4, nf))
+    fit_lats = latent[None] + FIT_JITTER * torch.randn((4, latent.shape[0]),
+                                                       generator=gen).to(dev)
+    fit_kw = dict(sdf_fn=sdf, cfg=fit_cfg, loss_cfg=LossConfig(), latents=fit_lats,
+                  steps=FIT_STEPS12, **obs)
+    calls.append((fit_steps, *mesh22, fit_kw))
+    # (d) render_frame_sharded (4 ray shards), render_views_sharded (4 views)
+    rcfg = RenderConfig(img_h=img, img_w=img, march=march,
+                        grad=GradConfig(mode="ift", recompute="pallas"))
+    vcams = [Camera.looking_at((2.5 * np.sin(a), 0.3, -2.5 * np.cos(a)), focal=img * 1.2,
+                               img_hw=(img, img), device=dev)
+             for a in np.linspace(0.0, 2 * np.pi, RANKS12, endpoint=False)]
+    vrays = [pixel_rays(c, img, img) for c in vcams]
+    vo = torch.stack([r[0] for r in vrays])
+    vv = torch.stack([r[1] for r in vrays])
+    calls.append((sharding.render_frame_sharded, ("rays",), (RANKS12,),
+                  dict(sdf_fn=sdf, latent=latent, camera=cam, cfg=rcfg)))
+    calls.append((sharding.render_views_sharded, ("latents",), (RANKS12,),
+                  dict(sdf_fn=sdf, latent=latent, origins=vo, dirs=vv, cfg=rcfg)))
+
+    t0 = time.perf_counter()
+    res = run_ranks(run_calls, RANKS12, calls, dev.type, counters, backend="gloo",
+                    device=dev.type)
+    ranks_s = time.perf_counter() - t0
+    print(f"{RANKS12} ranks: {ranks_s:.1f} s for legs (a)-(d), spawn and start included",
+          flush=True)
+    launches = {nm: 0 for nm in names}
+    for r in res:
+        for per_rank in r["launches"]:
+            for nm, c in zip(names, per_rank):
+                launches[nm] += c
+    out = dict(ranks=RANKS12, backend="gloo", cards=cards, ranks_seconds=ranks_s)
+
+    def ran(r, nm):
+        """Every rank launched counter nm in call r."""
+        return all(per[names.index(nm)] > 0 for per in r["launches"])
+
+    # (a) against the single-device render, JAX's cross-layout contract
+    rows_a = []
+    with torch.no_grad():
+        for i, (label, kw) in enumerate(legs_a):
+            r = res[2 * i + 1]
+            ref, ms1 = host_ms(lambda: bm.render_batched_c2f(
+                params, dcfg, lats, ob, vb, (img, img), march, strides=(16, 4),
+                coarse_steps=16, **kw))
+            d, hit, msdf = (t.to(dev) for t in r["out"])
+            hit_ref = ref.hit
+            dd = (d - ref.depth).abs()[hit_ref]
+            md = (msdf - ref.min_sdf).abs()
+            differ = int(((d != ref.depth) | (hit != hit_ref) | (msdf != ref.min_sdf)).sum())
+            row = dict(leg=label, sharded_ms_per_frame=1e3 * r["seconds"] / frames,
+                       single_ms_per_frame=ms1 / frames, hits=int(hit_ref.sum()),
+                       hits_equal=bool(torch.equal(hit, hit_ref)), rays_differing=differ,
+                       depth_share_1e6=float((dd > 1e-6).float().mean()),
+                       depth_max=float(dd.max()),
+                       msdf_share_1e6=float((md > 1e-6).float().mean()),
+                       msdf_max=float(md.max()),
+                       launches=[dict(zip(names, p)) for p in r["launches"]])
+            rows_a.append(row)
+            print(f"(a) render_batched_c2f_sharded {label}, F={frames} x {img}^2, mesh 2x2: "
+                  f"{row['sharded_ms_per_frame']:.2f} ms/frame on {RANKS12} ranks sharing "
+                  f"the card, single-device {row['single_ms_per_frame']:.2f}; hits equal "
+                  f"{row['hits_equal']} ({row['hits']}); rays differing at all {differ}; "
+                  f"|ddepth| > 1e-6 on {row['depth_share_1e6']:.5f} of hits, max "
+                  f"{row['depth_max']:.3e}; min_sdf > 1e-6 {row['msdf_share_1e6']:.5f}, "
+                  f"max {row['msdf_max']:.3e}; launches per rank "
+                  f"{[{k: c for k, c in x.items() if c} for x in row['launches']]}  [{smi}]",
+                  flush=True)
+            check(row["hits_equal"] and row["hits"] > 0,
+                  f"(a) {label}: the sharded hit mask differs from the single-device plan")
+            check(row["depth_share_1e6"] <= 0.005 and row["depth_max"] <= 4 * march.depth_eps,
+                  f"(a) {label}: sharded depth off the single-device plan")
+            check(row["msdf_share_1e6"] <= 0.005 and row["msdf_max"] <= 1e-3,
+                  f"(a) {label}: sharded margins off the single-device plan")
+        check(ran(res[1], "sphere_trace_persistent") and ran(res[5], "sphere_trace_persistent"),
+              "(a): a rank never launched K1")
+        check(ran(res[3], "sphere_trace_batched"), "(a): a rank never launched K1-multi")
+        check(ran(res[5], "queue_march"), "(a): a rank never launched K2")
+    out["a"] = rows_a
+
+    # (b) K1-grid on 4 ray shards against one launch over every ray
+    r = res[7]
+    (grid, ms1) = host_ms(lambda: sphere_trace_grid(packed, o, v, march))
+    same = all(torch.equal(a.to(dev), b) for a, b in zip(r["out"], (grid.depth, grid.hit,
+                                                                      grid.min_sdf)))
+    diff_b = int(((r["out"][0].to(dev) != grid.depth) | (r["out"][1].to(dev) != grid.hit)
+                  | (r["out"][2].to(dev) != grid.min_sdf)).sum())
+    out["b"] = dict(sharded_ms=1e3 * r["seconds"], single_ms=ms1, bit_equal=same,
+                    rays_differing=diff_b, launches=[dict(zip(names, p)) for p in r["launches"]])
+    print(f"(b) trace_sharded_pallas on 4 ray shards of {n} rays: {out['b']['sharded_ms']:.2f} ms "
+          f"(ranks sharing the card), single-device sphere_trace_grid {ms1:.2f} ms; bit for "
+          f"bit: {same} ({diff_b} rays differ)  [{smi}]", flush=True)
+    check(same, f"(b): the sharded K1-grid trace differs from one launch on {diff_b} rays")
+    check(ran(r, "sphere_trace_grid"), "(b): a rank never launched K1-grid")
+
+    # (c) the fit step against one process computing the same steps: each
+    # latent block's tiles, the ray bands' gradients summed, Adam on each
+    # block (the ranks' arithmetic); and, for information, one [B, L] leaf
+    # with every tile's loss in one graph, where autograd sums a row's
+    # terms in another order, a last-bit change that the marches' hit
+    # decisions amplify over the steps
+    r = res[8]
+    losses, hist = r["out"]["losses"], r["out"]["latents"].to(dev)
+    n_fb, n_rb = mesh22[1]
+    b_loc = fit_lats.shape[0] // n_fb
+    keys = ("origins", "dirs", "obs_depth", "obs_mask")
+    block = lambda f: [obs[k][f * b_loc:(f + 1) * b_loc] for k in keys]
+    zs = [fit_lats[f * b_loc:(f + 1) * b_loc].clone().requires_grad_(True)
+          for f in range(n_fb)]
+    opts = [torch.optim.Adam([z], lr=1e-2) for z in zs]
+    t0 = time.perf_counter()
+    for _ in range(FIT_STEPS12):
+        for f, (z, opt) in enumerate(zip(zs, opts)):
+            g = 0.0
+            for tile in zip(*(a.chunk(n_rb, dim=1) for a in block(f))):
+                g = g + torch.autograd.grad(
+                    sharding.local_loss(sdf, fit_cfg, LossConfig(), z, *tile), z)[0]
+            opt.zero_grad()
+            z.grad = g
+            opt.step()
+    sync()
+    ref_s = time.perf_counter() - t0
+    z1 = torch.cat([z.detach() for z in zs])
+    zg = fit_lats.clone().requires_grad_(True)
+    opt = torch.optim.Adam([zg], lr=1e-2)
+    for _ in range(FIT_STEPS12):
+        opt.zero_grad()
+        sum(sharding.local_loss(sdf, fit_cfg, LossConfig(), zg, *tile) for tile in
+            zip(*(obs[k].chunk(n_rb, dim=1) for k in keys))).backward()
+        opt.step()
+    rel_to = lambda z: float((hist[-1] - z).norm() / z.norm())
+    rel, rel_graph = rel_to(z1), rel_to(zg.detach())
+    out["c"] = dict(losses=[float(x) for x in losses], rel_l2=rel,
+                    differing=int((hist[-1] != z1).sum()), one_graph_rel_l2=rel_graph,
+                    ms_per_step=1e3 * r["seconds"] / FIT_STEPS12,
+                    one_process_ms_per_step=1e3 * ref_s / FIT_STEPS12,
+                    launches=[dict(zip(names, p)) for p in r["launches"]])
+    print(f"(c) make_sharded_fit_step, 4 shapes x {fit_img}^2 on a 2x2 mesh, ift + K3/K4: "
+          f"loss {out['c']['losses'][0]:.5f} -> {out['c']['losses'][-1]:.5f} in "
+          f"{FIT_STEPS12} steps ({out['c']['ms_per_step']:.1f} ms/step on the ranks, "
+          f"{out['c']['one_process_ms_per_step']:.1f} in one process); latents against "
+          f"the one-process run: relative L2 {rel:.3e} ({out['c']['differing']} entries "
+          f"differ); against one graph of every tile {rel_graph:.3e}  [{smi}]", flush=True)
+    check(out["c"]["losses"][-1] < out["c"]["losses"][0], "(c): the sharded fit's loss did not fall")
+    check(rel <= FIT_REL, f"(c): the sharded fit left the one-process run ({rel:.3e})")
+    check(ran(r, "precise_sdg_call") and ran(r, "precise_bias_grads_call"),
+          "(c): a rank never launched K3 or K4")
+
+    # (d) the frame and the views against single-device render_rays
+    rows_d = []
+    with torch.no_grad():
+        ref_f, ms_f = host_ms(lambda: render_rays(sdf, latent, o, v, rcfg))
+        refs_v, ms_v = host_ms(lambda: [render_rays(sdf, latent, a, b, rcfg)
+                                        for a, b in zip(vo, vv)])
+    for label, r, want in (("frame", res[9], [ref_f]), ("views", res[10], refs_v)):
+        got = r["out"]
+        flat = lambda k: getattr(got, k).reshape(len(want), -1).to(dev)
+        stack = lambda k: torch.stack([getattr(w, k).reshape(-1) for w in want])
+        mask_eq = bool(torch.equal(flat("mask"), stack("mask")))
+        dmax = float((flat("depth") - stack("depth")).abs().max())
+        mmax = float((flat("min_sdf") - stack("min_sdf")).abs().max())
+        row = dict(leg=label, sharded_ms=1e3 * r["seconds"],
+                   single_ms=ms_f if label == "frame" else ms_v, masks_equal=mask_eq,
+                   depth_max=dmax, msdf_max=mmax, hits=int(stack("mask").sum()))
+        rows_d.append(row)
+        print(f"(d) render_{label}_sharded at {img}^2 ({len(want)} x {n} rays): "
+              f"{row['sharded_ms']:.1f} ms on the ranks, single-device {row['single_ms']:.1f}; "
+              f"masks equal {mask_eq} ({row['hits']} hits); max |ddepth| {dmax:.3e}, "
+              f"|dmin_sdf| {mmax:.3e}  [{smi}]", flush=True)
+        check(mask_eq and row["hits"] > 0 and dmax <= 1e-5 and mmax <= 1e-5,
+              f"(d) render_{label}_sharded differs from the single-device render_rays")
+    out["d"] = rows_d
+
+    # (e) the batched polish on a proxy march (K3 against its plain version)
+    with torch.no_grad():
+        st = bm.render_batched_c2f(pparams, pcfg, lats, ob[:, :1], vb, (img, img), march,
+                                   strides=(16, 4), shared_origin=True)
+        precise_sdg_call.launches = 0
+        (dk, rk), pol_ms = host_ms(lambda: polish_depth_batched(
+            params, dcfg, lats, ob, vb, st.depth, st.hit, return_residual=True), reps=3)
+        k3_launches = precise_sdg_call.launches
+        (dp, rp), pol_plain_ms = host_ms(lambda: polish_depth_batched(
+            params, dcfg, lats, ob, vb, st.depth, st.hit, use_kernel=False,
+            return_residual=True))
+        f0 = torch.stack([decoder_apply(params, lats[i], ob[i] + st.depth[i, :, None] * vb[i],
+                                        dcfg).abs() for i in range(frames)])
+    hit = st.hit
+    dd = (dk - dp).abs()[hit]
+    within = float((dd <= 1e-5).float().mean())
+    med_res, med_f0 = float(rk[hit].median()), float(f0[hit].median())
+    out["e"] = dict(ms=pol_ms, plain_ms=pol_plain_ms, k3_launches=k3_launches,
+                    hits=int(hit.sum()), within_1e5=within, max=float(dd.max()),
+                    median_residual=med_res, median_proxy_f=med_f0,
+                    moved=float(((dk - st.depth).abs()[hit] > 1e-6).float().mean()))
+    print(f"(e) polish_depth_batched, F={frames} x {img}^2 proxy march ({out['e']['hits']} hits): "
+          f"{pol_ms:.2f} ms on K3 ({k3_launches} launches in 4 calls), plain {pol_plain_ms:.2f}; "
+          f"K3 vs plain: depth within 1e-5 on {within:.6f} of hits, max {out['e']['max']:.3e}; "
+          f"median |f| {med_f0:.3e} at the proxy depth -> residual {med_res:.3e}; moved "
+          f"{out['e']['moved']:.4f} of hits  [{smi}]", flush=True)
+    check(within >= 0.999, f"(e): the polish on K3 differs from its plain version ({within:.5f})")
+    check(med_res < med_f0, "(e): the polish did not shrink the median residual")
+    check(k3_launches > 0, "(e): the polish never launched K3")
+
+    # (f) fused_dd against the K3 route, one render() request fwd+bwd
+    rows_f = {}
+    for fused in (False, True):
+        c = dataclasses.replace(cfg, grad=dataclasses.replace(cfg.grad, fused_dd=fused))
+        fac = make_march_factory(params, dcfg, c, march_params=pparams, march_dcfg=pcfg)
+
+        def fwd_bwd():
+            z = latent.clone().requires_grad_(True)
+            r_ = render(sdf, z, cam, c, fac)
+            (g,) = torch.autograd.grad(torch.where(r_.mask, r_.depth, 0.0).sum(), z)
+            return r_, g
+
+        precise_sdg_call.launches = 0
+        (r_f, g_f), ms = host_ms(fwd_bwd, reps=3)
+        rows_f[fused] = (r_f, g_f, ms, precise_sdg_call.launches)
+    (ra, ga, msa, la), (rb, gb, msb, lb) = rows_f[False], rows_f[True]
+    both = ra.mask & rb.mask
+    dd = (ra.depth - rb.depth).detach().abs()
+    frontal = both & ((ra.normal * v.reshape(img, img, 3)).sum(-1).abs() > 0.2)
+    cos = float(ga @ gb / (ga.norm() * gb.norm()))
+    rel = float((gb - ga).norm() / ga.norm())
+    out["f"] = dict(k3_ms=msa, fused_ms=msb, k3_launches=la, fused_k3_launches=lb,
+                    hit_agree=float((ra.mask == rb.mask).float().mean()),
+                    within_1e5=float((dd[both] <= 1e-5).float().mean()),
+                    within_1e3=float((dd[both] <= 1e-3).float().mean()),
+                    max=float(dd[both].max()), frontal_p95=float(dd[frontal].quantile(0.95)),
+                    frontal_share=float(frontal.sum() / both.sum()),
+                    grad_cos=cos, grad_rel=rel)
+    print(f"(f) render() fwd+bwd at {img}^2, fused_dd=True {msb:.2f} ms ({lb} K3 launches) "
+          f"vs the K3 route {msa:.2f} ms ({la}); hit agreement {out['f']['hit_agree']:.5f}; "
+          f"depth within 1e-5 on {out['f']['within_1e5']:.5f} of common hits, within 1e-3 "
+          f"{out['f']['within_1e3']:.5f}, max {out['f']['max']:.3e}; p95 on the frontal "
+          f"{out['f']['frontal_share']:.4f} of them (|<n, v>| > 0.2) "
+          f"{out['f']['frontal_p95']:.3e}; latent gradient cos {cos:.6f}, relative L2 "
+          f"{rel:.3e}  [{smi}]", flush=True)
+    # fused_dd's denominator is a bf16 tangent (the JAX package's design:
+    # ~1e-2 relative, clamped), so a hit's depth moves by its |f| times
+    # that over |dd|: far on grazing rays, whose |dd| nears the clamp
+    # (read on an H100: max 0.107, 98.3% of hits within 1e-3), and the
+    # gradient by ~1e-2 relative. Bars: tests/test_parity.py's, p95 <= 1e-3
+    # on frontal common hits, and tests/test_torch_grad.py's whole-render
+    # gradient bars
+    check(lb == 0, "(f): fused_dd still launched K3")
+    check(out["f"]["hit_agree"] >= 0.999 and out["f"]["frontal_p95"] <= 1e-3,
+          "(f): the fused_dd render differs from the K3 route beyond the parity bar")
+    check(cos >= 0.999 and rel <= 3e-2, f"(f): the fused_dd gradient left the K3 "
+          f"route's (cos {cos:.6f}, relative L2 {rel:.3e})")
+
+    # (g) the counting sort against torch.sort(stable=True) on the plan's keys
+    k = key.reshape(-1).contiguous()
+    (oc, ic), ms_c = host_ms(lambda: counting_sort_perm(k, 3), reps=20)
+    (os_, is_), ms_s = host_ms(lambda: class_order(k), reps=20)
+    same_g = bool(torch.equal(oc, os_) and torch.equal(ic, is_))
+    out["g"] = dict(n=int(k.numel()), counting_ms=ms_c, sort_ms=ms_s, same=same_g,
+                    classes=[int((k == c).sum()) for c in range(3)])
+    print(f"(g) counting_sort_perm vs class_order (torch.sort stable) on {k.numel()} keys "
+          f"(classes {out['g']['classes']}): {ms_c:.4f} vs {ms_s:.4f} ms a call (order and "
+          f"inverse, wall time of a call, median of 20); the same permutation: {same_g}  "
+          f"[{smi}]", flush=True)
+    check(same_g, "(g): the counting sort's permutation differs from torch.sort's")
+
+    # (h) the extracted mesh raycast (native BVH) against the K1-grid render
+    lib = load_library()
+    check(lib is not None, "(h): the native mesh library did not load")
+    verts, faces = mesh_arrays
+    (md_, mm_), ms_h = host_ms(lambda: render_mesh_depth(verts, faces, cam, (img, img)))
+    gh = grid.hit.reshape(img, img).cpu().numpy()
+    gd = grid.depth.reshape(img, img).cpu().numpy()
+    iou = float((gh & mm_).sum() / max((gh | mm_).sum(), 1))
+    q = np.quantile(np.abs(md_ - gd)[gh & mm_], [0.5, 0.95, 1.0])
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, "bench.obj")
+        save_obj(obj, verts, faces)
+        t0 = time.perf_counter()
+        s = preprocess_mesh(obj, os.path.join(tmp, "data"), views=2, img=128, device=dev)
+        pre_s = time.perf_counter() - t0
+        dobs = ShapeNetDepthDataset(os.path.join(tmp, "data", "depth"))[0]
+        mobs = PMOMultiViewDataset(os.path.join(tmp, "data", "multiview"))[0]
+    out["h"] = dict(ms=ms_h, verts=len(verts), faces=len(faces), iou=iou,
+                    depth_p50=float(q[0]), depth_p95=float(q[1]), depth_max=float(q[2]),
+                    preprocess_s=pre_s, instances=len(s["instances"]),
+                    depth_obs_hits=int(dobs.mask.sum()), views=int(mobs.images.shape[0]))
+    print(f"(h) render_mesh_depth of phase 9's 256^3 bench mesh ({len(verts)} verts, native "
+          f"BVH) at {img}^2: {ms_h:.1f} ms; hits against the K1-grid render IoU {iou:.5f}, "
+          f"|ddepth| on common hits p50 {q[0]:.3e} p95 {q[1]:.3e} max {q[2]:.3e}; "
+          f"preprocess_mesh (2 views, 128^2) {pre_s:.2f} s, read back: "
+          f"{out['h']['instances']} depth instances ({out['h']['depth_obs_hits']} mask "
+          f"pixels in the first), {out['h']['views']} views  [{smi}]", flush=True)
+    spacing = 2.0 / (MESH_RES[-1] - 1)
+    check(iou >= 0.95 and q[0] <= spacing,
+          "(h): the mesh raycast does not match the K1-grid render of its decoder")
+    check(out["h"]["instances"] == 2 and out["h"]["depth_obs_hits"] > 0
+          and out["h"]["views"] == 2, "(h): preprocess_mesh's layouts did not read back")
+
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 12: {out['seconds']:.1f} s; launches in the ranks (all legs, all ranks) "
+          f"{launches}", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -2583,6 +3007,8 @@ def main():
     k5 = k9["a"][0]
     p_rows, p_launches, probes = probes_phase(torch, dev)
     t11 = train_phase(torch, dev, smi, params, latent, cam)
+    t12 = sharded_phase(torch, dev, smi, params, dcfg, latent, pparams, pcfg, cfg, key,
+                        k9["mesh_arrays"])
 
     src = "dist_renderer_tpu_torch/csrc/"
     kernels = [
@@ -2694,6 +3120,7 @@ def main():
                                  color=k9["color"]),
                       "probes_seconds": probes["seconds"],
                       "train": t11,
+                      "sharded": t12,
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -146,19 +146,21 @@ class PMOMultiViewDataset:
 class SyntheticShapeDataset:
     """Observations rendered from a decoder (or an analytic SDF), the same
     tuples the loaders give, for runs without data. Renders run on
-    ``device``; the observations come back as numpy arrays and CPU
+    ``device`` (default: the CUDA card; without one it raises unless given
+    device="cpu"); the observations come back as numpy arrays and CPU
     cameras."""
 
     def __init__(self, sdf_fn, latents: np.ndarray, img: int = 128, n_views: int = 8,
-                 march_fn_factory=None, render_cfg=None, device="cpu"):
+                 march_fn_factory=None, render_cfg=None, device=None):
         from dist_renderer_tpu_torch.config import MarchConfig, RenderConfig
+        from dist_renderer_tpu_torch.models.pretrain import resolve_device
 
         self.sdf_fn = sdf_fn
         self.latents = latents
         self.img = img
         self.n_views = n_views
         self.factory = march_fn_factory
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.cfg = render_cfg or RenderConfig(img_h=img, img_w=img,
                                               march=MarchConfig(max_steps=50))
 

@@ -56,15 +56,16 @@ def round_union(f1, f2, k: float = 0.1):
     return f
 
 
+def _latent_sphere(latent, points):
+    return torch.linalg.norm(points, dim=-1) - latent[..., 0]
+
+
 def latent_sphere_sdf():
     """Sphere whose radius is latent[0]: for a centered sphere, depth =
     |c| - r along a center ray, so d depth / d r = -1 (the gradient
-    checks' closed form)."""
-
-    def f(latent, points):
-        return torch.linalg.norm(points, dim=-1) - latent[..., 0]
-
-    return f
+    checks' closed form). A module-level function, so it pickles (to the
+    ranks of parallel/mesh.run_ranks)."""
+    return _latent_sphere
 
 
 def analytic_sphere_depth(origins, dirs, radius: float):

@@ -215,6 +215,34 @@ def decoder_apply_with_dd(
     return s.reshape(pts_shape), dd.reshape(pts_shape)
 
 
+class _ValueWithDD(torch.autograd.Function):
+    """(s, dd) = decoder_apply_with_dd in one pass. The backward of s is
+    the JAX package's for this pair: autograd of the decoder with bf16
+    products (fp32 sums), recomputed; dd and the directions get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, latent, points, dirs, params, cfg):
+        ctx.save_for_backward(latent, points)
+        ctx.params, ctx.cfg = params, cfg
+        s, dd = decoder_apply_with_dd(params, latent, points, dirs, cfg)
+        ctx.mark_non_differentiable(dd)
+        return s, dd
+
+    @staticmethod
+    def backward(ctx, ct_s, ct_dd):
+        latent, points = ctx.saved_tensors
+        want_z, want_p = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            z = latent.detach().requires_grad_(want_z)
+            p = points.detach().requires_grad_(want_p)
+            wrt = [x for x, want in ((z, want_z), (p, want_p)) if want]
+            grads = iter(torch.autograd.grad(
+                decoder_apply(ctx.params, z, p, ctx.cfg, torch.bfloat16), wrt, ct_s))
+        return (next(grads) if want_z else None, next(grads) if want_p else None,
+                None, None, None)
+
+
 class PreciseSDF:
     """(latent, points) -> sdf with the fp32 value and its fp32 autograd
     backward, plus the siblings the renderer reads:
@@ -222,6 +250,9 @@ class PreciseSDF:
       - ``cheap``: the same decoder with bf16 products (fp32
         accumulation), for values that tolerate ~1e-3 relative error
         (miss-ray margins, spatial gradients that are normalized);
+      - ``with_dd``: the value and its directional derivative in one pass
+        (``decoder_apply_with_dd``) with a bf16 backward, the JAX
+        package's roundings, for ``GradConfig.fused_dd``;
       - ``sdg_builder``: the fused value + spatial-gradient kernel K3 with
         its backward K4 (ops/kernels/recompute.py).
 
@@ -241,6 +272,18 @@ class PreciseSDF:
     def cheap(self, latent, points):
         return decoder_apply(self.params, latent, points, self.cfg,
                              torch.bfloat16)
+
+    def with_dd(self, latent, points, dirs):
+        """(s, dd): the value, differentiable to the latent and the points
+        (through bf16 products, as in the JAX package), and its derivative
+        along ``dirs``, a constant."""
+        return _ValueWithDD.apply(latent, points, dirs, self.params, self.cfg)
+
+    def to(self, device) -> "PreciseSDF":
+        """This decoder with its parameters on ``device``."""
+        params = {"layers": [{k: t.to(device) for k, t in l.items()}
+                             for l in self.params["layers"]]}
+        return PreciseSDF(params, self.cfg, self.use_kernel)
 
     def sdg_builder(self, block: int = 512):
         """(latent, points, dirs) -> (s, dd, g): precise value, directional

@@ -597,10 +597,6 @@ class StageResult(NamedTuple):
     weak: Optional[torch.Tensor] = None
 
 
-def not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def _sort_fields(k: torch.Tensor, fields: dict):
     """Stable sort of every frame's row of k; the fields ride along."""
     k_s, idx = torch.sort(k, dim=1, stable=True)

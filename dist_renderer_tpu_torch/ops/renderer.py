@@ -54,7 +54,7 @@ from dist_renderer_tpu_torch.ops.camera import (
     Camera, dot3, pixel_rays, ray_sphere_entry,
 )
 from dist_renderer_tpu_torch.ops.kernels.batched_march import (
-    geo_margin, not_ported, pack_shared, render_batched_c2f,
+    geo_margin, pack_shared, render_batched_c2f,
 )
 from dist_renderer_tpu_torch.ops.tracer import (
     TraceResult, inverse_permutation, live_counts_from_steps, sphere_trace,
@@ -243,9 +243,6 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
             trace = _trace(trace_fn, origins.detach(), dirs.detach(), cfg,
                            init_depth)
     g = cfg.grad
-    if g.mode == "ift" and g.fused_dd:
-        not_ported("GradConfig.fused_dd (the fused value + directional "
-                   "derivative pass)", "A16")
     # proxy_verify_hits="polish": the proxy trace's confident hits skipped
     # the verify march, so the composition owns their verdict: the Newton
     # polish re-anchors depth on the full decoder, and a hit whose polish
@@ -266,7 +263,11 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
     use_march_g = march_fn is not None and not getattr(
         march_fn, "proxy_march", False)
     g_fn = march_fn if use_march_g else (lambda p: base(latent.detach(), p))
-    use_sdg = (g.mode == "ift" and g.recompute == "pallas"
+    # GradConfig.fused_dd: the value and the IFT denominator from one pass
+    # of sdf_fn.with_dd (the tangent rides the value's forward pass), in
+    # place of the fused recompute kernel or a separate spatial gradient
+    fused_dd = g.mode == "ift" and g.fused_dd and hasattr(sdf_fn, "with_dd")
+    use_sdg = (g.mode == "ift" and g.recompute == "pallas" and not g.fused_dd
                and cfg.normal_eps == 0.0 and hasattr(sdf_fn, "sdg_builder"))
     sdg = sdf_fn.sdg_builder(g.recompute_block) if use_sdg else None
     min_denom = g.ift_min_denom
@@ -316,11 +317,15 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
 
     def compose_xla(o, v, d0, anchor, hit):
         p_surf = o + anchor[:, None] * v
-        s = sdf_fn(latent, p_surf)           # the precise value
         gr = None
+        if fused_dd:
+            s, dd = sdf_fn.with_dd(latent, p_surf, v.detach())
+        else:
+            s = sdf_fn(latent, p_surf)       # the precise value
         if g.mode == "ift":
-            gr = _spatial_grad(g_fn, p_surf)
-            dd = dot3(gr, v.detach())
+            if not fused_dd:
+                gr = _spatial_grad(g_fn, p_surf)
+                dd = dot3(gr, v.detach())
             denom = torch.clamp(dd, max=-min_denom)  # front-facing: < 0
             # extra Newton steps with the frozen denominator, safeguarded:
             # only off the clamp, and only where |f| does not grow

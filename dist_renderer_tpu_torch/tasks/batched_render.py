@@ -12,15 +12,26 @@ the full decoder (finalize_hits_batched) before they are counted. The JAX
 package's --scan (its chunk loop as one on-device lax.map) is not ported:
 it measured slower there than the host loop of per-chunk launches kept
 here.
+
+Under a process group of several ranks (torchrun, which this module
+joins with --dist-backend, or a group the caller initialised) each rank
+renders its share of the latents, with no collectives in the march; the
+hit counts, depth sums and times are reduced to rank 0, which prints the
+result line:
+
+    torchrun --nproc-per-node 4 -m dist_renderer_tpu_torch.tasks.batched_render \
+        --pallas --dist-backend gloo     # 4 ranks sharing one card
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
 from dist_renderer_tpu_torch.models.folded import make_point_fn
@@ -54,8 +65,30 @@ def pick_chunk(args, n_frames: int) -> int:
     return chunk
 
 
+def join_torchrun(args) -> bool:
+    """Under torchrun (WORLD_SIZE > 1) with no process group yet: put this
+    rank on its device and initialise the group (env://) on
+    --dist-backend (default: nccl on the card, gloo with --cpu; nccl with
+    more ranks on a host than cards raises). Returns whether it did, so
+    the caller destroys the group at the end."""
+    from dist_renderer_tpu_torch.parallel.mesh import check_backend, rank_device
+
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    device = "cpu" if args.cpu else "cuda"
+    backend = args.dist_backend or ("gloo" if args.cpu else "nccl")
+    check_backend(int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"])),
+                  backend, device, torch.cuda.device_count() if not args.cpu else 0)
+    if not args.cpu:
+        torch.cuda.set_device(rank_device(int(os.environ["LOCAL_RANK"]), backend,
+                                          device))
+    dist.init_process_group(backend)
+    return True
+
+
 def main(argv=None):
-    """Prints and returns the result line: Mrays/s and hit_frac."""
+    """Prints (on rank 0) and returns the result line: Mrays/s and
+    hit_frac."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     add_common_args(ap)
@@ -82,9 +115,25 @@ def main(argv=None):
                     help="with --proxy: the verify stage's treatment of proxy "
                     "hits (render_batched_c2f's verify_hits); the polish modes "
                     "finalize every chunk's hits against the full decoder")
+    ap.add_argument("--dist-backend", choices=["gloo", "nccl"], default=None,
+                    help="under torchrun: the process group's backend (default: "
+                    "nccl on the card, gloo with --cpu; gloo lets ranks share "
+                    "a card)")
     args = ap.parse_args(argv)
+    owns_group = join_torchrun(args)
+    try:
+        return _run(args)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
 
+
+def _run(args):
     dev = task_device(args)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if args.latents % world:
+        raise SystemExit(f"--latents {args.latents} must divide over the {world} ranks")
     params, base_latent, dcfg = load_task_decoder(args)
     cfg = make_render_cfg(args)
     cams = ring_cameras(args.img, args.views, device=dev)
@@ -93,7 +142,10 @@ def main(argv=None):
     dirs = torch.stack([r[1] for r in rays])
     latents = base_latent[None] + args.latent_noise * latent_draws(
         args.latents, base_latent.shape[0], dev)
-    n_frames = args.latents * args.views
+    # each rank renders its share of the latents (pure data parallel)
+    per_rank = args.latents // world
+    latents = latents[rank * per_rank:(rank + 1) * per_rank]
+    n_frames = per_rank * args.views
     extra = {}
 
     if args.pallas:
@@ -195,15 +247,27 @@ def main(argv=None):
         dt = time.perf_counter() - t0
         hits = int(mask.sum())
         dsum = float(torch.where(mask, depth, 0.0).sum(dtype=torch.float64))
-    n_rays = n_frames * args.img * args.img
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    if world > 1:
+        from dist_renderer_tpu_torch.parallel.mesh import all_reduce
+
+        # the group's collectives take card tensors under nccl
+        red = dev if dist.get_backend() == "nccl" else torch.device("cpu")
+        hits, dsum = all_reduce(torch.tensor([hits, dsum], dtype=torch.float64,
+                                             device=red)).tolist()
+        dt, peak = all_reduce(torch.tensor([dt, peak], dtype=torch.float64, device=red),
+                              op=dist.ReduceOp.MAX).tolist()
+        hits = int(hits)
+    n_rays = args.latents * args.views * args.img * args.img
     extra.update(hit_frac=round(hits / n_rays, 4),
                  mean_hit_depth=round(dsum / max(hits, 1), 4))
     if dev.type == "cuda":
-        extra["peak_hbm_gb"] = round(torch.cuda.max_memory_allocated(dev) / 2**30, 2)
+        extra["peak_hbm_gb"] = round(peak, 2)
     result = {"latents": args.latents, "views": args.views, "img": args.img,
               "total_rays": n_rays, "seconds": round(dt, 3),
-              "Mrays_per_s": round(n_rays / dt / 1e6, 2), "devices": 1, **extra}
-    print(json.dumps(result))
+              "Mrays_per_s": round(n_rays / dt / 1e6, 2), "devices": world, **extra}
+    if rank == 0:
+        print(json.dumps(result))
     return result
 
 

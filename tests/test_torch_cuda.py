@@ -1868,3 +1868,82 @@ def test_cuda_depth_completion_resume_is_bit_exact(tmp_path):
     assert torch.equal(rest.variables, whole.variables)
     assert torch.equal(torch.cat([first.loss_history, rest.loss_history]).cpu(),
                        whole.loss_history.cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_renders_on_two_gloo_ranks():
+    """render_batched_c2f_sharded (rounds and queue) and
+    trace_sharded_pallas on 2 gloo ranks sharing the card (a (1, 2) mesh:
+    two horizontal ray bands), against the single-device renders in this
+    process: every march kernel gives each ray the same bits in any tile
+    or launch, and the halo rows give the bands the single-device plan,
+    so the outputs are equal bit for bit. K1 (and K2 under the queue)
+    launched in both ranks; the kernels are built before the ranks
+    start."""
+    from dist_renderer_tpu_torch.ops.kernels.fused_march import (
+        pack_folded, sphere_trace_grid,
+    )
+    from dist_renderer_tpu_torch.parallel import sharding
+    from dist_renderer_tpu_torch.parallel.dryrun import run_calls
+    from dist_renderer_tpu_torch.parallel.mesh import run_ranks
+
+    dev = _device()
+    build.load()
+    params, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"), dev)
+    _, z0 = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    img, frames = 128, 2
+    lat = z0[None] + 0.001 * torch.as_tensor(
+        np.random.default_rng(3).standard_normal((frames, z0.shape[0])),
+        dtype=torch.float32, device=dev)
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img), device=dev)
+    o, v = pixel_rays(cam, img, img)
+    ob, vb = o[None].expand(frames, -1, 3), v[None].expand(frames, -1, 3)
+    kw = dict(params=params, dcfg=pcfg, latents=lat, origins=ob, dirs=vb,
+              img_hw=(img, img), march=MARCH, strides=(16, 4), coarse_steps=16)
+    packed = pack_folded(fold_latent(params, z0, pcfg), pcfg)
+    axes, shape = ("latents", "rays"), (1, 2)
+    calls = [(sharding.render_batched_c2f_sharded, axes, shape, dict(kw, scheduler=s))
+             for s in ("rounds", "queue")]
+    calls.append((sharding.trace_sharded_pallas, ("rays",), (2,),
+                  dict(packed=packed, origins=o, dirs=v, march=MARCH)))
+    res = run_ranks(run_calls, 2, calls, "cuda", [bm.sphere_trace_persistent, qm.queue_march],
+                    backend="gloo", device="cuda")
+    for r, sched in zip(res[:2], ("rounds", "queue")):
+        ref = bm.render_batched_c2f(params, pcfg, lat, ob, vb, (img, img), MARCH,
+                                    strides=(16, 4), coarse_steps=16, scheduler=sched)
+        for got, want in zip(r["out"], (ref.depth, ref.hit, ref.min_sdf)):
+            assert torch.equal(got, want.cpu()), sched
+        assert ref.hit.any()
+        assert all(n[0] > 0 for n in r["launches"]), r["launches"]
+        if sched == "queue":
+            assert all(n[1] > 0 for n in r["launches"]), r["launches"]
+    grid = sphere_trace_grid(packed, o, v, MARCH)
+    for got, want in zip(res[2]["out"], (grid.depth, grid.hit, grid.min_sdf)):
+        assert torch.equal(got, want.cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_polish_batched_matches_plain(k_order):
+    """polish_depth_batched on K3 against its plain version with the
+    kernels' summation order: depth and residual bit for bit, on a proxy
+    march of the bench decoder's frames (as chip_smoke.py's phase 12)."""
+    from dist_renderer_tpu_torch.ops.polish import polish_depth_batched
+
+    dev = _device()
+    params, latent = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    proxy, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"), dev)
+    img, frames = 64, 2
+    lat = latent[None] + 0.001 * torch.as_tensor(
+        np.random.default_rng(5).standard_normal((frames, latent.shape[0])),
+        dtype=torch.float32, device=dev)
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img), device=dev)
+    o, v = pixel_rays(cam, img, img)
+    ob, vb = o[None].expand(frames, -1, 3), v[None].expand(frames, -1, 3)
+    st = bm.render_batched_c2f(proxy, pcfg, lat, ob, vb, (img, img), MARCH, strides=(16, 4))
+    assert st.hit.any()
+    n0 = rc.precise_sdg_call.launches
+    runs = [polish_depth_batched(params, DecoderConfig(), lat, ob, vb, st.depth, st.hit,
+                                 use_kernel=k, return_residual=True) for k in (True, False)]
+    assert rc.precise_sdg_call.launches == n0 + 3 * frames
+    for a, b in zip(*runs):
+        assert _same(a, b)

@@ -248,7 +248,8 @@ def test_synthetic_dataset_and_missing_roots():
     ds = tds.SyntheticShapeDataset(
         latent_sphere_sdf(), latents=np.array([[0.4], [0.5]], np.float32), img=16,
         n_views=4, render_cfg=RenderConfig(img_h=16, img_w=16,
-                                           march=MarchConfig(max_steps=32)))
+                                           march=MarchConfig(max_steps=32)),
+        device="cpu")
     obs = ds.depth_observation(0)
     assert obs.depth.shape == (16, 16) and obs.mask.sum() > 0
     assert isinstance(obs.depth, np.ndarray)
@@ -259,6 +260,17 @@ def test_synthetic_dataset_and_missing_roots():
     for cls in (tds.ShapeNetDepthDataset, tds.PMOMultiViewDataset):
         with pytest.raises(FileNotFoundError):
             cls("/nonexistent/root")
+
+
+def test_synthetic_dataset_needs_a_card_or_the_cpu_named(monkeypatch):
+    """Without a card SyntheticShapeDataset raises unless the caller names
+    the CPU: its renders never fall back to the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lat = np.array([[0.4]], np.float32)
+    with pytest.raises(RuntimeError, match="device="):
+        tds.SyntheticShapeDataset(latent_sphere_sdf(), latents=lat, img=8)
+    ds = tds.SyntheticShapeDataset(latent_sphere_sdf(), latents=lat, img=8, device="cpu")
+    assert ds.device == torch.device("cpu")
 
 
 def _cli(roots):

@@ -46,6 +46,7 @@ from dist_renderer_tpu_torch.ops.kernels.batched_march import render_batched_c2f
 from dist_renderer_tpu_torch.ops.renderer import (
     SDFRenderer, make_march_factory, render,
 )
+from test_torch_grad import one_thread  # noqa: F401 (autouse: torch on one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMG = 32
@@ -104,20 +105,89 @@ def _assert_parity(j, t):
     assert np.mean(np.abs(t["min_sdf"] - j["min_sdf"]) < 2e-3) >= 0.98
 
 
-def test_slice_small_decoder_with_proxy():
-    kw = dict(latent_size=8, hidden_dims=(48,) * 4, latent_in=(2,))
+SMALL_KW = dict(latent_size=8, hidden_dims=(48,) * 4, latent_in=(2,))
+
+
+@pytest.fixture(scope="module")
+def small():
+    """A 4x48 decoder fitted to a sphere, its latent, and a stand-in proxy:
+    the decoder with seeded weight noise (a small field error the verify
+    march must correct)."""
     params, z0 = fit_decoder_to_sdf(lambda p: sphere_sdf(0.5)(None, p),
-                                    JDecoderConfig(**kw), steps=300, batch=2048)
+                                    JDecoderConfig(**SMALL_KW), steps=300, batch=2048)
     params = jax.tree_util.tree_map(np.asarray, params)
-    # a stand-in proxy: the decoder with seeded weight noise (a small field
-    # error the verify march must correct)
     rng = np.random.default_rng(5)
     proxy = {"layers": [
         {"w": l["w"] + 2e-3 * rng.standard_normal(l["w"].shape).astype(np.float32),
          "b": l["b"]} for l in params["layers"]]}
-    j, t, tout = _both(params, kw, np.asarray(z0), proxy, kw, (0.0, 0.0, -2.0), {})
+    return params, np.asarray(z0), proxy
+
+
+def test_slice_small_decoder_with_proxy(small):
+    params, z0, proxy = small
+    j, t, tout = _both(params, SMALL_KW, z0, proxy, SMALL_KW, (0.0, 0.0, -2.0), {})
     _assert_parity(j, t)
     assert tout.trace.steps_per_ray.shape == (IMG * IMG,)
+
+
+def test_fused_dd_matches_jax(small):
+    """GradConfig(fused_dd=True) on the main path (the small decoder through
+    its stand-in proxy): the composition takes the value and the IFT
+    denominator from one with_dd pass (decoder_apply_with_dd, JAX's
+    roundings in both packages; the K3 route is off), and the normals from
+    the decoder's gradient at the final point. Maps under _assert_parity;
+    latent and pose gradients of a depth-completion objective (10 depth L1
+    + silhouette + 1e-4 prior, against the unjittered latent's render)
+    under tests/test_torch_grad.py's whole-render bars, cos >= 0.999 and
+    relative L2 <= 3e-2 (with_dd's backward takes bf16 products in both
+    packages; with an fp32 backward the port read relative L2 5.2e-2)."""
+    from dist_renderer_tpu.ops import camera as jcam
+    from dist_renderer_tpu.utils import losses as JL
+    from dist_renderer_tpu_torch.ops import camera as tcam
+    from dist_renderer_tpu_torch.utils import losses as TL
+
+    params, z0, proxy = small
+    z = z0 + 0.05 * np.random.default_rng(7).standard_normal(z0.shape).astype(np.float32)
+    fused = lambda c: dataclasses.replace(c, grad=dataclasses.replace(c.grad, fused_dd=True))
+    jcfg = fused(_cfgs(JMarchConfig, JGradConfig, JRenderConfig))
+    tcfg = fused(_cfgs(MarchConfig, GradConfig, RenderConfig))
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    jfac = jmake_factory(jp, JDecoderConfig(**SMALL_KW), jcfg,
+                         march_params=jax.tree_util.tree_map(jnp.asarray, proxy),
+                         march_dcfg=JDecoderConfig(**SMALL_KW))
+    jsdf = jmake_precise_sdf(jp, JDecoderConfig(**SMALL_KW))
+    cam = JCamera.looking_at((0.0, 0.0, -2.0), focal=IMG * 1.2, img_hw=(IMG, IMG))
+    gt = jrender(jsdf, jnp.asarray(z0), cam, jcfg, jfac)
+    obs_d, obs_m = np.asarray(gt.depth), np.asarray(gt.mask)
+    pose = np.asarray(jcam.pose_from_camera(cam))
+
+    def objective(lib, out, zz, to):
+        return (10.0 * lib.depth_loss(out.depth, to(obs_d), to(obs_m), out.mask)
+                + lib.silhouette_loss(out.min_sdf, to(obs_m)) + 1e-4 * lib.latent_reg(zz))
+
+    def jloss(zz, pp):
+        out = jrender(jsdf, zz, jcam.camera_from_pose(pp, cam.K), jcfg, jfac)
+        return objective(JL, out, zz, jnp.asarray), out
+
+    (_, jout), jg = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(z), jnp.asarray(pose))
+    tp = params_from_numpy(params)
+    tfac = make_march_factory(tp, DecoderConfig(**SMALL_KW), tcfg,
+                              march_params=params_from_numpy(proxy),
+                              march_dcfg=DecoderConfig(**SMALL_KW))
+    zt = torch.tensor(z, requires_grad=True)
+    pt = torch.tensor(pose, requires_grad=True)
+    tout = render(make_precise_sdf(tp, DecoderConfig(**SMALL_KW)), zt,
+                  tcam.camera_from_pose(pt, torch.as_tensor(np.asarray(cam.K))), tcfg, tfac)
+    tg = torch.autograd.grad(objective(TL, tout, zt, torch.as_tensor), (zt, pt))
+    keys = ("depth", "mask", "normal", "min_sdf")
+    _assert_parity({k: np.asarray(getattr(jout, k)) for k in keys},
+                   {k: getattr(tout, k).detach().numpy() for k in keys})
+    for a, b in zip((g.numpy() for g in tg), (np.asarray(g) for g in jg)):
+        assert np.all(np.isfinite(a)) and np.linalg.norm(b) > 0
+        cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        assert cos >= 0.999 and rel <= 3e-2, (cos, rel)
 
 
 def test_slice_bench_fixture_full_width():
@@ -162,9 +232,10 @@ def test_sdf_renderer_and_plain_switch_agree():
 
 
 def test_unported_modes_raise():
-    """What is still unported raises NotImplementedError naming its
-    ROADMAP item; the polish demote's guard and the verify modes' guard
-    (polish does not compose with cert or probe) raise ValueError."""
+    """The polish demote's guard and the verify modes' guard (polish does
+    not compose with cert or probe) raise ValueError. (Every mode of the
+    JAX package is ported; fused_dd, the last one, is held to JAX in
+    test_fused_dd_matches_jax.)"""
     proxy, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"))
     z = torch.zeros(2, pcfg.latent_size)
     o = torch.zeros(1, 1, 3)
@@ -174,10 +245,6 @@ def test_unported_modes_raise():
             render_batched_c2f(proxy, pcfg, z[:1], o, v, (4, 4), MarchConfig(),
                                verify_hits="polish", **mode)
     cam = Camera.looking_at((0.0, 0.0, -2.5), focal=20.0, img_hw=(8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        render(make_precise_sdf(proxy, pcfg), z[0], cam,
-               RenderConfig(img_h=8, img_w=8, grad=GradConfig(mode="ift",
-                                                             fused_dd=True)))
     vh = MarchConfig(coarse_to_fine=True, proxy_verify_hits="polish")
     with pytest.raises(ValueError, match="polish_iters"):
         render(make_precise_sdf(proxy, pcfg), z[0], cam,
