@@ -54,8 +54,14 @@ and view renders against render_rays; then the batched polish on K3
 against its plain version, fused_dd against the K3 route, the counting
 sort against torch.sort, and phase 9's mesh raycast against the K1-grid
 render and preprocessed into both dataset layouts; every kernel of the
-ranks' legs must launch in every rank. Prints the timings, one JSON line of per-kernel results, the card's name
-and power limit, and last a JSON status line.
+ranks' legs must launch in every rank. Phase 13 runs the scheduling
+diagnostics (dist_renderer_tpu_torch.diag's diag_perf to diag_caps_ab)
+at the bench cell, F=8: render_batched_c2f's straggler telemetry
+(with_diag, which must change no bit of the render) and unverified proxy
+trace (proxy_verify=False), the cost of a march tile-step, the cap
+sweeps, each render held to its plain versions. Prints the timings, one
+JSON line of per-kernel results, the card's name and power limit, and
+last a JSON status line.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -1637,7 +1643,9 @@ def probes_phase(torch, dev):
     for r in rows:
         print(f"{r['id']:>4} {r['kernel'].__name__:<13} ms {r['ms']:.6f}  plain "
               f"{r['plain_ms']:.6f}  library {r['library_ms']}  bound "
-              f"{r['bound_ms']:.3e} ({r['bound_by']})  max|diff| {r['max_abs_err']:.3e}")
+              f"{r['bound_ms']:.3e} ({r['bound_by']})  max|diff| {r['max_abs_err']:.3e}"
+              + (f"  graph of 200: kernel {r['launch']['graph_us']:.3f} us, library "
+                 f"{r['library_launch']['graph_us']:.3f} us" if "launch" in r else ""))
     lc = res["diag_launch_cost"]
     for name, row in lc["table"].items():
         print(f"  launch {name:<14} host {row['host_us']:8.2f} us  graph "
@@ -2526,6 +2534,187 @@ def sharded_phase(torch, dev, smi, params, dcfg, latent, pparams, pcfg, cfg, key
     return out
 
 
+# Phase 13: the scheduling diagnostics (dist_renderer_tpu_torch/diag/: the
+# counterparts of the JAX package's diag_perf, diag_proxy, diag_proxy_ab,
+# diag_kernel, diag_proxy_cost, diag_binning, diag_round_caps,
+# diag_verify_caps, diag_queue and diag_caps_ab) at the bench cell: the
+# 8x512 fixture, its 4x256 proxy, 512^2, 50 steps, F=8 as the scripts
+# default, one timed repetition a configuration; diag_repack_scale and
+# sweep_batched (--rim-only) too. Each module holds every render it times
+# to its plain versions with the in-order product, bit for bit, on its
+# first frame, and each forced march launch on its first 4,096 rays (the
+# plain versions with the card's GEMM order moved 6.3% of a full-decoder
+# frame's hit depths by > 1e-5 at strides (16, 4): a stride-16 level of
+# 1,024 rays takes another cuBLAS order). The phase checks on top: with_diag
+# changes no bit of the F=8 rounds render or of the cert render; cert
+# demotes and probes band rays on tests/test_proxy.py's two option sets;
+# K2's cap schedules (diag_queue, diag_caps_ab) give the first schedule's
+# bits; the rounds scheduler's schedules move stops inside the
+# convergence ball (a function of the caps, as in the JAX package) and
+# keep hits on >= 0.999 of the rays; every kernel of the phase launched.
+F13 = 8
+
+
+def schedule_phase(torch, dev, smi, fixture, frames=F13, img=IMG):
+    """Phase 13 (the comment above); any failed check exits nonzero.
+    Returns its numbers for the JSON line."""
+    from dist_renderer_tpu_torch.diag import (
+        BenchCell, diag_binning, diag_caps_ab, diag_kernel, diag_perf, diag_proxy,
+        diag_proxy_ab, diag_proxy_cost, diag_queue, diag_repack_scale, diag_round_caps,
+        diag_verify_caps, differ, sweep_batched,
+    )
+    from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+    from dist_renderer_tpu_torch.ops.kernels.fused_march import sphere_trace_grid
+    from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
+    from dist_renderer_tpu_torch.ops.kernels.recompute import (
+        precise_bias_grads_call, precise_sdg_call,
+    )
+
+    print(f"\n== phase 13: the scheduling diagnostics at the bench cell, F={frames} x "
+          f"{img}x{img} ==", flush=True)
+    t_phase = time.perf_counter()
+    counters = (bm.sphere_trace_persistent, bm.sphere_trace_batched, queue_march,
+                sphere_trace_grid, precise_sdg_call, precise_bias_grads_call,
+                mlp_eval.point_eval_banked)
+    for c in counters:
+        c.launches = 0
+    cell = BenchCell(dev, frames, img, fixture=fixture)
+    res = {}
+    fields = ("depth", "hit", "min_sdf")
+    try:
+        # telemetry changes no bit; cert's counts on tests/test_proxy.py's options
+        same = {}
+        for name, kw in (("rounds", {}), ("cert", dict(verify_mode="cert"))):
+            plain_run = cell.render(**kw)
+            out, diag = cell.render(with_diag=True, **kw)
+            same[name] = {k: int(differ(getattr(plain_run, k), getattr(out, k)).sum())
+                          for k in fields}
+            check(not any(same[name].values()), f"phase 13: with_diag changed the {name} "
+                  f"render: {same[name]} rays differ")
+        counts = {}
+        for name, kw in (("demote", dict(verify_mode="cert", proxy_backoff=2e-4)),
+                         ("band_probe", dict(verify_mode="cert", verify_band="probe",
+                                             proxy_band=0.05))):
+            _, diag = cell.render(with_diag=True, **kw)
+            counts[name] = {k: (float(v) if k == "cert_frac" else int(v))
+                            for k, v in diag.items() if k.startswith("cert_")}
+        print(f"with_diag vs without, rays differing: {same}; cert counts: {counts}",
+              flush=True)
+        check(counts["demote"]["cert_demoted"] > 0, "phase 13: cert demoted no hit at "
+              "proxy_backoff 2e-4")
+        check(counts["band_probe"]["cert_band_probed"] > 0, "phase 13: cert probed no band "
+              "ray at proxy_band 0.05")
+        res["with_diag_rays_differing"], res["cert_counts"] = same, counts
+
+        t0 = time.perf_counter()
+        res["module_seconds"] = secs = {}
+        us = []
+        modules = (
+            ("diag_kernel", lambda: diag_kernel.measure(dev, reps=1, img=img,
+                                                        fixture=fixture)),
+            ("diag_proxy_cost", lambda: diag_proxy_cost.measure(dev, reps=1, img=img,
+                                                                fixture=fixture)),
+            ("diag_binning", lambda: diag_binning.measure(dev, cell, us[0])),
+            ("diag_perf", lambda: diag_perf.measure(dev, cell, reps=1)),
+            ("diag_proxy", lambda: diag_proxy.measure(dev, cell, "auto", reps=1)),
+            ("diag_proxy_ab", lambda: diag_proxy_ab.measure(
+                dev, cell, diag_proxy_ab.ALL_MODES + ",march-b1024", reps=1)),
+            ("diag_round_caps", lambda: diag_round_caps.measure(dev, cell)),
+            ("diag_verify_caps", lambda: diag_verify_caps.measure(dev, cell)),
+            ("diag_queue", lambda: diag_queue.measure(dev, cell, frames=(1, frames))),
+            ("diag_caps_ab", lambda: diag_caps_ab.measure(
+                dev, BenchCell(dev, 1, img, fixture=fixture), calls=2, reps=1)),
+            ("diag_repack_scale", lambda: diag_repack_scale.measure(
+                dev, BenchCell(dev, 8 * frames, img, fixture=fixture),
+                (frames, 4 * frames, 8 * frames), reps=1)),
+            ("sweep_batched", lambda: sweep_batched.measure(dev, cell, rim_only=True,
+                                                            reps=1)),
+        )
+        for name, run in modules:
+            t1 = time.perf_counter()
+            res[name] = run()
+            secs[name] = time.perf_counter() - t1
+            print(f"{name}: {secs[name]:.1f} s", flush=True)
+            if name == "diag_kernel":
+                us.append(diag_kernel.us_per_tile_step(res[name]))
+        res["modules_seconds"] = time.perf_counter() - t0
+    except AssertionError as e:
+        fail(f"phase 13: {e}")
+    launches = {c.__name__: c.launches for c in counters}
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    for name in sorted(k for k in res if k.startswith(("diag_", "sweep_"))):
+        print(json.dumps({name: res[name]}), flush=True)
+    kr = {(r["decoder"], r["kernel"], r["frames"]): r for r in res["diag_proxy_cost"]["rows"]
+          + res["diag_kernel"]["rows"]}
+    for (dec, k, f), r in sorted(kr.items()):
+        print(f"{k:<9} {dec:<5} F={f}: {r['us_per_tile_step']:.3f} us per tile-step "
+              f"({r['tile_steps']} tile-steps in {r['ms']:.3f} ms), dead tile "
+              f"{r['us_per_dead_tile']:.4f} us  [{smi}]")
+    ab = res["diag_proxy_ab"]
+    print("proxy ablations, ms/frame: " + ", ".join(
+        f"{m} {r['ms_per_frame']:.3f}" for m, r in ab["rows"].items())
+        + f"; verify stage {ab['verify_stage_ms_per_frame']:.3f}, proxy saving "
+        f"{ab['proxy_saving_ms_per_frame']:.3f}  [{smi}]")
+    stages = res["diag_proxy"].get("stages", {})
+    print("lane-steps / ray-steps per stage: " + ", ".join(
+        f"{k} {v['ratio']:.3f}" for k, v in stages.items() if v["ratio"]))
+    for name in ("diag_round_caps", "diag_verify_caps"):
+        rows = res[name]["rows"]
+        rows = next(iter(rows.values())) if isinstance(rows, dict) else rows
+        print(f"{name}: " + "; ".join(
+            f"{tuple(r['caps'])} {r['ms_per_frame']:.3f} ms/frame"
+            + (f" ({sum(r['rays_differing'].values())} ray-fields differ from the first, "
+               f"hits {r['hit_agree']:.5f})" if "rays_differing" in r else "")
+            for r in rows))
+    for f, q in res["diag_queue"].items():
+        print(f"diag_queue F={f}: rounds {q['rounds']['ms']:.3f} ms; queue " + "; ".join(
+            f"{tuple(r['caps'])} {r['ms']:.3f} ms" for r in q["queue"])
+            + " (every schedule the first's bits)")
+    print("diag_caps_ab: " + "; ".join(f"{tuple(r['caps'])} {r['fwd_ms']:.3f} ms"
+                                       for r in res["diag_caps_ab"]["rows"])
+          + " (every schedule the first's bits)")
+    print("diag_repack_scale, the re-pack's speedup (the same bits): " + ", ".join(
+        f"F={f} {r['speedup']:.3f}x" for f, r in res["diag_repack_scale"]["frames"].items()))
+    print("sweep_batched: " + "; ".join(
+        f"{r['config']} {r['ms_per_frame']:.3f} ms/frame, hits {r['hit_agree']:.5f}"
+        for r in res["sweep_batched"]["rows"]))
+    print(f"phase 13: {res['seconds']:.1f} s (modules {res['modules_seconds']:.1f} s); "
+          f"launches {launches}", flush=True)
+    for k, v in launches.items():
+        check(v > 0, f"phase 13 never launched {k}")
+    return res
+
+
+def schedule_summary(res):
+    """Phase 13's numbers for the timings line (every module's whole
+    result is printed as its own JSON line)."""
+    caps = lambda rows: [dict(caps=r["caps"], ms_per_frame=r["ms_per_frame"],
+                              rays_differing=r.get("rays_differing"),
+                              hit_agree=r.get("hit_agree")) for r in rows]
+    vc = res["diag_verify_caps"]["rows"]
+    return dict(
+        seconds=res["seconds"], launches=res["launches"],
+        with_diag_rays_differing=res["with_diag_rays_differing"],
+        cert_counts=res["cert_counts"],
+        us_per_tile_step={f"{r['kernel']} {r['decoder']} F={r['frames']}": r["us_per_tile_step"]
+                          for r in res["diag_kernel"]["rows"] + res["diag_proxy_cost"]["rows"]},
+        proxy_ab={m: r["ms_per_frame"] for m, r in res["diag_proxy_ab"]["rows"].items()},
+        verify_stage_ms_per_frame=res["diag_proxy_ab"]["verify_stage_ms_per_frame"],
+        proxy_saving_ms_per_frame=res["diag_proxy_ab"]["proxy_saving_ms_per_frame"],
+        stages=res["diag_proxy"].get("stages"),
+        round_caps=caps(res["diag_round_caps"]["rows"]),
+        verify_caps={bo: caps(rows) for bo, rows in vc.items()},
+        queue={f: dict(rounds_ms=q["rounds"]["ms"],
+                       queue_ms={str(r["caps"]): r["ms"] for r in q["queue"]})
+               for f, q in res["diag_queue"].items()},
+        caps_ab_ms={str(r["caps"]): r["fwd_ms"] for r in res["diag_caps_ab"]["rows"]},
+        repack_speedup={f: r["speedup"] for f, r in res["diag_repack_scale"]["frames"].items()},
+        sweep_ms_per_frame=[(r["config"], r["ms_per_frame"])
+                            for r in res["sweep_batched"]["rows"]])
+
+
 def main():
     import torch
 
@@ -3009,6 +3198,8 @@ def main():
     t11 = train_phase(torch, dev, smi, params, latent, cam)
     t12 = sharded_phase(torch, dev, smi, params, dcfg, latent, pparams, pcfg, cfg, key,
                         k9["mesh_arrays"])
+    t13 = schedule_phase(torch, dev, smi, (params, dcfg, latent, (pparams, pcfg),
+                                           (backoff, band)))
 
     src = "dist_renderer_tpu_torch/csrc/"
     kernels = [
@@ -3121,6 +3312,7 @@ def main():
                       "probes_seconds": probes["seconds"],
                       "train": t11,
                       "sharded": t12,
+                      "schedule": schedule_summary(t13),
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

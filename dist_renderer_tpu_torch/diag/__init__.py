@@ -1,17 +1,33 @@
-"""Card measurements: the counterparts of the JAX package's TPU probe
-scripts (``scripts/diag_launch_cost.py``, ``diag_launch2.py``,
-``diag_launch3.py``, ``diag_launch4.py``, ``diag_int8.py``). Each module
-runs on one CUDA card, ``python -m dist_renderer_tpu_torch.diag.<name>``,
-holds every probe kernel it launches to its plain version, and prints
-its measurements as one JSON line after the card's name and power
-limit. ``chip_smoke.py``'s phase 10 runs them all.
+"""Card measurements: the counterparts of the JAX package's diagnostic
+scripts. Each module runs on one CUDA card, ``python -m
+dist_renderer_tpu_torch.diag.<name>`` (``SystemExit`` without one), and
+prints the card's name and power limit, then its measurements as one
+JSON line.
+
+- The TPU probe scripts (``scripts/diag_launch_cost.py``,
+  ``diag_launch2.py``, ``diag_launch3.py``, ``diag_launch4.py``,
+  ``diag_int8.py``): each module holds every probe kernel it launches to
+  its plain version. ``chip_smoke.py``'s phase 10 runs them all.
+- The scheduling diagnostics (``scripts/diag_perf.py``, ``diag_proxy.py``,
+  ``diag_proxy_ab.py``, ``diag_kernel.py``, ``diag_proxy_cost.py``,
+  ``diag_binning.py``, ``diag_round_caps.py``, ``diag_verify_caps.py``,
+  ``diag_queue.py``, ``diag_caps_ab.py``): the batched render's phases,
+  straggler telemetry (``render_batched_c2f(..., with_diag=True)``), the
+  verify stage's cost (``proxy_verify=False``), the march kernels' cost
+  per tile-step and the cap sweeps, on the bench cell (``BenchCell``).
+  Each holds every render it times to the same render through the plain
+  versions (``use_kernel=False``) with the kernels' summation order
+  (``in_order``), bit for bit, on its first ``PLAIN_FRAMES`` frames. ``chip_smoke.py``'s phase 13
+  runs them all in one process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
+import statistics
 import subprocess
 from typing import Optional
 
@@ -19,7 +35,7 @@ import numpy as np
 import torch
 
 from dist_renderer_tpu_torch.utils.profiling import (
-    PEAK_BF16, bound_ms, graph_us, host_us, per_call_ms,
+    PEAK_BF16, bound_ms, graph_us, host_us, per_call_ms, timed,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -79,19 +95,25 @@ def emit(name: str, result: dict) -> None:
 
 def kernel_row(pid: str, kernel, source: str, replaces: str, max_abs_err: float,
                run, plain, library=None, nbytes: float = 0.0, ops: float = 0.0,
-               peak: float = PEAK_BF16, calls: int = 20) -> dict:
+               peak: float = PEAK_BF16, calls: int = 20, graphs: bool = False) -> dict:
     """One probe kernel's row: its id (P1-P24), the wrapper that launches
     it, its source and the TPU kernel it replaces (file:line), the largest
     |kernel - plain| of its check, and the device ms per call of the
     kernel (``run``), its plain version and, where one PyTorch call
     computes the same function, that call (eager, CUDA events), beside
-    the bound of the bytes and operations its function needs."""
+    the bound of the bytes and operations its function needs. graphs=True
+    (a row with a library call) adds the kernel's and the library call's
+    ``launch_row``: host us eager, device us inside a CUDA graph of 200,
+    where the host's cost of a launch drops out."""
     b_ms, b_by = bound_ms(nbytes, ops, peak)
-    return dict(id=pid, kernel=kernel, source=source, replaces=replaces,
-                max_abs_err=max_abs_err, ms=per_call_ms(run, calls),
-                plain_ms=per_call_ms(plain, calls),
-                library_ms=None if library is None else per_call_ms(library, calls),
-                bound_ms=b_ms, bound_by=b_by)
+    row = dict(id=pid, kernel=kernel, source=source, replaces=replaces,
+               max_abs_err=max_abs_err, ms=per_call_ms(run, calls),
+               plain_ms=per_call_ms(plain, calls),
+               library_ms=None if library is None else per_call_ms(library, calls),
+               bound_ms=b_ms, bound_by=b_by)
+    if graphs and library is not None:
+        row.update(launch=launch_row(run), library_launch=launch_row(library))
+    return row
 
 
 class Operands:
@@ -165,3 +187,241 @@ def scatter_ms(dev, calls: int = 10) -> dict:
         out[f"scatter [8,{qn}] -> [8,N]"] = per_call_ms(
             lambda: tgt.clone().index_copy_(1, qpix, qval), calls)
     return out
+
+
+# ---- the scheduling diagnostics' bench cell ----------------------------------
+
+# A render is held to the same render through the plain versions with
+# their products summed in k order (``in_order``, the kernels' order), as
+# chip_smoke.py's phase 8 does first: every ray's bits equal. (Against the
+# card's GEMM only agreement shares can hold, and they depend on the
+# shapes cuBLAS sees: the full decoder's stride-16 level of one 512^2
+# frame, 1,024 rays, moved 50,902 of 262,144 depths and 6.3% of the hits
+# by more than 1e-5 on an H100, where the stride-4 pyramid moved none.)
+PLAIN_FRAMES = 1     # frames of a render held to its plain versions
+TRACE_FIELDS = ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf", "steps",
+                "unresolved", "weak")
+
+
+def load_bench(dev, root: str = ROOT):
+    """bench.py's fixture on ``dev``: (params, dcfg, latent, (proxy, pcfg),
+    (proxy_backoff, proxy_band)). The 8x512 decoder and its latent come
+    from ``.bench_decoder.npz``, the 4x256 proxy from ``.bench_proxy.npz``
+    and its margins from the error report stored there
+    (``proxy_march_margins`` at eps 2e-3; 0.015 and 0.02 without one). A
+    missing file is fitted (1,500 steps) or distilled (6,000 steps, latent
+    jitter 0.002) on the card, as bench.py does, and written there."""
+    from dist_renderer_tpu_torch.config import DecoderConfig
+    from dist_renderer_tpu_torch.models.analytic import round_union, sphere_sdf, torus_sdf
+    from dist_renderer_tpu_torch.models.pretrain import get_or_fit_cached
+    from dist_renderer_tpu_torch.models.proxy import (
+        default_proxy_cfg, get_or_distill_cached, load_proxy_meta,
+        proxy_march_margins,
+    )
+
+    dcfg = DecoderConfig()
+    shape = round_union(torus_sdf(0.55, 0.18), sphere_sdf(0.35, (0.0, 0.25, 0.0)), 0.08)
+    params, latent = get_or_fit_cached(os.path.join(root, ".bench_decoder.npz"),
+                                       lambda p: shape(None, p), dcfg, steps=1500,
+                                       device=dev)
+    ppath = os.path.join(root, ".bench_proxy.npz")
+    proxy = get_or_distill_cached(ppath, params, dcfg, latent[None],
+                                  proxy_cfg=default_proxy_cfg(dcfg, width=256, depth=4),
+                                  steps=6000, latent_jitter=0.002)
+    meta = load_proxy_meta(ppath)
+    margins = proxy_march_margins(meta, 2e-3) if meta else (0.015, 0.02)
+    return params, dcfg, latent, proxy, margins
+
+
+def bench_camera(dev, img: int = 512):
+    """The scripts' pinhole camera at (0, 0, -2.5), focal 1.2 img: (camera,
+    origins [N, 3], dirs [N, 3])."""
+    from dist_renderer_tpu_torch.ops.camera import Camera, pixel_rays
+
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img),
+                            device=dev)
+    return (cam,) + tuple(pixel_rays(cam, img, img))
+
+
+def bench_latents(latent: torch.Tensor, frames: int, seed: int = 9) -> torch.Tensor:
+    """[frames, L]: the bench latent + 0.001 N(0, 1) each, drawn from a CPU
+    torch.Generator seeded with ``seed`` (the scripts' PRNGKey(9)); the
+    first f rows of any draw are the draw of f."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    noise = torch.randn((frames, latent.shape[0]), generator=gen)
+    return latent[None] + 0.001 * noise.to(latent.device)
+
+
+class BenchCell:
+    """The scripts' batched cell: the bench fixture, ``frames`` frames of
+    img^2 through one pinhole camera, latents from ``bench_latents``,
+    50 march steps at eps 2e-3 / 5e-4, c2f strides (16, 4) with 16 coarse
+    steps, the proxy and its margins; weights packed once. ``fixture``:
+    load_bench's tuple, if already loaded."""
+
+    def __init__(self, dev, frames: int = 8, img: int = 512, steps: int = 50,
+                 strides=(16, 4), coarse_steps: int = 16, seed: int = 9,
+                 fixture=None):
+        from dist_renderer_tpu_torch.config import MarchConfig
+        from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+
+        self.dev, self.frames, self.img = dev, frames, img
+        self.fixture = fixture or load_bench(dev)
+        (self.params, self.dcfg, self.latent, self.proxy,
+         (self.backoff, self.band)) = self.fixture
+        self.cam, self.origins, self.dirs = bench_camera(dev, img)
+        self.lats = bench_latents(self.latent, frames, seed)
+        self.strides, self.coarse_steps = tuple(strides), coarse_steps
+        self.march = MarchConfig(max_steps=steps, convergence_eps=2e-3, depth_eps=5e-4,
+                                 coarse_to_fine=True, c2f_strides=self.strides,
+                                 c2f_coarse_steps=coarse_steps)
+        self.packed = (bm.pack_shared(self.params, self.dcfg), bm.pack_shared(*self.proxy))
+
+    def render(self, f: Optional[int] = None, proxy: bool = True,
+               use_kernel: bool = True, march=None, **kw):
+        """render_batched_c2f of the first f frames (default all) on the
+        pinhole layout, at ``march`` (default the cell's); proxy=True
+        marches the proxy with its margins (kw overrides any argument)."""
+        from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+
+        f = self.frames if f is None else f
+        args = dict(strides=self.strides, coarse_steps=self.coarse_steps,
+                    shared_origin=True, packed=self.packed, use_kernel=use_kernel)
+        if proxy:
+            args.update(proxy=self.proxy, proxy_backoff=self.backoff,
+                        proxy_band=self.band)
+        args.update(kw)
+        with torch.no_grad():
+            return bm.render_batched_c2f(self.params, self.dcfg, self.lats[:f],
+                                         *self.rays(f), (self.img, self.img),
+                                         march or self.march, **args)
+
+    def rays(self, f: int):
+        """(origins [f, 1, 3], dirs [f, N, 3]) of the first f frames."""
+        return (self.origins[None, :1].expand(f, 1, 3),
+                self.dirs[None].expand(f, self.img * self.img, 3))
+
+    def timed_render(self, reps: int = 1, held: bool = True, **kw):
+        """(output, median device ms of ``reps`` renders after a warm-up,
+        CUDA events, and how it held to its plain versions): render(**kw),
+        its first PLAIN_FRAMES frames held to the same render through the
+        plain versions with the in-order product (``hold_to_plain``;
+        held=False: not held)."""
+        out, ms = time_ms(lambda: self.render(**kw), reps)
+        check = None
+        if held:
+            trace = out[0] if kw.get("with_diag") else out
+            pkw = {k: v for k, v in kw.items() if k not in ("f", "with_diag")}
+            if kw.get("scheduler") == "auto":   # the scheduler of the render's F
+                pkw["scheduler"] = "queue" if kw.get("f", self.frames) == 1 else "rounds"
+            with in_order():
+                plain = self.render(f=PLAIN_FRAMES, use_kernel=False, **pkw)
+            check = hold_to_plain(str(kw), trace, plain)
+        return out, ms, check
+
+
+def time_ms(fn, reps: int = 1):
+    """(fn()'s last output, median device ms of ``reps`` calls after one
+    warm-up call), CUDA events around each call."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        out, t = timed(fn)
+        times.append(t)
+    return out, statistics.median(times)
+
+
+def hold_to_plain(name: str, got, want, fields=TRACE_FIELDS) -> dict:
+    """Raise unless the kernels' render ``got`` (at least as many frames)
+    and the same render of its first frames through the plain versions
+    with the in-order product, ``want``, carry the same bits in every
+    field both have (render_batched_c2f's StageResult, or render()'s
+    output with fields depth, mask, min_sdf, normal). Returns the frames
+    held and the rays whose bits differ per field (all 0)."""
+    f = want.depth.shape[0]
+    diff = {}
+    for k in fields:
+        a, b = getattr(got, k, None), getattr(want, k, None)
+        if a is not None and b is not None:
+            diff[k] = int(differ(a[:f], b).sum())
+    if any(diff.values()):
+        raise AssertionError(f"{name}: the kernels' render differs from the plain "
+                             f"versions' with the in-order product: rays differing {diff}")
+    return dict(frames=f, rays_differing=diff)
+
+
+@contextlib.contextmanager
+def in_order():
+    """The plain versions' products summed in k order, the kernels' order
+    (decoder.dot_f32_in_order), inside the block: the plain versions then
+    give the march kernels' bits."""
+    from dist_renderer_tpu_torch.models.decoder import dot_f32_in_order
+    from dist_renderer_tpu_torch.ops.kernels import march_body, recompute
+
+    real = march_body.dot_f32, recompute.dot_f32
+    march_body.dot_f32 = recompute.dot_f32 = dot_f32_in_order
+    try:
+        yield
+    finally:
+        march_body.dot_f32, recompute.dot_f32 = real
+
+
+def differ(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Where two outputs' bits differ (NaN equals NaN)."""
+    if a.is_floating_point():
+        return (a != b) & ~(a.isnan() & b.isnan())
+    return a != b
+
+
+def summary(x) -> dict:
+    """Mean, p50, p90, max, share of zeros and sum of a tensor of counts."""
+    a = x.detach().flatten().double().cpu().numpy()
+    if a.size == 0:
+        return dict(n=0)
+    return dict(n=int(a.size), sum=float(a.sum()), mean=float(a.mean()),
+                p50=float(np.percentile(a, 50)), p90=float(np.percentile(a, 90)),
+                max=float(a.max()), zero_frac=float((a == 0).mean()))
+
+
+def residency(diag: dict) -> dict:
+    """Each residency of a with_diag render as tiles, tile-steps (its sum)
+    and lane-steps (64 a tile-step), beside its statistics."""
+    from dist_renderer_tpu_torch.ops.kernels.batched_march import MARCH_TILE
+
+    out = {}
+    for k, v in diag.items():
+        if k.endswith("_block_residency"):
+            s = summary(v)
+            s["lane_steps"] = s.get("sum", 0.0) * MARCH_TILE
+            out[k[:-len("_block_residency")]] = s
+    return out
+
+
+def stage_lanes(diag: dict, fine_ray_steps: int, verify_ray_steps=None) -> dict:
+    """Per stage of a with_diag render, the lane-steps its march launches
+    paid (64 a tile-step) against the active ray-steps it needed: each
+    coarse level (its ray steps), the fine stage's rounds (the render's
+    ``fine_ray_steps``) and the verify stage's rounds (``verify_ray_steps``,
+    when given). The ratio is what the tiles' stragglers cost."""
+    from dist_renderer_tpu_torch.ops.kernels.batched_march import MARCH_TILE
+
+    lanes = lambda pre: MARCH_TILE * sum(int(v.sum()) for k, v in diag.items()
+                                         if k.startswith(pre) and k.endswith("_block_residency"))
+    stages = {}
+    for k, v in diag.items():
+        if k.startswith("coarse") and k.endswith("_ray_steps"):
+            name = k[:-len("_ray_steps")]
+            stages[name] = (lanes(name + "_"), int(v.sum()))
+    stages["fine"] = (lanes("fine_r"), int(fine_ray_steps))
+    if verify_ray_steps is not None:
+        stages["verify"] = (lanes("verify_fine_r"), int(verify_ray_steps))
+    return {k: dict(lane_steps=a, ray_steps=b, ratio=a / b if b else None)
+            for k, (a, b) in stages.items()}
+
+
+def parser(doc: str):
+    """An argument parser whose description is the module's docstring."""
+    import argparse
+
+    return argparse.ArgumentParser(description=doc.split("\n\n")[0],
+                                   formatter_class=argparse.RawDescriptionHelpFormatter)

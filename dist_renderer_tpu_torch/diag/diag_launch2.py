@@ -87,7 +87,7 @@ def check(dev) -> list:
     check_equal("P7 (one torch add)", torch.add(z8, t8), pk.vec_while(t8))
     rows.append(kernel_row("P7", pk.vec_while, SRC_L, f"{TPU}:119", err,
                            lambda: pk.vec_while(t8), lambda: pk.vec_while_plain(t8),
-                           lambda: torch.add(z8, t8), nbytes=4 + 4 * 8 * 512))
+                           lambda: torch.add(z8, t8), nbytes=4 + 4 * 8 * 512, graphs=True))
     got = pk.f32dot(x, m)
     check_equal("P8 (one-hot)", got, pk.f32dot_plain(x, m))
     check_equal("P8 (the script's check)", got[:, :256], x[:, ::2])
@@ -96,7 +96,8 @@ def check(dev) -> list:
                            lambda: pk.f32dot(x, m), lambda: pk.f32dot_plain(x, m),
                            lambda: torch.matmul(x, m.T),
                            nbytes=x.nbytes + m.nbytes + 24 * 1024 * 4,
-                           ops=2 * 24 * 1024 * 512, peak=PEAK_FP32))
+                           ops=2 * 24 * 1024 * 512, peak=PEAK_FP32,
+                           graphs=True))
     got = pk.roll_lanes(xr, -512)
     err = check_equal("P9", got, pk.roll_lanes_plain(xr, -512))
     check_equal("P9 (the script's check)", got[:, :512], xr[:, 512:])
@@ -104,14 +105,16 @@ def check(dev) -> list:
     rows.append(kernel_row("P9", pk.roll_lanes, SRC_B, f"{TPU}:171", err,
                            lambda: pk.roll_lanes(xr, -512),
                            lambda: pk.roll_lanes_plain(xr, -512),
-                           lambda: torch.roll(xr, -512, 1), nbytes=2 * xr.nbytes))
+                           lambda: torch.roll(xr, -512, 1), nbytes=2 * xr.nbytes,
+                           graphs=True))
     got = pk.scan(xs)
     err = check_equal("P10", got, pk.scan_plain(xs))
     check_equal("P10 (the script's check)", got, torch.cumsum(xs, 1))
     check_equal("P10 (seeded)", pk.scan(gs), pk.scan_plain(gs))
     rows.append(kernel_row("P10", pk.scan, SRC_B, f"{TPU}:189", err,
                            lambda: pk.scan(xs), lambda: pk.scan_plain(xs),
-                           lambda: torch.cumsum(xs, 1), nbytes=2 * xs.nbytes))
+                           lambda: torch.cumsum(xs, 1), nbytes=2 * xs.nbytes,
+                           graphs=True))
     return rows
 
 

@@ -108,7 +108,7 @@ def check(dev) -> list:
     rows.append(kernel_row("P16", pk.scan, SRC_B, f"{TPU}:182", err, lambda: pk.scan(xs),
                            lambda: pk.tri_cumsum_plain(xs, tri),
                            lambda: torch.cumsum(xs, 1, dtype=torch.float32),
-                           nbytes=xs.nbytes + 512 * 4))
+                           nbytes=xs.nbytes + 512 * 4, graphs=True))
     d24, pos, surv = compaction_inputs(dev)
     got = pk.compact(d24, pos, surv)
     err = check_equal("P17", got, pk.compact_plain(d24, pos, surv))

@@ -76,11 +76,12 @@ def check(dev) -> list:
     rows = []
     err = check_equal("P18", pk.copy(x), pk.copy_plain(x))
     rows.append(kernel_row("P18", pk.copy, SRC_L, f"{TPU}:66", err, lambda: pk.copy(x),
-                           lambda: pk.copy_plain(x), lambda: x.clone(), nbytes=2 * x.nbytes))
+                           lambda: pk.copy_plain(x), lambda: x.clone(), nbytes=2 * x.nbytes,
+                           graphs=True))
     err = check_equal("P19", pk.add_one(x), pk.add_one_plain(x))
     rows.append(kernel_row("P19", pk.add_one, SRC_L, f"{TPU}:70", err,
                            lambda: pk.add_one(x), lambda: pk.add_one_plain(x),
-                           lambda: x + 1.0, nbytes=2 * x.nbytes))
+                           lambda: x + 1.0, nbytes=2 * x.nbytes, graphs=True))
     mm_bytes = 2 * x.nbytes + w.nbytes
     mm_ops = 2 * 8 * 512 * 512
     for pid, line, looped in (("P20", 74, False), ("P21", 80, True)):
@@ -94,7 +95,7 @@ def check(dev) -> list:
                                lambda lp=looped: pk.small_mm(x, w, lp),
                                lambda lp=looped: pk.small_mm_plain(x, w, lp),
                                lambda: _mm_library(x, w), nbytes=mm_bytes, ops=mm_ops,
-                               peak=PEAK_BF16))
+                               peak=PEAK_BF16, graphs=looped))
     check_equal("P21 (0 trips)", pk.small_mm(x, w, True, 0),
                 pk.small_mm_plain(x, w, True, 0))
     got = pk.compact(d24, pos, surv, int_pos=True)

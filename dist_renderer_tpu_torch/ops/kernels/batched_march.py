@@ -650,10 +650,14 @@ def fine_march_rounds(
     sort): return_anchor the depth of the min-SDF sample, return_steps
     the step counts, return_last the last SDF sample and the unresolved
     flag, return_unres the unresolved flag alone. diag: a dict that
-    receives each round's per-tile residency (the steps of each 64-ray
-    tile of K1 and K1-multi, ``march_tile_steps``); with it every round
-    marches the full width. persistent=False marches every round on
-    K1-multi instead of K1; use_kernel=False runs the plain version."""
+    receives each round's per-tile residency, ``fine_r{i}_block_residency``
+    (the steps of each 64-ray tile of the K1 or K1-multi launch, in its
+    row order, ``march_tile_steps``: not comparable in size with the JAX
+    package's 512-lane blocks). Telemetry leaves the widths as they are
+    (the JAX package marches the full width under diag, because its
+    prefix choice is traced): a round's residency covers the columns it
+    marched. persistent=False marches every round on K1-multi instead of
+    K1; use_kernel=False runs the plain version."""
     f, n = key.shape
     dev = key.device
     shared_origin = origins.shape[1] == 1
@@ -685,7 +689,7 @@ def fine_march_rounds(
     def fit(bucket: int, width: int, live: torch.Tensor) -> int:
         """The columns a round marches: the bucket, unless the live rays
         of some frame overflow it."""
-        if bucket >= width or diag is not None:
+        if bucket >= width:
             return width
         return width if int(live.sum(dim=1).max()) > bucket else bucket
 
@@ -780,6 +784,7 @@ def render_batched_c2f(
     strides: Tuple[int, ...] = (16, 4),
     round_caps: Tuple[int, ...] = (4, 12),
     shared_origin: bool = False,
+    with_diag: bool = False,
     live_frac: int = 3,
     return_anchor: bool = False,
     return_steps: bool = False,
@@ -792,6 +797,7 @@ def render_batched_c2f(
     proxy_backoff: float = 0.015,
     proxy_band: float = 0.02,
     proxy_block: Optional[int] = None,
+    proxy_verify: bool = True,
     proxy_band_w: float = 0.02,
     verify_mode: str = "march",
     verify_band: str = "march",
@@ -802,7 +808,7 @@ def render_batched_c2f(
     use_kernel: bool = True,
     packed=None,
     persistent: bool = True,
-) -> StageResult:
+):
     """Coarse-to-fine classified render of F frames (the JAX package's
     ``render_batched_c2f``): coarse levels (K1), classification
     (ops/c2f.py), the fine march, and with a proxy a full-decoder verify
@@ -832,7 +838,26 @@ def render_batched_c2f(
     hybrid). Demoted hits, promoted band rays and bucket overflow re-march
     seeded; certified and probed rays take 3 steps.
     verify_round_caps / verify_gen_caps: the verify stage's cap schedules
-    (default: round_caps / queue_caps).
+    (default: round_caps / queue_caps). proxy_verify=False skips the
+    verify stage and returns the proxy's trace, whose depth, hit mask and
+    margins carry the proxy's error: a cost-attribution option for the
+    diagnostics (its time against the verified render's is the verify
+    stage's cost), not a production mode.
+
+    with_diag=True returns (StageResult, diag), diag a dict of straggler
+    telemetry under the JAX package's keys, each a tensor on the render's
+    device (gathered with no wait for the card): per coarse level
+    ``coarse{stride}_block_residency`` and ``coarse{stride}_ray_steps``
+    ([F, rays of the level]); the plan ``plan_key``, ``plan_width``,
+    ``plan_seed`` ([F, N]); each rounds-scheduler round of the fine
+    stage ``fine_r{i}_block_residency`` (none on the queue, as in the JAX
+    package); under cert or probe ``cert_frac``, ``cert_demoted``,
+    ``cert_promoted``, ``cert_band_probed``; and of the verify stage
+    ``verify_fine_r{i}_block_residency`` and ``verify_key``. A residency
+    is the steps of each 64-row tile of the march launch in its row order
+    (``march_tile_steps``), what the card's tile pays: not comparable in
+    size with the JAX package's 512-lane blocks. Telemetry changes no
+    bit of the render.
 
     shared_origin marks a pinhole layout (one origin per frame); origins
     of shape [F, 1, 3] mean the same. warm: optional (depth, hitish,
@@ -885,11 +910,19 @@ def render_batched_c2f(
     coarse_march = dataclasses.replace(
         march, max_steps=min(march.max_steps, coarse_steps))
     o_full = origins.expand(f, n, 3)
+    diag = {} if with_diag else None
 
     def trace_level(o_l, v_l, seed, active, stride):
-        return batched_trace_padded(shared_m, bank_m, o_l, v_l, coarse_march,
-                                    seed, active, block, True, use_kernel,
-                                    persistent)
+        res = batched_trace_padded(shared_m, bank_m, o_l, v_l, coarse_march,
+                                   seed, active, block, True, use_kernel,
+                                   persistent)
+        if with_diag:
+            r_pad = res.steps_per_ray.shape[0] // f
+            diag[f"coarse{stride}_block_residency"] = march_tile_steps(
+                res.steps_per_ray)
+            diag[f"coarse{stride}_ray_steps"] = res.steps_per_ray.reshape(
+                f, r_pad)[:, :o_l.shape[1]]
+        return res
 
     if warm is not None:
         maps = warm_maps(*warm, img_hw, backoff)
@@ -904,26 +937,31 @@ def render_batched_c2f(
             torch.ones((f, n), dtype=torch.bool, device=dirs.device),
             block, True, use_kernel, persistent)
         r_pad = res.steps_per_ray.shape[0] // f
-        return StageResult(res.depth, res.hit, res.min_sdf, res.depth_at_min,
-                           res.last_sdf,
-                           res.steps_per_ray.reshape(f, r_pad)[:, :n],
-                           res.unresolved)
+        out = StageResult(res.depth, res.hit, res.min_sdf, res.depth_at_min,
+                          res.last_sdf,
+                          res.steps_per_ray.reshape(f, r_pad)[:, :n],
+                          res.unresolved)
+        return (out, diag) if with_diag else out
 
     key, init_depth, skip = plan_from_maps(maps)
+    if with_diag:
+        diag.update(plan_key=key, plan_width=maps.width.reshape(f, n),
+                    plan_seed=maps.seed.reshape(f, n))
     o_in = origins[:, :1] if shared_origin else origins
-    verify = proxy is not None
+    verify = proxy is not None and proxy_verify
 
-    def fine_stage(sh, bk, key_s, seed_s, want_anchor=False,
+    def fine_stage(sh, bk, key_s, seed_s, stage_diag=None, want_anchor=False,
                    want_steps=False, want_last=False, want_unres=False,
                    caps=None, qcaps=None) -> StageResult:
-        """One scheduler pass; the queue fills every field for free."""
+        """One scheduler pass; the queue fills every field for free and
+        records no telemetry."""
         if scheduler == "queue":
             return queue_march(sh, bk, o_in, dirs, key_s, seed_s, march,
                                gen_caps=qcaps or queue_caps,
                                use_kernel=use_kernel)
         return fine_march_rounds(
             sh, bk, o_in, dirs, key_s, seed_s, march, block=block,
-            round_caps=caps or round_caps,
+            round_caps=caps or round_caps, diag=stage_diag,
             live_frac=live_frac, return_anchor=want_anchor,
             return_steps=want_steps, return_last=want_last,
             return_unres=want_unres, difficulty_repack=difficulty_repack,
@@ -933,24 +971,39 @@ def render_batched_c2f(
     # min-SDF depth
     need_anchor = verify and (verify_band == "probe" or verify_hits == "polish-all")
     st = merge_skip(
-        fine_stage(shared_m, bank_m, key, init_depth,
+        fine_stage(shared_m, bank_m, key, init_depth, diag,
                    want_anchor=return_anchor or need_anchor,
                    want_steps=return_steps, want_last=return_last,
                    want_unres=verify),
         skip, maps.anchor.reshape(f, n), maps.margin.reshape(f, n))
     if not verify:
-        return st
+        return (st, diag) if with_diag else st
 
     cert = None
     if verify_mode == "cert" or verify_band == "probe":
         cert, key2, seed2 = cert_plan(
             shared, bank, o_in, dirs, st, skip, march, proxy_band, proxy_backoff,
-            proxy_band_w, verify_mode, verify_band == "probe", block, use_kernel)
+            proxy_band_w, verify_mode, verify_band == "probe", block, use_kernel,
+            diag)
     else:
         key2, seed2 = verify_plan(st, proxy_band, proxy_backoff, verify_hits, skip)
-    v2 = fine_stage(shared, bank, key2, seed2, want_anchor=return_anchor,
+    vdiag = {} if with_diag else None
+    v2 = fine_stage(shared, bank, key2, seed2, vdiag, want_anchor=return_anchor,
                     want_steps=return_steps, want_last=return_last,
                     caps=verify_round_caps, qcaps=verify_gen_caps)
+    if with_diag:
+        diag.update({f"verify_{k}": v for k, v in vdiag.items()})
+        diag["verify_key"] = key2
+    out = verify_merge(st, v2, key2, cert, verify_hits, proxy_band, skip)
+    return (out, diag) if with_diag else out
+
+
+def verify_merge(st: StageResult, v2: StageResult, key2, cert, verify_hits: str,
+                 proxy_band: float, skip) -> StageResult:
+    """The verify stage's result: the proxy stage's trace st with the
+    re-marched rays (key2 != 2) taken from v2, under cert or probe the
+    certification's values (merge_cert), and under "polish-all" its weak
+    candidates."""
     act2 = key2 != 2
     if cert is not None:
         return merge_cert(st, v2, act2, *cert)
@@ -977,7 +1030,8 @@ def render_batched_c2f(
 
 def cert_plan(shared, bank, o_in, dirs, st: StageResult, skip, march: MarchConfig,
               proxy_band: float, proxy_backoff: float, band_w: float,
-              verify_mode: str, probe_band: bool, block: int, use_kernel: bool):
+              verify_mode: str, probe_band: bool, block: int, use_kernel: bool,
+              diag: Optional[dict] = None):
     """The verify stage of verify_mode="cert" or verify_band="probe"
     (ops/cert.py on K6) -> ((CertResult, probed_miss), key2, seed2).
     verify_mode="march" with probe_band is the hybrid: an all-False
@@ -988,7 +1042,9 @@ def cert_plan(shared, bank, o_in, dirs, st: StageResult, skip, march: MarchConfi
     keep the entry-seeded re-march. Demoted and overflowing hits and
     promoted band rays re-march seeded (key 1); unresolved rays continue
     from their depth and band rays left to the march start at the sphere
-    entry (key 0); every other ray is skipped (key 2)."""
+    entry (key 0); every other ray is skipped (key 2). diag, if given,
+    receives the counts: cert_frac (certified share of the proxy's
+    resolved hits), cert_demoted, cert_promoted, cert_band_probed."""
     from dist_renderer_tpu_torch.ops import cert as cert_mod
 
     seeded = st.hit & ~st.unresolved
@@ -1015,6 +1071,11 @@ def cert_plan(shared, bank, o_in, dirs, st: StageResult, skip, march: MarchConfi
         probed_miss = torch.zeros_like(band)
         band_march = band
     refit = hit_over | demoted | cert.promoted
+    if diag is not None:
+        diag.update(
+            cert_frac=cert.certified.sum() / seeded.sum().clamp(min=1),
+            cert_demoted=demoted.sum(), cert_promoted=cert.promoted.sum(),
+            cert_band_probed=probed_miss.sum())
     key2 = torch.where(refit, 1, torch.where(st.unresolved | band_march, 0, 2))
     nan = torch.full_like(st.depth, float("nan"))
     seed2 = torch.where(cert.promoted, cert.band_tmin - proxy_backoff,

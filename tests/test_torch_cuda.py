@@ -1947,3 +1947,81 @@ def test_cuda_polish_batched_matches_plain(k_order):
     assert rc.precise_sdg_call.launches == n0 + 3 * frames
     for a, b in zip(*runs):
         assert _same(a, b)
+
+
+def _bench_frames(dev, img=128, frames=2):
+    """The bench decoder, its proxy with the margins of its error report,
+    and two frames of img^2 through the bench camera (latents jittered by
+    0.001 from seed 9)."""
+    from dist_renderer_tpu_torch.diag import bench_latents, load_bench
+
+    params, dcfg, latent, proxy, (backoff, band) = load_bench(dev, ROOT)
+    cam = Camera.looking_at((0.0, 0.0, -2.5), focal=img * 1.2, img_hw=(img, img), device=dev)
+    o, v = pixel_rays(cam, img, img)
+    lat = bench_latents(latent, frames)
+    return dict(params=params, dcfg=dcfg, latents=lat, origins=o[None, :1].expand(frames, 1, 3),
+                dirs=v[None].expand(frames, -1, 3), img_hw=(img, img), march=MARCH,
+                proxy=proxy, proxy_backoff=backoff, proxy_band=band, shared_origin=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [dict(), dict(scheduler="queue"), dict(verify_mode="cert"),
+                                  dict(verify_band="probe")])
+def test_cuda_with_diag_changes_no_bit(mode):
+    """render_batched_c2f with_diag=True on the kernels at 128^2: every
+    output field the bits of the render without telemetry (rounds, queue,
+    cert, hybrid); the residencies are march_tile_steps of K1's launches
+    and stay on the card."""
+    dev = _device()
+    kw = dict(_bench_frames(dev), return_anchor=True, return_steps=True, return_last=True,
+              **mode)
+    ref = bm.render_batched_c2f(**kw)
+    out, diag = bm.render_batched_c2f(with_diag=True, **kw)
+    torch.cuda.synchronize()
+    assert ref.hit.sum() > 1000
+    for name in ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf", "steps",
+                 "unresolved"):
+        assert _same(getattr(out, name), getattr(ref, name)), name
+    assert all(v.is_cuda for v in diag.values())
+    assert "verify_key" in diag and "plan_key" in diag
+    assert ("fine_r0_block_residency" in diag) == (mode.get("scheduler") != "queue")
+    if "verify_mode" in mode or "verify_band" in mode:
+        assert int(diag["cert_demoted"]) >= 0 and float(diag["cert_frac"]) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["queue_caps", "verify_gen_caps"])
+def test_cuda_queue_cap_sweep_keeps_every_bit(which):
+    """K2's generation-cap schedules (diag_queue's, and the verify
+    stage's) at 128^2: every schedule gives the first schedule's bits
+    (tests/test_torch_queue.py's contract: one uninterrupted march)."""
+    dev = _device()
+    kw = dict(_bench_frames(dev), scheduler="queue", return_anchor=True, return_steps=True)
+    n0 = qm.queue_march.launches
+    outs = [bm.render_batched_c2f(**{which: caps}, **kw)
+            for caps in ((6, 16), (4, 12), (8,), (6, 16, 32), (1, 2, 6, 16))]
+    torch.cuda.synchronize()
+    assert qm.queue_march.launches > n0
+    for out in outs[1:]:
+        for name in ("depth", "hit", "min_sdf", "depth_at_min"):
+            assert _same(getattr(out, name), getattr(outs[0], name)), name
+
+
+@pytest.mark.gpu
+def test_cuda_round_cap_sweep_matches_plain(k_order):
+    """The rounds scheduler's cap schedules (diag_round_caps) at 64^2 (the
+    in-order product is a loop over k): each schedule's kernel render
+    equals its plain version with the kernels' summation order bit for
+    bit; a schedule moves where a ray stops (results are a function of
+    the caps, as in the JAX package) but keeps its hit on >= 0.999 of the
+    rays."""
+    dev = _device()
+    kw = dict(_bench_frames(dev, img=64), scheduler="rounds")
+    outs = []
+    for caps in ((4, 12), (2, 6, 18)):
+        k, p = (bm.render_batched_c2f(round_caps=caps, use_kernel=u, **kw)
+                for u in (True, False))
+        for name in ("depth", "hit", "min_sdf"):
+            assert _same(getattr(k, name), getattr(p, name)), (caps, name)
+        outs.append(k)
+    assert (outs[0].hit == outs[1].hit).float().mean().item() >= 0.999
