@@ -1604,6 +1604,12 @@ DC_STEPS, MV_STEPS = 8, 10
 DC_CHAMFER_MAX = 0.5
 
 
+# The first versions of the redesigned probe kernels: device us per launch
+# in a CUDA graph of 200 (PERF.md's P rows: P8 and P21 beside the library
+# call, P20 the launch table's), NVIDIA H100 80GB HBM3, 700.00 W
+PARENT_GRAPH_US = {"P8": 38.99, "P20": 13.94, "P21": 19.76}
+
+
 def probes_phase(torch, dev):
     """Phase 10: the TPU probe scripts' kernels (P1-P24), each held to its
     plain version at the scripts' shapes by the diag modules' checks
@@ -1645,7 +1651,9 @@ def probes_phase(torch, dev):
               f"{r['plain_ms']:.6f}  library {r['library_ms']}  bound "
               f"{r['bound_ms']:.3e} ({r['bound_by']})  max|diff| {r['max_abs_err']:.3e}"
               + (f"  graph of 200: kernel {r['launch']['graph_us']:.3f} us, library "
-                 f"{r['library_launch']['graph_us']:.3f} us" if "launch" in r else ""))
+                 f"{r['library_launch']['graph_us']:.3f} us" if "launch" in r else "")
+              + (f" (first version {PARENT_GRAPH_US[r['id']]:.2f} us)"
+                 if r["id"] in PARENT_GRAPH_US else ""))
     lc = res["diag_launch_cost"]
     for name, row in lc["table"].items():
         print(f"  launch {name:<14} host {row['host_us']:8.2f} us  graph "
@@ -1657,6 +1665,9 @@ def probes_phase(torch, dev):
           f"int8 speedup {chain['int8_speedup']:.2f}x; launches {launches}")
     res["kernels"] = [{k: v for k, v in r.items() if k not in ("kernel", "source",
                                                               "replaces")} for r in rows]
+    for r in res["kernels"]:
+        if r["id"] in PARENT_GRAPH_US:
+            r["first_version_graph_us"] = PARENT_GRAPH_US[r["id"]]
     res["seconds"] = time.perf_counter() - t0
     print(json.dumps({"probes": res}), flush=True)
     return rows, launches, res

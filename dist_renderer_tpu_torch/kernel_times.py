@@ -32,8 +32,14 @@ Inputs (the committed bench fixture; seeded):
     not where the points lie, up to its near ties. Seeded unit directions
     (K3) and cotangents (K4); K3 (b) and K4 (b) on K5's 262,144 points
     (the lazy margin's width: its backward runs K3, then K4, on every
-    anchor), K4 (c) with 3 seed rows and the xyz gradient.
-Each: CUDA events around the wrapper, median of 3 after a warm-up
+    anchor), K4 (c) with 3 seed rows and the xyz gradient;
+  - the probes P8 (f32dot, diag_launch2's [24, 512] x [1024, 512]^T),
+    P20 and P21 (small_mm plain and looped one trip, diag_launch4's
+    [8, 512] x [512, 512]), and "P8 library", "P20 library" (the PyTorch
+    call computing each function: ``torch.matmul``, ``torch.mm(...,
+    out_dtype=float32)``): a launch's device time inside a CUDA graph of
+    200 (``graph_us``), in ms.
+Each other: CUDA events around the wrapper, median of 3 after a warm-up
 (``utils/profiling.py``'s ``cuda_ms``, imported from the tree timed: a
 ``--root`` tree needs that module).
 ``--only K3,K4`` times just the entries whose names start so (K3 and
@@ -79,7 +85,7 @@ def main(argv=None) -> int:
     from dist_renderer_tpu_torch.ops.kernels import recompute as rc
     from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
     from dist_renderer_tpu_torch.profile_render import batched_setup, bench_setup
-    from dist_renderer_tpu_torch.utils.profiling import cuda_ms
+    from dist_renderer_tpu_torch.utils.profiling import cuda_ms, graph_us
 
     import dist_renderer_tpu_torch as pkg
     if not os.path.abspath(pkg.__file__).startswith(root):
@@ -91,6 +97,25 @@ def main(argv=None) -> int:
                          text=True).stdout.strip().splitlines()[0]
     times = {}
     with torch.no_grad():
+        if want("P"):
+            from dist_renderer_tpu_torch.diag import diag_launch2, diag_launch4
+            from dist_renderer_tpu_torch.ops.kernels import probes
+
+            x, m = diag_launch2.script_inputs(dev)[:2]
+            xm, w = diag_launch4.mm_inputs(dev)
+            graphed = {
+                "P8": lambda: probes.f32dot(x, m),
+                "P8 library": lambda: torch.matmul(x, m.T),
+                "P20": lambda: probes.small_mm(xm, w),
+                "P21": lambda: probes.small_mm(xm, w, True),
+                "P20 library": lambda: torch.mm(xm.to(torch.bfloat16), w,
+                                                out_dtype=torch.float32),
+            }
+            for name, fn in graphed.items():
+                if want(name):
+                    times[name] = graph_us(fn) / 1e3
+        if all(o.startswith("P") for o in only):
+            return _report(times, root, smi, args.out)
         params, latent = load_params_npz(os.path.join(root, ".bench_decoder.npz"), dev)
         dcfg = DecoderConfig()
         packed = fm.pack_folded(fold_latent(params, latent, dcfg), dcfg)

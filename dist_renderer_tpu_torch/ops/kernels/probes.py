@@ -269,8 +269,13 @@ def small_mm(x: torch.Tensor, w: torch.Tensor, looped: bool = False,
     """P20 (diag_launch4.py's k_mm): x [M, K] fp32 rounded to bf16 times w
     [K, N] bf16, fp32 sums, on mma.sync. looped=True is P21
     (k_mm_in_while): the product inside a while loop of ``trips`` trips
-    (the TPU kernel's one), zeros after none. The tensor cores sum in
-    another order than the plain version's fp32 GEMM."""
+    (the TPU kernel's one), zeros after none. The kernel computes out^T =
+    w^T x^T, a block per 16 columns of N with w's slice and x (rounded
+    once) staged in shared memory, K split over 8 warps whose partials
+    are summed in a fixed order (the same bits every launch, P20 and P21
+    alike); the looped form repeats only the MMAs. The tensor cores sum
+    in another order than the plain version's fp32 GEMM. x and w must
+    start on 16-byte boundaries (the kernel's 16-byte loads)."""
     if not _cuda(x, w):
         return small_mm_plain(x, w, looped, trips)
     _check(x, torch.float32, "x")
@@ -278,6 +283,8 @@ def small_mm(x: torch.Tensor, w: torch.Tensor, looped: bool = False,
     m, k = x.shape
     if w.shape[0] != k or k % 16 or w.shape[1] % 8:
         raise ValueError("small_mm takes x [M, K], w [K, N] with K % 16 == 0, N % 8 == 0")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("small_mm takes x and w starting on 16-byte boundaries")
     out = torch.empty((m, w.shape[1]), dtype=torch.float32, device=x.device)
     _call("drt_probe_small_mm", x, build.ptr(x), build.ptr(w), build.ptr(out), m, k,
           w.shape[1], int(looped), trips)
@@ -338,7 +345,12 @@ def f32dot_plain(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 def f32dot(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """P8 (diag_launch2.py's f32dot_kernel): x [R, K] times m [S, K]
-    transposed, fp32 on CUDA cores, each sum over k in order (R <= 32)."""
+    transposed, fp32 on CUDA cores (R <= 32): each output one fmaf chain
+    over k in order, so two launches give the same bits. A block per 8
+    columns stages its rows of m and all of x in shared memory (16-byte
+    cp.async groups in flight together; 4-byte copies when K % 4 != 0 or
+    a pointer is not 16-byte aligned), each thread two outputs of one
+    row."""
     if not _cuda(x, m):
         return f32dot_plain(x, m)
     _check(x, torch.float32, "x")

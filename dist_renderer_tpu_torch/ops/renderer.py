@@ -687,19 +687,22 @@ class SDFRenderer:
     constructed from a decoder + intrinsics + image size; ``render`` takes
     (latent, R, T) and passes gradients to those that require grad.
 
-    ``device`` (default: the decoder weights' device, else the CPU) is
-    where the camera, the latent and every render live; intrinsics, poses
-    and latents may come as numpy arrays or tensors on any device.
-    use_kernel=False runs every kernel's plain version."""
+    ``device`` (default: the decoder weights' device; for an analytic
+    ``sdf_fn`` without weights, the current CUDA card, raising without
+    one unless given device="cpu") is where the camera, the latent and
+    every render live; intrinsics, poses and latents may come as numpy
+    arrays or tensors on any device. use_kernel=False runs every
+    kernel's plain version."""
 
     def __init__(self, decoder_params, intrinsic, img_hw: Tuple[int, int] = (256, 256),
                  decoder_cfg: DecoderConfig = DecoderConfig(),
                  cfg: Optional[RenderConfig] = None, sdf_fn=None,
                  device=None, use_kernel: bool = True):
+        from dist_renderer_tpu_torch.eval.mesh import default_device
         from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
 
         if device is None:
-            device = ("cpu" if decoder_params is None
+            device = (default_device() if decoder_params is None
                       else decoder_params["layers"][0]["w"].device)
         self.device = torch.device(device)
         self.K = self._tensor(intrinsic)

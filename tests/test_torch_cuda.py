@@ -866,6 +866,21 @@ def test_cuda_rounds_match_plain(seeded, k_order):
 
 
 @pytest.mark.gpu
+def test_cuda_analytic_renderer_takes_the_card():
+    """SDFRenderer with an analytic sdf_fn, no weights and no device
+    renders on the current card, as eval's entry points do."""
+    from dist_renderer_tpu_torch.models.analytic import latent_sphere_sdf
+
+    _device()
+    cam = Camera.looking_at((0.0, 0.0, -2.0), focal=20.0, img_hw=(16, 16))
+    r = SDFRenderer(None, cam.K, img_hw=(16, 16), sdf_fn=latent_sphere_sdf(),
+                    cfg=RenderConfig(march=MarchConfig(max_steps=32)))
+    assert r.device.type == "cuda"
+    depth = r.render_depth(np.array([0.5], np.float32), cam.R, cam.T)
+    assert depth.device.type == "cuda" and torch.isfinite(depth).any()
+
+
+@pytest.mark.gpu
 def test_cuda_sdf_renderer_grid_path_matches_plain(k_order):
     """SDFRenderer with use_pallas and no coarse-to-fine traces through
     the rounds driver on K1-grid; its render and the (latent, R, T)
@@ -1723,6 +1738,77 @@ def test_cuda_building_blocks_on_seeded_inputs():
                            pk.dma_loop_plain(t, rays, dflt.clone()))
 
 
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous tensor starting 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 24, 32])
+@pytest.mark.parametrize("k", [1, 100, 512])
+def test_cuda_f32dot_edges_of_its_tiling(rows, k):
+    """f32dot at the edges of its tiling (a block per 8 columns, 128-deep
+    copy groups, 16-byte or 4-byte copies): within diag_launch2's bar of
+    the plain version on seeded input, bit for bit on a one-hot m (each
+    output one exact product), and the same bits from two launches and
+    through the 4-byte copies of a misaligned x."""
+    from dist_renderer_tpu_torch.diag.diag_launch2 import DOT_BAR
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    rng = np.random.default_rng(100 * rows + k)
+    x = torch.from_numpy(rng.uniform(-1, 1, (rows, k)).astype(np.float32)).to(dev)
+    for s in (8, 300, 1024, 1030):
+        m = torch.from_numpy(rng.uniform(-1, 1, (s, k)).astype(np.float32)).to(dev)
+        got = pk.f32dot(x, m)
+        assert got.shape == (rows, s)
+        assert (got - pk.f32dot_plain(x, m)).abs().max().item() <= DOT_BAR
+        assert torch.equal(pk.f32dot(x, m), got)
+        assert torch.equal(pk.f32dot(_misaligned(x), m), got)
+        pick = torch.from_numpy(rng.integers(0, k, s)).to(dev)
+        hot = torch.nn.functional.one_hot(pick, k).to(torch.float32)
+        assert torch.equal(pk.f32dot(x, hot), pk.f32dot_plain(x, hot))
+        assert torch.equal(pk.f32dot(x, hot), x[:, pick])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 24, 40])
+@pytest.mark.parametrize("k", [16, 528])
+def test_cuda_small_mm_edges_of_its_tiling(m, k):
+    """small_mm at the edges of its tiling (16 columns a block, the last
+    one half empty at N = 264; rows in chunks of 32, padded to 8; K in
+    chunks of 512 split over 8 warps) and its loop at 0, 1 and 3 trips:
+    within diag_launch4's bar of the plain version on seeded input, bit
+    for bit on ones (every sum exact), and the same bits from every launch,
+    looped or not."""
+    from dist_renderer_tpu_torch.diag.diag_launch4 import MM_BAR
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    rng = np.random.default_rng(1000 * m + k)
+    x = torch.from_numpy(rng.uniform(-1, 1, (m, k)).astype(np.float32)).to(dev)
+    for n in (8, 264, 512):
+        w = torch.from_numpy(rng.uniform(-1, 1, (k, n)).astype(np.float32))
+        w = w.to(torch.bfloat16).to(dev)
+        ones_x = torch.ones((m, k), dtype=torch.float32, device=dev)
+        ones_w = torch.ones((k, n), dtype=torch.bfloat16, device=dev)
+        got = pk.small_mm(x, w)
+        assert got.shape == (m, n)
+        assert (got - pk.small_mm_plain(x, w)).abs().max().item() <= MM_BAR
+        assert torch.equal(pk.small_mm(ones_x, ones_w), pk.small_mm_plain(ones_x, ones_w))
+        assert torch.equal(pk.small_mm(x, w), got)
+        for trips in (0, 1, 3):
+            want = torch.zeros_like(got) if trips == 0 else got
+            assert torch.equal(pk.small_mm(x, w, True, trips), want)
+            assert torch.equal(pk.small_mm(ones_x, ones_w, True, trips),
+                               pk.small_mm_plain(ones_x, ones_w, True, trips))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("width", [128, 256])
 def test_cuda_mlp_chains_match_plain(width):
@@ -1746,7 +1832,7 @@ def test_cuda_mlp_chains_match_plain(width):
 def test_cuda_graph_replay_of_probes_equals_eager():
     """A CUDA graph of the port's ctypes launches replays them: an aliased
     empty kernel leaves its operand as it was, and a graph of small_mm
-    gives eager's bits."""
+    (plain and looped) and f32dot gives eager's bits."""
     from dist_renderer_tpu_torch.ops.kernels import probes as pk
     from dist_renderer_tpu_torch.utils.profiling import capture
 
@@ -1754,16 +1840,20 @@ def test_cuda_graph_replay_of_probes_equals_eager():
     g = torch.Generator().manual_seed(7)
     x = (torch.rand((8, 512), generator=g) * 2 - 1).to(dev)
     w = (torch.rand((512, 512), generator=g) * 2 - 1).to(torch.bfloat16).to(dev)
+    xd = (torch.rand((24, 512), generator=g) * 2 - 1).to(dev)
+    md = (torch.rand((1024, 512), generator=g) * 2 - 1).to(dev)
     keep = x.clone()
-    eager = pk.small_mm(x, w)
+    eager = (pk.small_mm(x, w), pk.small_mm(x, w, True), pk.f32dot(xd, md))
     outs = []
-    graph = capture(lambda: outs.append((pk.empty(x, aliased=True), pk.small_mm(x, w))), 3)
+    graph = capture(lambda: outs.append((pk.empty(x, aliased=True), pk.small_mm(x, w),
+                                         pk.small_mm(x, w, True), pk.f32dot(xd, md))), 3)
     graph.replay()
     torch.cuda.synchronize()
-    assert all(e is x for e, _ in outs[-3:])
+    assert all(o[0] is x for o in outs[-3:])
     assert torch.equal(x, keep)
-    for _, mm in outs[-3:]:
-        assert torch.equal(mm, eager)
+    for o in outs[-3:]:
+        for got, want in zip(o[1:], eager):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -1777,6 +1867,13 @@ def test_cuda_probe_wrappers_reject_bad_inputs():
         pk.copy(x.double())
     with pytest.raises(ValueError):
         pk.small_mm(x, torch.zeros((512, 512), device=dev))  # fp32 weights
+    w = torch.zeros((512, 512), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        pk.small_mm(_misaligned(x), w)  # the kernel's 16-byte loads
+    with pytest.raises(ValueError):
+        pk.small_mm(x, _misaligned(w))
+    with pytest.raises(ValueError):
+        pk.f32dot(torch.zeros((33, 512), device=dev), torch.zeros((8, 512), device=dev))
     with pytest.raises(ValueError):
         pk.scan(torch.zeros((1, 2048), device=dev))
     with pytest.raises(ValueError):

@@ -73,6 +73,20 @@ def test_default_device_needs_a_card_or_the_cpu_named(monkeypatch):
     assert mesh.sdf_grid(fn, resolution=4, device="cpu").shape == (4, 4, 4)
 
 
+def test_analytic_renderer_needs_a_card_or_the_cpu_named(monkeypatch):
+    """SDFRenderer with an analytic sdf_fn and no decoder weights takes the
+    card as eval's entry points do: without one it raises unless the
+    caller names the CPU (device="cpu"), and then renders there."""
+    cam = Camera.looking_at((0.0, 0.0, -2.0), focal=20.0, img_hw=(8, 8))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device="):
+        SDFRenderer(None, cam.K, img_hw=(8, 8), sdf_fn=analytic.latent_sphere_sdf())
+    r = SDFRenderer(None, cam.K, img_hw=(8, 8), sdf_fn=analytic.latent_sphere_sdf(),
+                    cfg=RenderConfig(march=MarchConfig(max_steps=16)), device="cpu")
+    assert r.device == CPU
+    assert r.render_depth(torch.tensor([0.5]), cam.R, cam.T).device == CPU
+
+
 def test_marching_tetrahedra_matches_jax():
     """The same numpy grid gives the same vertices and faces, in numpy and
     through the native kernels where they load (the same library)."""
@@ -208,7 +222,7 @@ def test_render_color_rays_matches_jax():
     assert np.quantile(cerr, 0.95) <= 1e-3
 
     r = SDFRenderer(None, cam.K, img_hw=(16, 16), sdf_fn=analytic.latent_sphere_sdf(),
-                    cfg=cfg)
+                    cfg=cfg, device="cpu")
     out2, img = SDFRendererColor(r, color_fn).render_color(
         torch.tensor([0.5]), torch.zeros(4), cam.R, cam.T)
     assert img.shape == (16, 16, 3)
@@ -224,7 +238,7 @@ def test_color_vjp_gradient_reaches_the_geometry():
     params = params_from_numpy(jp)
     cfg = RenderConfig(img_h=16, img_w=16, march=MarchConfig(max_steps=40))
     r = SDFRenderer(None, cam.K, img_hw=(16, 16), sdf_fn=analytic.latent_sphere_sdf(),
-                    cfg=cfg)
+                    cfg=cfg, device="cpu")
 
     def grad_r(color_fn):
         z = torch.tensor([0.5], requires_grad=True)

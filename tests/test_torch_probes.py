@@ -614,3 +614,13 @@ def test_noop_probe_check_fails_a_kernel_that_writes(fault):
     plain = lambda o: pk.empty_plain(o.x8, fault != "gives another shape")
     with pytest.raises(AssertionError):
         check_probe("faulty", kernel, plain, o, written=fault != "gives another shape")
+
+
+def test_f32dot_designs_needs_a_card(monkeypatch):
+    """The f32dot design comparison measures the card: without one it
+    raises SystemExit before it builds anything."""
+    from dist_renderer_tpu_torch.diag import f32dot_designs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        f32dot_designs.main([])
