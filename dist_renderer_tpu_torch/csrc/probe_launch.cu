@@ -17,13 +17,28 @@
 // staged in shared memory; a DMA is a cp.async.bulk (TMA) copy completing
 // on an mbarrier.
 //
-// Bound: none of these do work but P15's 48 KB copy and P18/P19's 16 KB;
-// the time is the launch's fixed cost. Design: one block (the TPU's
-// grid=(1,)), loops warp-uniform.
+// Bound: none of these do work but P15's 48 KB copy and P18/P19's 32 KB
+// (16 KB read, 16 KB written at [8, 512]: 0.0098 us at 3.35 TB/s); the
+// time is the launch's fixed cost. Design: one block (the TPU's
+// grid=(1,)), loops warp-uniform, but for P18 and P19, which fill a grid:
+// their first version, one block of 256 threads, ran a 16-trip loop
+// whose every trip waited for its 4-byte load before its store and the
+// next load (the loop's stride is blockDim.x, so the compiler does not
+// unroll it, __restrict__ or not): ~3.6 us in a CUDA graph where an
+// empty kernel runs ~1.0. Now each thread moves one 16-byte vector a
+// trip, on a grid sized to the data: STREAM_THREADS vectors a block, at
+// most STREAM_MAX_BLOCKS blocks (8 of 256 threads an SM) striding over
+// the rest. At [8, 512] that is 4 blocks of 256 threads, one round trip
+// each: ~1.2 us, the fastest of the grids diag/copy_designs.cu times
+// (1 x 1024, 8 x 128, 16 x 64 threads; 1 x 256 and 2 x 128 at 4 vectors
+// a thread, all 4 loads before the stores). At the
+// probe's size the launch and one round trip are the bound: the bytes'
+// share of the time is below 1% whatever the grid.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace drt {
 namespace pr {
@@ -208,13 +223,53 @@ __global__ void dma_loop_kernel(const int* trips, const float* rays, float* out,
   }
 }
 
-// P18 (k_copy), P19 (k_add): n fp32 values.
-__global__ void copy_kernel(const float* x, float* out, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = x[i];
+// P18 (k_copy), P19 (k_add): out = x, out = x + 1 over n fp32 values,
+// one body. A thread takes one unit a trip (a float4 when VEC, else a
+// float), striding over the grid. The copy moves bits (no arithmetic:
+// -0.0, NaN payloads and denormals pass unchanged). VEC needs x and out
+// on 16-byte boundaries; its n % 4 tail is one scalar each for block 0's
+// first threads.
+constexpr int STREAM_THREADS = 256, STREAM_MAX_BLOCKS = 132 * 8;
+
+template <bool ADD>
+__device__ __forceinline__ float bump(float v) {
+  return ADD ? v + 1.f : v;
 }
 
-__global__ void add_one_kernel(const float* x, float* out, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = x[i] + 1.f;
+template <bool ADD>
+__device__ __forceinline__ float4 bump(float4 v) {
+  return ADD ? make_float4(v.x + 1.f, v.y + 1.f, v.z + 1.f, v.w + 1.f) : v;
+}
+
+template <bool ADD, bool VEC>
+__global__ void stream_kernel(const float* __restrict__ x, float* __restrict__ out,
+                              long long n) {
+  using T = typename std::conditional<VEC, float4, float>::type;
+  const T* __restrict__ xs = reinterpret_cast<const T*>(x);
+  T* __restrict__ os = reinterpret_cast<T*>(out);
+  const long long units = VEC ? n / 4 : n;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < units;
+       i += (long long)gridDim.x * blockDim.x)
+    os[i] = bump<ADD>(__ldg(xs + i));
+  if (VEC && blockIdx.x == 0 && threadIdx.x < n % 4) {
+    const long long i = n - n % 4 + threadIdx.x;
+    out[i] = bump<ADD>(__ldg(x + i));
+  }
+}
+
+// The launch the port makes: the vector body when both pointers are
+// 16-byte aligned, else the scalar one; nothing for n <= 0.
+template <bool ADD>
+cudaError_t launch_stream(const float* x, float* out, long long n, cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  const bool vec = (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
+  const long long want = ((vec ? n / 4 : n) + STREAM_THREADS - 1) / STREAM_THREADS;
+  const int blocks = (int)(want < 1 ? 1 : want < STREAM_MAX_BLOCKS ? want : STREAM_MAX_BLOCKS);
+  if (vec)
+    stream_kernel<ADD, true><<<blocks, STREAM_THREADS, 0, stream>>>(x, out, n);
+  else
+    stream_kernel<ADD, false><<<blocks, STREAM_THREADS, 0, stream>>>(x, out, n);
+  return cudaGetLastError();
 }
 
 template <typename K>
@@ -229,8 +284,8 @@ inline cudaError_t opt_in(K kernel, int smem_bytes) {
 
 using namespace drt::pr;
 
-// Every entry launches one block on the caller's stream and returns
-// cudaGetLastError().
+// Every entry launches on the caller's stream (one block, but for
+// drt_probe_copy and drt_probe_add_one) and returns cudaGetLastError().
 
 extern "C" int drt_probe_empty(const float* in, float* out, void* stream) {
   empty_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(in, out);
@@ -289,12 +344,11 @@ extern "C" int drt_probe_dma_loop(const int* trips, const float* rays, float* ou
   return (int)cudaGetLastError();
 }
 
-extern "C" int drt_probe_copy(const float* x, float* out, int n, void* stream) {
-  copy_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(x, out, n);
-  return (int)cudaGetLastError();
+// A 64-bit count; x and out must not overlap. n <= 0 launches nothing.
+extern "C" int drt_probe_copy(const float* x, float* out, long long n, void* stream) {
+  return (int)launch_stream<false>(x, out, n, (cudaStream_t)stream);
 }
 
-extern "C" int drt_probe_add_one(const float* x, float* out, int n, void* stream) {
-  add_one_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(x, out, n);
-  return (int)cudaGetLastError();
+extern "C" int drt_probe_add_one(const float* x, float* out, long long n, void* stream) {
+  return (int)launch_stream<true>(x, out, n, (cudaStream_t)stream);
 }

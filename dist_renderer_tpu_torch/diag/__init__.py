@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dist_renderer_tpu_torch.ops.kernels import build
 from dist_renderer_tpu_torch.utils.profiling import (
     PEAK_BF16, bound_ms, graph_us, host_us, per_call_ms, timed,
 )
@@ -91,6 +92,25 @@ def emit(name: str, result: dict) -> None:
     """Print the card line and one JSON line {name: result}."""
     print(card_line())
     print(json.dumps({name: result}), flush=True)
+
+
+def run_program(src: str, timeout: int = 300) -> tuple:
+    """Build the standalone CUDA program ``src`` (a file beside this one)
+    with the port's nvcc flags into the kernel build directory, run it,
+    and return (its executable's path, the JSON of its last line)."""
+    name = os.path.splitext(src)[0]
+    out_dir = os.path.join(build.BUILD_ROOT, name)
+    os.makedirs(out_dir, exist_ok=True)
+    exe = os.path.join(out_dir, name)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", exe,
+                           os.path.join(os.path.dirname(os.path.abspath(__file__)), src)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed building {src}:\n" + proc.stdout + proc.stderr)
+    run = subprocess.run([exe], capture_output=True, text=True, timeout=timeout)
+    if run.returncode:
+        raise RuntimeError(f"{name} failed:\n" + run.stdout + run.stderr)
+    return exe, json.loads(run.stdout.strip().splitlines()[-1])
 
 
 def kernel_row(pid: str, kernel, source: str, replaces: str, max_abs_err: float,

@@ -98,7 +98,7 @@ def check(dev) -> list:
     rows.append(kernel_row("P15", pk.dma_loop, SRC_L, f"{TPU}:145", err,
                            lambda: pk.dma_loop(t1, rays, d1),
                            lambda: pk.dma_loop_plain(t1, rays, d1),
-                           lambda: lib(d1), nbytes=4 + 24 * 512 * 4))
+                           lambda: lib(d1), nbytes=4 + 24 * 512 * 4, graphs=True))
     xs, tri = tri_inputs(dev)
     got = pk.scan(xs)
     err = check_equal("P16", got, pk.tri_cumsum_plain(xs, tri))

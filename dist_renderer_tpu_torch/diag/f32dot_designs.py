@@ -11,30 +11,12 @@ one JSON line {"f32dot_designs": {design: {"us", "max_abs_err"}}}.
 
 from __future__ import annotations
 
-import json
-import os
-import subprocess
-
-from dist_renderer_tpu_torch.diag import device, emit
-from dist_renderer_tpu_torch.ops.kernels import build
-
-SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "f32dot_designs.cu")
+from dist_renderer_tpu_torch.diag import device, emit, run_program
 
 
 def main(argv=None) -> int:
     device()
-    out_dir = os.path.join(build.BUILD_ROOT, "f32dot_designs")
-    os.makedirs(out_dir, exist_ok=True)
-    exe = os.path.join(out_dir, "f32dot_designs")
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", exe, SRC],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError("nvcc failed building f32dot_designs.cu:\n" + proc.stdout
-                           + proc.stderr)
-    run = subprocess.run([exe], capture_output=True, text=True, timeout=300)
-    if run.returncode:
-        raise RuntimeError("f32dot_designs failed:\n" + run.stdout + run.stderr)
-    emit("f32dot_designs", json.loads(run.stdout.strip().splitlines()[-1]))
+    emit("f32dot_designs", run_program("f32dot_designs.cu")[1])
     return 0
 
 

@@ -34,11 +34,15 @@ Inputs (the committed bench fixture; seeded):
     (the lazy margin's width: its backward runs K3, then K4, on every
     anchor), K4 (c) with 3 seed rows and the xyz gradient;
   - the probes P8 (f32dot, diag_launch2's [24, 512] x [1024, 512]^T),
-    P20 and P21 (small_mm plain and looped one trip, diag_launch4's
-    [8, 512] x [512, 512]), and "P8 library", "P20 library" (the PyTorch
-    call computing each function: ``torch.matmul``, ``torch.mm(...,
-    out_dtype=float32)``): a launch's device time inside a CUDA graph of
-    200 (``graph_us``), in ms.
+    P15 (dma_loop at one trip, diag_launch3's seeded [16, 262144] rays),
+    P18 and P19 (copy, add_one of diag_launch4's seeded [8, 512] x), P20
+    and P21 (small_mm plain and looped one trip, that x times a seeded
+    [512, 512] w), and "P8 library", "P15 library", "P18 library", "P19
+    library", "P20 library" (the PyTorch call computing each function:
+    ``torch.matmul``, a torch add into the output's first 512 columns,
+    ``clone()``, ``x + 1.0``, ``torch.mm(..., out_dtype=float32)``): a
+    launch's device time inside a CUDA graph of 200 (``graph_us``), in
+    ms.
 Each other: CUDA events around the wrapper, median of 3 after a warm-up
 (``utils/profiling.py``'s ``cuda_ms``, imported from the tree timed: a
 ``--root`` tree needs that module).
@@ -103,9 +107,19 @@ def main(argv=None) -> int:
 
             x, m = diag_launch2.script_inputs(dev)[:2]
             xm, w = diag_launch4.mm_inputs(dev)
+            g = torch.Generator().manual_seed(0)
+            rays = (torch.rand((16, 512 * 512), generator=g) * 2 - 1).to(dev)
+            d1 = torch.zeros((8, 512 * 512), dtype=torch.float32, device=dev)
+            t1 = torch.ones(1, dtype=torch.int32, device=dev)
             graphed = {
                 "P8": lambda: probes.f32dot(x, m),
                 "P8 library": lambda: torch.matmul(x, m.T),
+                "P15": lambda: probes.dma_loop(t1, rays, d1),
+                "P15 library": lambda: torch.add(rays[:8, :512], 1.0, out=d1[:, :512]),
+                "P18": lambda: probes.copy(xm),
+                "P18 library": lambda: xm.clone(),
+                "P19": lambda: probes.add_one(xm),
+                "P19 library": lambda: xm + 1.0,
                 "P20": lambda: probes.small_mm(xm, w),
                 "P21": lambda: probes.small_mm(xm, w, True),
                 "P20 library": lambda: torch.mm(xm.to(torch.bfloat16), w,

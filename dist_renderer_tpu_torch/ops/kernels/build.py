@@ -38,6 +38,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # C signatures: (argtypes) -> int (a cudaError_t, 0 = success)
@@ -72,8 +73,8 @@ SIGNATURES = {
     "drt_probe_index_loop": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "drt_probe_vec_while": [_P, _P, _I, _P],
     "drt_probe_dma_loop": [_P, _P, _P, _I, _P],
-    "drt_probe_copy": [_P, _P, _I, _P],
-    "drt_probe_add_one": [_P, _P, _I, _P],
+    "drt_probe_copy": [_P, _P, _L, _P],
+    "drt_probe_add_one": [_P, _P, _L, _P],
     "drt_probe_small_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "drt_probe_compact": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "drt_probe_f32dot": [_P, _P, _P, _I, _I, _I, _P],

@@ -225,13 +225,19 @@ def copy_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def copy(x: torch.Tensor) -> torch.Tensor:
-    """P18 (diag_launch4.py's k_copy)."""
+    """P18 (diag_launch4.py's k_copy): out = x bit for bit, any contiguous
+    fp32 x (64-bit count). The kernel fills a grid sized to x (4 blocks
+    of 256 threads at [8, 512], one round trip each) with 16-byte loads
+    and stores where x starts on a 16-byte boundary, 4-byte ones
+    otherwise; its first version, the TPU's one block, made each thread
+    wait out 16 round trips in turn."""
     if not _cuda(x):
         return copy_plain(x)
     _check(x, torch.float32, "x")
     out = torch.empty_like(x)
-    _call("drt_probe_copy", x, build.ptr(x), build.ptr(out), x.numel())
-    copy.launches += 1
+    if x.numel():  # an empty x launches nothing
+        _call("drt_probe_copy", x, build.ptr(x), build.ptr(out), x.numel())
+        copy.launches += 1
     return out
 
 
@@ -243,13 +249,15 @@ def add_one_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def add_one(x: torch.Tensor) -> torch.Tensor:
-    """P19 (diag_launch4.py's k_add): x + 1."""
+    """P19 (diag_launch4.py's k_add): out = x + 1 in fp32, any contiguous
+    fp32 x; copy's kernel body and grid with the add."""
     if not _cuda(x):
         return add_one_plain(x)
     _check(x, torch.float32, "x")
     out = torch.empty_like(x)
-    _call("drt_probe_add_one", x, build.ptr(x), build.ptr(out), x.numel())
-    add_one.launches += 1
+    if x.numel():  # an empty x launches nothing
+        _call("drt_probe_add_one", x, build.ptr(x), build.ptr(out), x.numel())
+        add_one.launches += 1
     return out
 
 

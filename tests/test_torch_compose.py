@@ -128,7 +128,7 @@ def _both(decoder, march=None, grad=None, **kw):
     tcam = Camera.looking_at((0.0, 0.0, -2.0), focal=40.0, img_hw=(IMG, IMG))
     tout = render(make_precise_sdf(tp, td), torch.tensor(z0), tcam, tcfg,
                   make_march_factory(tp, td, tcfg))
-    keys = ("depth", "mask", "normal", "min_sdf")
+    keys = ("depth", "mask", "normal", "min_sdf", "points")
     return ({k: np.asarray(getattr(jout, k)) for k in keys},
             {k: getattr(tout, k).detach().numpy() for k in keys}, tout)
 
@@ -159,6 +159,29 @@ def test_render_branch_matches_jax(decoder, branch):
     _assert_parity(j, t)
     c2f = BRANCHES[branch]["march"].get("coarse_to_fine", False)
     assert (tout.trace is None) == c2f  # c2f_plan's output has no trace
+
+
+def test_grazing_hits_no_more_than_jax(decoder):
+    """The share of hits whose fp32 decoder value |f| lies above
+    convergence_eps (grazing rays whose IFT step was clamped, or that the
+    polish left off the surface): the port's no higher than the JAX
+    package's plus one hit's worth, on the fused-recompute branch."""
+    params, z0 = decoder
+    branch = BRANCHES["c2f_plan + compaction + IFT polish, pallas"]
+    j, t, _ = _both(decoder, **branch)
+    tp, td = params_from_numpy(params), DecoderConfig(**DEC_KW)
+    eps = branch["march"]["convergence_eps"]
+    shares, hits = {}, {}
+    for name, out in (("jax", j), ("port", t)):
+        pts = torch.from_numpy(np.ascontiguousarray(out["points"][out["mask"]]))
+        with torch.no_grad():
+            f = decoder_apply(tp, torch.tensor(z0), pts, td)
+        hits[name] = int(pts.shape[0])
+        shares[name] = float((f.abs() > eps).float().mean())
+    print(f"hits with |f| > {eps}: jax {shares['jax']:.6f} of {hits['jax']}, "
+          f"port {shares['port']:.6f} of {hits['port']}")
+    assert hits["port"] > 0
+    assert shares["port"] <= shares["jax"] + 1.0 / hits["port"]
 
 
 # ---- gradients against jax.grad -------------------------------------------

@@ -1829,10 +1829,78 @@ def test_cuda_mlp_chains_match_plain(width):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(0,), (1,), (3,), (8, 512), (3, 5), (1027,),
+                                   ((1 << 22) + 3,), "misaligned"])
+def test_cuda_copy_and_add_one_edges_of_their_grid(shape):
+    """copy and add_one at the edges of their grid (no launch at n = 0, a
+    tail of n % 4 values, one block, many blocks, past a block's worth,
+    and a view starting 4 bytes past a 16-byte boundary, which takes the
+    4-byte body): equal to their plain versions bit for bit, one launch
+    each where there is anything to move."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    rng = np.random.default_rng(18)
+    dims = (8, 512) if shape == "misaligned" else shape
+    x = torch.from_numpy(rng.uniform(-1, 1, dims).astype(np.float32)).to(dev)
+    if shape == "misaligned":
+        x = _misaligned(x)
+    before = (pk.copy.launches, pk.add_one.launches)
+    got = pk.copy(x)
+    assert got.shape == x.shape and torch.equal(got, pk.copy_plain(x))
+    assert torch.equal(pk.add_one(x), pk.add_one_plain(x))
+    torch.cuda.synchronize()
+    step = int(x.numel() > 0)
+    assert (pk.copy.launches, pk.add_one.launches) == (before[0] + step, before[1] + step)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_copy_and_add_one_keep_special_values(aligned):
+    """copy moves bits (-0.0, infinities, a denormal and two NaNs with
+    different payloads come back as they were); add_one is x + 1.0 in
+    fp32, NaN where x is NaN. Both bodies: 16-byte and 4-byte."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    bits = np.array([0x80000000, 0x7F800000, 0xFF800000, 0x00000001, 0x7FC00001,
+                     0xFFA00123, 0x3F800000, 0x807FFFFF, 0x00000000], dtype=np.uint32)
+    x = torch.from_numpy(np.tile(bits, 115)[:1027].view(np.int32)).to(dev)
+    x = x.view(torch.float32)
+    if not aligned:
+        x = _misaligned(x)
+    assert torch.equal(pk.copy(x).view(torch.int32), x.view(torch.int32))
+    got, want = pk.add_one(x), x + 1.0
+    nan = torch.isnan(x)
+    assert torch.equal(torch.isnan(got), nan) and nan.sum().item() == 2 * 114
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_copy_and_add_one_take_a_64_bit_count():
+    """Past 2^31 values (8.6 GB) copy and add_one reach the last one: the
+    count is 64-bit in the C entries and the kernels' indexing."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    n = (1 << 31) + 5
+    x = torch.rand(n, device=dev)
+    x[-7:] = torch.arange(7, dtype=torch.float32, device=dev) - 3.0
+    got = pk.copy(x)
+    assert torch.equal(got, x)
+    del got
+    got = pk.add_one(x)
+    assert torch.equal(got[-7:], x[-7:] + 1.0)
+    assert torch.equal(got, x + 1.0)
+    del got, x
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
 def test_cuda_graph_replay_of_probes_equals_eager():
     """A CUDA graph of the port's ctypes launches replays them: an aliased
     empty kernel leaves its operand as it was, and a graph of small_mm
-    (plain and looped) and f32dot gives eager's bits."""
+    (plain and looped), f32dot, copy and add_one gives eager's bits."""
     from dist_renderer_tpu_torch.ops.kernels import probes as pk
     from dist_renderer_tpu_torch.utils.profiling import capture
 
@@ -1843,10 +1911,12 @@ def test_cuda_graph_replay_of_probes_equals_eager():
     xd = (torch.rand((24, 512), generator=g) * 2 - 1).to(dev)
     md = (torch.rand((1024, 512), generator=g) * 2 - 1).to(dev)
     keep = x.clone()
-    eager = (pk.small_mm(x, w), pk.small_mm(x, w, True), pk.f32dot(xd, md))
+    eager = (pk.small_mm(x, w), pk.small_mm(x, w, True), pk.f32dot(xd, md), pk.copy(x),
+             pk.add_one(x))
     outs = []
     graph = capture(lambda: outs.append((pk.empty(x, aliased=True), pk.small_mm(x, w),
-                                         pk.small_mm(x, w, True), pk.f32dot(xd, md))), 3)
+                                         pk.small_mm(x, w, True), pk.f32dot(xd, md),
+                                         pk.copy(x), pk.add_one(x))), 3)
     graph.replay()
     torch.cuda.synchronize()
     assert all(o[0] is x for o in outs[-3:])

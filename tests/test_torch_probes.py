@@ -624,3 +624,55 @@ def test_f32dot_designs_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA card"):
         f32dot_designs.main([])
+
+
+def test_copy_designs_needs_a_card(monkeypatch):
+    """The copy / add_one design comparison measures the card: without
+    one it raises SystemExit before it builds anything."""
+    from dist_renderer_tpu_torch.diag import copy_designs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        copy_designs.main([])
+
+
+def test_copy_designs_reads_each_kernels_memory_ops_in_order():
+    """copy_designs' SASS reading: each named kernel's global loads and
+    stores in program order, other kernels' left out."""
+    from dist_renderer_tpu_torch.diag.copy_designs import memory_ops
+
+    sass = """
+        Function : _ZN12_GLOBAL__N_110first_copyEPKfPfi
+        /*0070*/  LDG.E R5, desc[UR4][R2.64] ;
+        /*0090*/  STG.E desc[UR4][R4.64], R5 ;
+        /*00a0*/  LDG.E R7, desc[UR4][R2.64+0x400] ;
+        /*00b0*/  STG.E desc[UR4][R4.64+0x400], R7 ;
+        Function : _Z18first_add_restrictPKfPfi
+        /*0070*/  LDG.E.CONSTANT R5, desc[UR4][R2.64] ;
+        Function : _ZN3drt2pr13stream_kernelILb0ELb1EEEvPKfPfx
+        /*0070*/  LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0080*/  STG.E.128 desc[UR4][R8.64], R4 ;
+    """
+    assert memory_ops(sass) == {
+        "first version": "LDG.E STG.E LDG.E STG.E",
+        "kernel (vector body)": "LDG.E.128.CONSTANT STG.E.128",
+    }
+
+
+@pytest.mark.parametrize("entry", ["drt_probe_copy", "drt_probe_add_one"])
+def test_copy_and_add_one_take_a_64_bit_count(entry):
+    """The count ctypes hands copy's and add_one's C entries is 64-bit on
+    both sides of the call (a 32-bit one would cut tensors past 2^31
+    values)."""
+    import ctypes
+    import os
+    import re
+
+    from dist_renderer_tpu_torch.ops.kernels import build
+
+    assert build.SIGNATURES[entry][2] is ctypes.c_longlong
+    with open(os.path.join(build.CSRC, "probe_launch.cu")) as f:
+        src = f.read()
+    decl = re.search(r'extern "C" int %s\(([^)]*)\)' % entry, src).group(1)
+    assert [a.strip().rsplit(" ", 1)[0] for a in decl.split(",")] == [
+        "const float*", "float*", "long long", "void*"]
