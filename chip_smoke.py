@@ -1606,9 +1606,11 @@ DC_CHAMFER_MAX = 0.5
 
 # The first versions of the redesigned probe kernels: device us per launch
 # in a CUDA graph of 200 (PERF.md's P rows: P8, P18, P19 and P21 beside
-# the library call, P20 the launch table's), NVIDIA H100 80GB HBM3,
-# 700.00 W
-PARENT_GRAPH_US = {"P8": 38.99, "P18": 3.42, "P19": 3.61, "P20": 13.94, "P21": 19.76}
+# the library call, P20 the launch table's; P7 at 8 trips and P15 at one,
+# the mean of two kernel_times.py runs of the first version), NVIDIA H100
+# 80GB HBM3, 700.00 W
+PARENT_GRAPH_US = {"P7": 2.75, "P8": 38.99, "P15": 2.81, "P18": 3.42, "P19": 3.61,
+                   "P20": 13.94, "P21": 19.76}
 
 
 def probes_phase(torch, dev):

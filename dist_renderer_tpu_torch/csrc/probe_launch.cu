@@ -12,19 +12,26 @@
 // VMEM scratch is dynamic shared memory, above 48 KB only after
 // cudaFuncSetAttribute, which these entries call at every launch as the
 // port's real kernels do; a DMA semaphore is an mbarrier, initialised by
-// one thread and fenced; an SMEM scalar read each trip of a while loop is
-// a volatile load from device memory; an SMEM array is an int32 list
-// staged in shared memory; a DMA is a cp.async.bulk (TMA) copy completing
-// on an mbarrier.
+// one thread and fenced; an SMEM array is an int32 list staged in shared
+// memory; a DMA is a cp.async.bulk (TMA) copy completing on an mbarrier.
+// An SMEM scalar is on-chip, a cycle to read: P7 and P15 read their trip
+// count from device memory once, before the loop, into a register, its
+// counterpart. The loops of P3-P6 and P11-P14, whose function is a loop
+// bound read at every trip, keep a volatile load from device memory each
+// trip (~0.15 us a trip on the H100: P6 runs 64 trips in ~10.4 us, an
+// empty launch in ~0.8).
 //
-// Bound: none of these do work but P15's 48 KB copy and P18/P19's 32 KB
-// (16 KB read, 16 KB written at [8, 512]: 0.0098 us at 3.35 TB/s); the
-// time is the launch's fixed cost. Design: one block (the TPU's
-// grid=(1,)), loops warp-uniform, but for P18 and P19, which fill a grid:
-// their first version, one block of 256 threads, ran a 16-trip loop
-// whose every trip waited for its 4-byte load before its store and the
-// next load (the loop's stride is blockDim.x, so the compiler does not
-// unroll it, __restrict__ or not): ~3.6 us in a CUDA graph where an
+// Bound: none of these do work but P15's and P18/P19's copies (P15: rows
+// 0-7 of rays read, 16 KB, and 16 KB written; P18/P19 16 KB read and 16
+// KB written at [8, 512]: 0.0098 us at 3.35 TB/s) and P6/P7's zero and
+// carry stores (4 + 4 KB, 4 + 16 KB); the time is the launch's fixed
+// cost and the round trips the kernel waits for in turn. Design: one
+// block (the TPU's grid=(1,)), loops warp-uniform, but for P15, P18 and
+// P19, which fill a grid: their first versions, one block of 256
+// threads, waited out their round trips in series. P18/P19 ran a 16-trip
+// loop whose every trip waited for its 4-byte load before its store and
+// the next load (the loop's stride is blockDim.x, so the compiler does
+// not unroll it, __restrict__ or not): ~3.6 us in a CUDA graph where an
 // empty kernel runs ~1.0. Now each thread moves one 16-byte vector a
 // trip, on a grid sized to the data: STREAM_THREADS vectors a block, at
 // most STREAM_MAX_BLOCKS blocks (8 of 256 threads an SM) striding over
@@ -33,10 +40,13 @@
 // (1 x 1024, 8 x 128, 16 x 64 threads; 1 x 256 and 2 x 128 at 4 vectors
 // a thread, all 4 loads before the stores). At the
 // probe's size the launch and one round trip are the bound: the bytes'
-// share of the time is below 1% whatever the grid.
+// share of the time is below 1% whatever the grid. P15 and P7 are
+// described at their kernels; diag/dma_designs.cu times the designs they
+// were chosen from.
 
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 
@@ -83,10 +93,6 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t
 __device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src, uint32_t bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
                :: "l"(dst), "r"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit_and_wait() {
-  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // The threads' generic shared-memory writes made visible to the async
@@ -161,65 +167,137 @@ __global__ void index_loop_kernel(const int* live, int n_list, const int* n_live
   }
 }
 
-// P7 (vec_while_kernel): an [n] fp32 carry (n <= THREADS * PER) from
-// zeros, c += 1 while k < trips[0] and max(c) > -1; out = c.
-constexpr int VEC_PER = 32;
+// P7 (vec_while_kernel): an [n] fp32 carry (n <= VEC_THREADS * VEC_PER)
+// from zeros, c += 1 while k < trips[0] and max(c) > -1; out = c. One
+// block, so the max is the whole carry's: the block votes on the test
+// with __syncthreads_or every trip, each thread's vote an OR over its
+// values. The count is read once, before the loop: the first version
+// (128 threads x 32 values) loaded it through ld_volatile at every trip,
+// ~0.17 us a trip, 2.74 us at 8 trips in a CUDA graph against
+// torch.add's 2.41; read once, 2.21 (diag/dma_designs.cu). On 256
+// threads x 16 values a trip takes ~0.09 us (2.07 at 8 trips; 512 x 8
+// 2.10; float4 stores 2.07; the count as a shared word read every trip
+// 2.52). Thread t holds elements t, t + VEC_THREADS, ...; a value past n
+// starts at -inf, which stays below -1 and leaves the max as it is, so
+// the loop tests no index.
+constexpr int VEC_THREADS = 256, VEC_PER = 16;
 
-__global__ void vec_while_kernel(const int* trips, float* out, int n) {
+__global__ void __launch_bounds__(VEC_THREADS) vec_while_kernel(const int* trips, float* out,
+                                                                 int n) {
+  const int n_trips = *trips;
   float c[VEC_PER];
 #pragma unroll
-  for (int i = 0; i < VEC_PER; ++i) c[i] = 0.f;
-  int k = 0;
-  while (true) {
-    int any = 0;
+  for (int i = 0; i < VEC_PER; ++i)
+    c[i] = (int)threadIdx.x + i * VEC_THREADS < n ? 0.f : -INFINITY;
+  for (int k = 0;; ++k) {
+    bool any = false;
 #pragma unroll
-    for (int i = 0; i < VEC_PER; ++i)
-      any |= (threadIdx.x + i * blockDim.x < n) && c[i] > -1.f;
-    // the carry's max above -1 is some element above -1
-    if (!__syncthreads_or(k < ld_volatile(trips) && any)) break;
+    for (int i = 0; i < VEC_PER; ++i) any |= c[i] > -1.f;
+    if (!__syncthreads_or(k < n_trips && any)) break;
 #pragma unroll
     for (int i = 0; i < VEC_PER; ++i) c[i] += 1.f;
-    ++k;
   }
 #pragma unroll
   for (int i = 0; i < VEC_PER; ++i) {
-    int j = threadIdx.x + i * blockDim.x;
+    const int j = threadIdx.x + i * VEC_THREADS;
     if (j < n) out[j] = c[i];
   }
 }
 
-// P15 (k_dma): at each of trips[0] trips, rays[0:16][0:512] into shared
-// memory by bulk copies on an mbarrier, rows 0-7 + 1, and those back to
-// out[0:8][0:512] by bulk copies. ld is both arrays' row stride.
-constexpr int DMA_COLS = 512, DMA_IN_ROWS = 16, DMA_OUT_ROWS = 8;
-constexpr int DMA_ROW_BYTES = DMA_COLS * 4;
-constexpr int DMA_SMEM = 16 + (DMA_IN_ROWS + DMA_OUT_ROWS) * DMA_ROW_BYTES;
+// P15 (k_dma): at each of trips[0] trips, rays[0:8][0:512] into shared
+// memory by bulk copies on an mbarrier, + 1 in place, and back to
+// out[0:8][0:512] by bulk copies. ld is both arrays' row stride. The
+// first version, one block of 256 threads, copied 16 rows in (the TPU
+// kernel's [16, 512] window; rows 8-15 are never used), added into a
+// second buffer (49 KB of shared memory, over the 48 KB default, so an
+// attribute call at every launch), re-read the count through ld_volatile
+// every trip and waited for each trip's stores to reach device memory
+// (cp.async.bulk.wait_group 0): 2.84 us in a CUDA graph at one trip, the
+// torch add 1.39-1.58. The time is a chain of round trips each block
+// waits out in turn (the count's load, the copy in, the add, the copy
+// out), so the design shortens the chain (diag/dma_designs.cu, us at one
+// trip): the count read once (2.70); 8 rows in place on float4s (1
+// block: 2.58); the window split over DMA_BLOCKS blocks, each with its
+// own mbarriers, its piece's copies and its own loop (2, 4, 8, 16
+// blocks: 2.06, 1.80, 1.71, 1.68); thread 0 issuing the first trip's
+// copy in before the count arrives (1.54; every block then waits for it,
+// at 0 trips too: 1.29 there against 1.13); and from the second trip on,
+// trip k + 1's copy in issued at trip k's start into the other of two
+// stages (64 trips: 24.6 against 30.8). Together: 1.50. A trip waits
+// only until its stores have read the stage (wait_group.read), before
+// the stage is rewritten or the block exits; the stores reach device
+// memory by the kernel's end (waiting for that instead moved nothing).
+// Every trip keeps its copy in, add and copy out. Plain 16-byte loads
+// and stores in place of the bulk copies take 1.33.
+constexpr int DMA_COLS = 512, DMA_ROWS = 8;
+constexpr int DMA_BLOCKS = 8, DMA_THREADS = 128;
 
+__device__ __forceinline__ void bulk_commit_and_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// A block's piece of the window: floats [first, first + seg) of the
+// flattened [8, 512], seg = 4096 / gridDim.x (whole rows, or a divisor of
+// a row), copied a row's part at a time.
+struct DmaPiece {
+  int first, seg;
+  __device__ DmaPiece() : seg(DMA_ROWS * DMA_COLS / gridDim.x) { first = blockIdx.x * seg; }
+  __device__ size_t at(int i, int ld) const { return (size_t)(i / DMA_COLS) * ld + i % DMA_COLS; }
+  __device__ int part() const { return seg < DMA_COLS ? seg : DMA_COLS; }
+};
+
+// Thread 0's bulk copy of the piece of rays into shared memory at dst,
+// completing on the mbarrier at bar.
+__device__ __forceinline__ void dma_in(uint32_t dst, const float* rays, const DmaPiece& p,
+                                       int ld, uint32_t bar) {
+  mbar_expect_tx(bar, p.seg * 4);
+  for (int i = p.first; i < p.first + p.seg; i += p.part())
+    bulk_g2s(dst + 4 * (i - p.first), rays + p.at(i, ld), 4 * p.part(), bar);
+}
+
+// Thread 0's bulk copy of shared memory at src back to the piece of out,
+// waiting until the copies have read src.
+__device__ __forceinline__ void dma_out(float* out, const DmaPiece& p, int ld, uint32_t src) {
+  for (int i = p.first; i < p.first + p.seg; i += p.part())
+    bulk_s2g(out + p.at(i, ld), src + 4 * (i - p.first), 4 * p.part());
+  bulk_commit_and_wait_read();
+}
+
+// buf[0:n4] += 1 over the block's threads, then fenced for the bulk
+// copies and the block synchronised.
+__device__ __forceinline__ void dma_add_in_place(float4* buf, int n4) {
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+    const float4 v = buf[i];
+    buf[i] = make_float4(v.x + 1.f, v.y + 1.f, v.z + 1.f, v.w + 1.f);
+  }
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// Two mbarriers, then two stages of seg floats: dynamic shared memory
+// 32 + 8 seg bytes.
 __global__ void dma_loop_kernel(const int* trips, const float* rays, float* out, int ld) {
   extern __shared__ __align__(16) char smem[];
-  float* rv = reinterpret_cast<float*>(smem + 16);
-  float* ov = rv + DMA_IN_ROWS * DMA_COLS;
-  const uint32_t bar = smem_u32(smem);
-  init_bars(smem, 1);
-  uint32_t parity = 0;
-  for (int k = 0; k < ld_volatile(trips); ++k) {
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(bar, DMA_IN_ROWS * DMA_ROW_BYTES);
-      for (int r = 0; r < DMA_IN_ROWS; ++r)
-        bulk_g2s(smem_u32(rv + r * DMA_COLS), rays + (size_t)r * ld, DMA_ROW_BYTES, bar);
-    }
-    mbar_wait(bar, parity);
-    parity ^= 1;
-    for (int i = threadIdx.x; i < DMA_OUT_ROWS * DMA_COLS; i += blockDim.x)
-      ov[i] = rv[i] + 1.f;
-    fence_proxy_async();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int r = 0; r < DMA_OUT_ROWS; ++r)
-        bulk_s2g(out + (size_t)r * ld, smem_u32(ov + r * DMA_COLS), DMA_ROW_BYTES);
-      bulk_commit_and_wait();
-    }
-    __syncthreads();  // ov is rewritten only after the copy has read it
+  const DmaPiece p;
+  const uint32_t bar = smem_u32(smem), buf = smem_u32(smem + 32), stage = 4 * p.seg;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 16, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    dma_in(buf, rays, p, ld, bar);
+  }
+  const int n_trips = *trips;
+  __syncthreads();
+  for (int k = 0;; ++k) {
+    const int s = k & 1;
+    // stage s ^ 1's last reader, trip k - 1's copy out, is done
+    if (threadIdx.x == 0 && k + 1 < n_trips)
+      dma_in(buf + (s ^ 1) * stage, rays, p, ld, bar + 16 * (s ^ 1));
+    mbar_wait(bar + 16 * s, (k >> 1) & 1);
+    if (k >= n_trips) break;
+    dma_add_in_place(reinterpret_cast<float4*>(smem + 32 + s * stage), p.seg / 4);
+    if (threadIdx.x == 0) dma_out(out, p, ld, buf + s * stage);
+    if (k + 1 >= n_trips) break;
   }
 }
 
@@ -285,7 +363,8 @@ inline cudaError_t opt_in(K kernel, int smem_bytes) {
 using namespace drt::pr;
 
 // Every entry launches on the caller's stream (one block, but for
-// drt_probe_copy and drt_probe_add_one) and returns cudaGetLastError().
+// drt_probe_dma_loop, drt_probe_copy and drt_probe_add_one) and returns
+// cudaGetLastError().
 
 extern "C" int drt_probe_empty(const float* in, float* out, void* stream) {
   empty_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(in, out);
@@ -328,8 +407,8 @@ extern "C" int drt_probe_index_loop(const int* live, int n_list, const int* n_li
 }
 
 extern "C" int drt_probe_vec_while(const int* trips, float* out, int n, void* stream) {
-  if (n > THREADS * VEC_PER) return (int)cudaErrorInvalidValue;
-  vec_while_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(trips, out, n);
+  if (n > VEC_THREADS * VEC_PER) return (int)cudaErrorInvalidValue;
+  vec_while_kernel<<<1, VEC_THREADS, 0, (cudaStream_t)stream>>>(trips, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -338,9 +417,8 @@ extern "C" int drt_probe_vec_while(const int* trips, float* out, int n, void* st
 extern "C" int drt_probe_dma_loop(const int* trips, const float* rays, float* out, int ld,
                                   void* stream) {
   if (ld < DMA_COLS || ld % 4 != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = opt_in(dma_loop_kernel, DMA_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dma_loop_kernel<<<1, 256, DMA_SMEM, (cudaStream_t)stream>>>(trips, rays, out, ld);
+  dma_loop_kernel<<<DMA_BLOCKS, DMA_THREADS, 32 + 8 * DMA_ROWS * DMA_COLS / DMA_BLOCKS,
+                    (cudaStream_t)stream>>>(trips, rays, out, ld);
   return (int)cudaGetLastError();
 }
 

@@ -81,8 +81,9 @@ def check(dev) -> list:
                            lambda: pk.scalar_while_plain(t64, zeros=True),
                            nbytes=4 + 4 * 8 * 128))
     t8 = torch.tensor([8], **i32)
-    for t in (torch.tensor([0], **i32), t8):
-        err = check_equal("P7", pk.vec_while(t), pk.vec_while_plain(t))
+    for trips in (0, 1, 8, 1 << 20):
+        t = torch.tensor([trips], **i32)
+        err = check_equal(f"P7 x{trips}", pk.vec_while(t), pk.vec_while_plain(t))
     # one torch add computes P7's function: the zero carry plus the trips
     z8 = torch.zeros((8, 512), dtype=torch.float32, device=dev)
     check_equal("P7 (one torch add)", torch.add(z8, t8), pk.vec_while(t8))

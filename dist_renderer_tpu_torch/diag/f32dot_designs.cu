@@ -35,6 +35,7 @@
 #include <vector>
 
 #include "../csrc/probe_blocks.cu"
+#include "graph_timing.cuh"
 
 using namespace drt::pb;
 
@@ -350,45 +351,6 @@ __global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(128)
     out[(o / QC) * S + c0 + o % QC] = v;
   }
   cluster_sync();
-}
-
-#define CK(e)                                                                  \
-  do {                                                                         \
-    cudaError_t err_ = (e);                                                    \
-    if (err_ != cudaSuccess) {                                                 \
-      fprintf(stderr, "CUDA error %s at line %d\n", cudaGetErrorString(err_), \
-              __LINE__);                                                       \
-      exit(1);                                                                 \
-    }                                                                          \
-  } while (0)
-
-template <typename F>
-float graph_us(F launch, cudaStream_t st, int n = 200) {
-  launch();
-  CK(cudaStreamSynchronize(st));
-  cudaGraph_t g;
-  cudaGraphExec_t ge;
-  CK(cudaStreamBeginCapture(st, cudaStreamCaptureModeGlobal));
-  for (int i = 0; i < n; ++i) launch();
-  CK(cudaStreamEndCapture(st, &g));
-  CK(cudaGraphInstantiate(&ge, g, 0));
-  CK(cudaGraphLaunch(ge, st));
-  CK(cudaStreamSynchronize(st));
-  cudaEvent_t a, b;
-  CK(cudaEventCreate(&a));
-  CK(cudaEventCreate(&b));
-  std::vector<float> ts;
-  for (int rep = 0; rep < 5; ++rep) {
-    CK(cudaEventRecord(a, st));
-    CK(cudaGraphLaunch(ge, st));
-    CK(cudaEventRecord(b, st));
-    CK(cudaEventSynchronize(b));
-    float ms;
-    CK(cudaEventElapsedTime(&ms, a, b));
-    ts.push_back(ms);
-  }
-  std::sort(ts.begin(), ts.end());
-  return ts[2] * 1e3f / n;
 }
 
 template <typename KER>

@@ -33,12 +33,14 @@ Inputs (the committed bench fixture; seeded):
     (K3) and cotangents (K4); K3 (b) and K4 (b) on K5's 262,144 points
     (the lazy margin's width: its backward runs K3, then K4, on every
     anchor), K4 (c) with 3 seed rows and the xyz gradient;
-  - the probes P8 (f32dot, diag_launch2's [24, 512] x [1024, 512]^T),
-    P15 (dma_loop at one trip, diag_launch3's seeded [16, 262144] rays),
-    P18 and P19 (copy, add_one of diag_launch4's seeded [8, 512] x), P20
-    and P21 (small_mm plain and looped one trip, that x times a seeded
-    [512, 512] w), and "P8 library", "P15 library", "P18 library", "P19
-    library", "P20 library" (the PyTorch call computing each function:
+  - the probes P7 (vec_while at 8 trips, diag_launch2's), P8 (f32dot,
+    diag_launch2's [24, 512] x [1024, 512]^T), P15 (dma_loop at one trip,
+    diag_launch3's seeded [16, 262144] rays), P18 and P19 (copy, add_one
+    of diag_launch4's seeded [8, 512] x), P20 and P21 (small_mm plain and
+    looped one trip, that x times a seeded [512, 512] w), and "P7
+    library", "P8 library", "P15 library", "P18 library", "P19 library",
+    "P20 library" (the PyTorch call computing each function:
+    ``torch.add(z8, t8)`` of an [8, 512] zero carry and the count,
     ``torch.matmul``, a torch add into the output's first 512 columns,
     ``clone()``, ``x + 1.0``, ``torch.mm(..., out_dtype=float32)``): a
     launch's device time inside a CUDA graph of 200 (``graph_us``), in
@@ -111,7 +113,11 @@ def main(argv=None) -> int:
             rays = (torch.rand((16, 512 * 512), generator=g) * 2 - 1).to(dev)
             d1 = torch.zeros((8, 512 * 512), dtype=torch.float32, device=dev)
             t1 = torch.ones(1, dtype=torch.int32, device=dev)
+            t8 = torch.full((1,), 8, dtype=torch.int32, device=dev)
+            z8 = torch.zeros((8, 512), dtype=torch.float32, device=dev)
             graphed = {
+                "P7": lambda: probes.vec_while(t8),
+                "P7 library": lambda: torch.add(z8, t8),
                 "P8": lambda: probes.f32dot(x, m),
                 "P8 library": lambda: torch.matmul(x, m.T),
                 "P15": lambda: probes.dma_loop(t1, rays, d1),

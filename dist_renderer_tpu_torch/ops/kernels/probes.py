@@ -171,13 +171,18 @@ index_loop.launches = 0
 
 
 def vec_while_plain(trips: torch.Tensor, shape=(8, N_LANES)) -> torch.Tensor:
-    # the carry stays above -1, so the loop runs its trips: c = trips
-    return torch.zeros(shape, dtype=torch.float32, device=trips.device) + trips[0].float()
+    # the carry stays above -1, so the loop runs its trips, none for a
+    # count below 1: c = trips, held at 2^24, where c + 1 rounds to c
+    c = trips[0].clamp(0, 1 << 24).float()
+    return torch.zeros(shape, dtype=torch.float32, device=trips.device) + c
 
 
 def vec_while(trips: torch.Tensor, shape=(8, N_LANES)) -> torch.Tensor:
     """P7 (diag_launch2.py's vec_while_kernel): a carry of ``shape`` fp32
-    zeros, +1 a trip while k < trips[0] and its max > -1."""
+    zeros (at most 4,096 values), +1 a trip while k < trips[0] and its max
+    > -1. One block of 256 threads, 16 values each; the count is read from
+    the device once, before the loop, and the block votes on the test
+    every trip."""
     if not _cuda(trips):
         return vec_while_plain(trips, shape)
     _check(trips, torch.int32, "trips")
@@ -199,11 +204,16 @@ def dma_loop_plain(trips: torch.Tensor, rays: torch.Tensor,
 
 def dma_loop(trips: torch.Tensor, rays: torch.Tensor,
              defaults: torch.Tensor) -> torch.Tensor:
-    """P15 (diag_launch3.py's k_dma): trips[0] times, rays[:, 0:512] into
-    shared memory by bulk copies on an mbarrier, rows 0-7 + 1, back to
-    the output's columns 0-511 by bulk copies. The output is ``defaults``,
+    """P15 (diag_launch3.py's k_dma): trips[0] times, rays[0:8, 0:512]
+    into shared memory by bulk copies on an mbarrier, + 1 in place, back
+    to the output's columns 0-511 by bulk copies (rays' rows 8-15, in the
+    TPU kernel's window, are never used). The output is ``defaults``,
     written in place (the TPU's aliasing): after a trip its first 512
-    columns hold rays[0:8, 0:512] + 1."""
+    columns hold rays[0:8, 0:512] + 1. The kernel splits the rows over 8
+    blocks, each with its own mbarriers and loop; it reads the count from
+    the device once, issues the first trip's copy in before the count
+    arrives (at 0 trips too, writing nothing) and each next trip's at the
+    trip before, into a second stage of shared memory."""
     if not _cuda(trips, rays, defaults):
         return dma_loop_plain(trips, rays, defaults)
     _check(trips, torch.int32, "trips")

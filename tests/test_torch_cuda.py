@@ -1897,6 +1897,103 @@ def test_cuda_copy_and_add_one_take_a_64_bit_count():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("trips", [-3, 0, 1, 8, 1000, 1 << 20, (1 << 24) + 5])
+def test_cuda_vec_while_counts_its_trips(trips):
+    """vec_while's carry is the trip count (none below 1, held at 2^24,
+    where c + 1 rounds to c), bit for bit with the plain version, one
+    launch a call."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    t = torch.tensor([trips], dtype=torch.int32, device=dev)
+    before = pk.vec_while.launches
+    got = pk.vec_while(t)
+    assert got.shape == (8, 512) and torch.equal(got, pk.vec_while_plain(t))
+    assert pk.vec_while.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1,), (3, 5), (7,), (4095,), (64, 64)])
+def test_cuda_vec_while_carry_shapes(shape):
+    """vec_while on carries that fill its block's 4,096 values or not,
+    with and without an n % 4 tail of 4-byte stores."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    t = torch.tensor([5], dtype=torch.int32, device=dev)
+    got = pk.vec_while(t, shape)
+    assert got.shape == shape and torch.equal(got, pk.vec_while_plain(t, shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ld", [512, 262_144])
+@pytest.mark.parametrize("trips", [0, 1, 2, 64])
+def test_cuda_dma_loop_matches_plain(trips, ld):
+    """dma_loop writes rays[0:8, 0:512] + 1 into its output's first 512
+    columns after a trip or more and nothing at 0 trips, in place; the
+    columns from 512 on stay as they were. Bit for bit with the plain
+    version, one launch a call."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    g = torch.Generator().manual_seed(trips + ld)
+    rays = (torch.rand((16, ld), generator=g) * 2 - 1).to(dev)
+    dflt = torch.rand((8, ld), generator=g).to(dev)
+    t = torch.tensor([trips], dtype=torch.int32, device=dev)
+    out = dflt.clone()
+    before = pk.dma_loop.launches
+    assert pk.dma_loop(t, rays, out) is out
+    assert pk.dma_loop.launches == before + 1
+    assert torch.equal(out, pk.dma_loop_plain(t, rays, dflt.clone()))
+    assert torch.equal(out[:, 512:], dflt[:, 512:])
+    assert torch.equal(out[:, :512], rays[:8, :512] + 1.0 if trips else dflt[:, :512])
+
+
+@pytest.mark.gpu
+def test_cuda_probe_loops_read_their_count_when_replayed():
+    """vec_while and dma_loop read their trip count on the device at run
+    time: one captured CUDA graph of each, replayed after the count is
+    rewritten in place, follows the new count."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+    from dist_renderer_tpu_torch.utils.profiling import capture
+
+    dev = _device()
+    g = torch.Generator().manual_seed(17)
+    rays = (torch.rand((16, 4096), generator=g) * 2 - 1).to(dev)
+    dflt = torch.rand((8, 4096), generator=g).to(dev)
+    out = dflt.clone()
+    trips = torch.zeros(1, dtype=torch.int32, device=dev)
+    carries = []
+    graph = capture(lambda: (carries.append(pk.vec_while(trips)),
+                             pk.dma_loop(trips, rays, out)), 1)
+    for n in (3, 0, 70, 1, 0):
+        trips.fill_(n)
+        out.copy_(dflt)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(carries[-1], torch.full((8, 512), float(n), device=dev))
+        assert torch.equal(out, pk.dma_loop_plain(trips, rays, dflt.clone()))
+
+
+@pytest.mark.gpu
+def test_cuda_dma_loop_and_vec_while_reject_what_they_cannot_take():
+    """The C entries refuse a row stride the bulk copies cannot take
+    (below 512 or not a multiple of 4 floats) and a carry past the
+    block's 4,096 values; the wrapper raises, nothing launches."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    t = torch.ones(1, dtype=torch.int32, device=dev)
+    for ld in (256, 514):
+        with pytest.raises(RuntimeError):
+            pk.dma_loop(t, torch.zeros((16, ld), device=dev), torch.zeros((8, ld), device=dev))
+    with pytest.raises(RuntimeError):
+        pk.vec_while(t, (4097,))
+    with pytest.raises(ValueError):
+        pk.vec_while(t.to(torch.int64))
+
+
+@pytest.mark.gpu
 def test_cuda_graph_replay_of_probes_equals_eager():
     """A CUDA graph of the port's ctypes launches replays them: an aliased
     empty kernel leaves its operand as it was, and a graph of small_mm

@@ -200,6 +200,16 @@ def test_p7_vec_while_counts_its_trips(trips):
     _same(pk.vec_while_plain(_t(nl)), got)
 
 
+def test_p7_vec_while_runs_no_trips_below_one():
+    """A count below 1 runs no trip: the carry stays at zeros in the TPU
+    kernel and in the plain version."""
+    nl = np.array([-3], np.int32)
+    got = _call(vec_while_kernel, jax.ShapeDtypeStruct((8, 512), F32), [SMEM], VMEM,
+                jnp.asarray(nl))
+    _same(pk.vec_while_plain(_t(nl)), got)
+    assert not np.asarray(got).any()
+
+
 # scripts/diag_launch2.py:142
 def f32dot_kernel(x_ref, m_ref, out_ref):
     out_ref[:, :] = jax.lax.dot_general(
@@ -656,6 +666,69 @@ def test_copy_designs_reads_each_kernels_memory_ops_in_order():
     assert memory_ops(sass) == {
         "first version": "LDG.E STG.E LDG.E STG.E",
         "kernel (vector body)": "LDG.E.128.CONSTANT STG.E.128",
+    }
+
+
+def test_dma_designs_needs_a_card(monkeypatch):
+    """The dma_loop / vec_while design comparison measures the card:
+    without one it raises SystemExit before it builds anything."""
+    from dist_renderer_tpu_torch.diag import dma_designs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        dma_designs.main([])
+
+
+def test_dma_designs_imports_no_jax():
+    """dma_designs imports nothing of JAX or the JAX package (a fresh
+    interpreter: this test process imports both)."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import dist_renderer_tpu_torch.diag.dma_designs\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dist_renderer_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=root, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_dma_designs_counts_what_each_loop_holds():
+    """dma_designs' SASS reading: a named kernel's global loads in order,
+    its backward branches, and the counted opcodes inside a loop's address
+    range (predicated or not); code before and after the loop, the
+    branch to itself that pads a kernel's end and other kernels left
+    out."""
+    from dist_renderer_tpu_torch.diag.dma_designs import loop_ops
+
+    sass = """
+        Function : _ZN3drt2pr16vec_while_kernelEPKiPfi
+        /*0040*/                   LDG.E R2, desc[UR4][R2.64] ;   /* 0x0000000402027981 */
+        /*0050*/                   FADD R1, R1, 1 ;
+        /*0060*/                   FSETP.GT.AND P1, PT, R5, -1, PT ;
+        /*0070*/                   FADD R5, R5, 1 ;
+        /*0080*/                   BAR.RED.OR.DEFER_BLOCKING 0x0, P0 ;
+        /*0090*/              @P0 BRA 0x60 ;
+        /*00a0*/                   STG.E.128 desc[UR4][R8.64], R4 ;
+        /*00b0*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_115first_vec_whileEPKiPfi
+        /*0040*/                   LD.E.STRONG.SYS R3, desc[UR4][R2.64] ;
+        /*0050*/                   BAR.RED.OR.DEFER_BLOCKING 0x0, P0 ;
+        /*0060*/              @!P0 BRA 0x40 ;
+        /*0070*/                   BRA 0x70 ;
+        Function : _ZN3drt2pr12empty_kernelEPKfPf
+        /*0000*/                   LDG.E R2, desc[UR4][R2.64] ;
+    """
+    assert loop_ops(sass) == {
+        "vec_while kernel": dict(loads="LDG.E", loops=1,
+                                 in_loops={"FSETP": 1, "FADD": 1, "BAR": 1}),
+        "vec_while first version": dict(loads="LD.E.STRONG.SYS", loops=1,
+                                        in_loops={"LD": 1, "BAR": 1}),
     }
 
 
