@@ -1611,6 +1611,10 @@ DC_CHAMFER_MAX = 0.5
 # 80GB HBM3, 700.00 W
 PARENT_GRAPH_US = {"P7": 2.75, "P8": 38.99, "P15": 2.81, "P18": 3.42, "P19": 3.61,
                    "P20": 13.94, "P21": 19.76}
+# the MLP chains' first version (mma.sync, the weights' fragments from L2,
+# the carry in shared memory): ms at diag_int8.py's defaults, CUDA events,
+# median of 3 (PERF.md's P23 and P24 rows), NVIDIA H100 80GB HBM3, 700.00 W
+PARENT_CHAIN_MS = {"P23": 25.976, "P24": 17.459}
 
 
 def probes_phase(torch, dev):
@@ -1656,7 +1660,9 @@ def probes_phase(torch, dev):
               + (f"  graph of 200: kernel {r['launch']['graph_us']:.3f} us, library "
                  f"{r['library_launch']['graph_us']:.3f} us" if "launch" in r else "")
               + (f" (first version {PARENT_GRAPH_US[r['id']]:.2f} us)"
-                 if r["id"] in PARENT_GRAPH_US else ""))
+                 if r["id"] in PARENT_GRAPH_US else "")
+              + (f" (first version {PARENT_CHAIN_MS[r['id']]:.3f} ms)"
+                 if r["id"] in PARENT_CHAIN_MS else ""))
     lc = res["diag_launch_cost"]
     for name, row in lc["table"].items():
         print(f"  launch {name:<14} host {row['host_us']:8.2f} us  graph "
@@ -1671,6 +1677,8 @@ def probes_phase(torch, dev):
     for r in res["kernels"]:
         if r["id"] in PARENT_GRAPH_US:
             r["first_version_graph_us"] = PARENT_GRAPH_US[r["id"]]
+        if r["id"] in PARENT_CHAIN_MS:
+            r["first_version_ms"] = PARENT_CHAIN_MS[r["id"]]
     res["seconds"] = time.perf_counter() - t0
     print(json.dumps({"probes": res}), flush=True)
     return rows, launches, res

@@ -1,8 +1,7 @@
-// Warp-level tensor-core products (mma.sync) for the probe kernels:
-// probe_blocks.cu's small_mm (bf16) and mlp_chain.cu's two chains (bf16
-// and int8). The production kernels use wgmma (point_mlp.cuh); these use
-// the older warp-wide instruction family so that the bf16 and the int8
-// chain run the same kind of product and compare like for like.
+// Warp-level tensor-core products (mma.sync) for probe_blocks.cu's
+// small_mm (bf16), and for the MLP chains' first version and ring design
+// in diag/chain_designs.cu (bf16 and int8). The production kernels and the
+// chains (mlp_chain.cu) use wgmma (point_mlp.cuh).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "mma.m16n8k32"); g = lane / 4, t = lane % 4:

@@ -94,9 +94,10 @@ def emit(name: str, result: dict) -> None:
     print(json.dumps({name: result}), flush=True)
 
 
-def run_program(src: str, timeout: int = 300) -> tuple:
+def run_program(src: str, timeout: int = 300, args=()) -> tuple:
     """Build the standalone CUDA program ``src`` (a file beside this one)
-    with the port's nvcc flags into the kernel build directory, run it,
+    with the port's nvcc flags into the kernel build directory (nvcc's
+    report in ``build.log`` beside the executable), run it with ``args``,
     and return (its executable's path, the JSON of its last line)."""
     name = os.path.splitext(src)[0]
     out_dir = os.path.join(build.BUILD_ROOT, name)
@@ -107,7 +108,9 @@ def run_program(src: str, timeout: int = 300) -> tuple:
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed building {src}:\n" + proc.stdout + proc.stderr)
-    run = subprocess.run([exe], capture_output=True, text=True, timeout=timeout)
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    run = subprocess.run([exe, *args], capture_output=True, text=True, timeout=timeout)
     if run.returncode:
         raise RuntimeError(f"{name} failed:\n" + run.stdout + run.stderr)
     return exe, json.loads(run.stdout.strip().splitlines()[-1])

@@ -6,7 +6,8 @@ int8 products with int32 sums and a requantization a layer
 (``ops/kernels/mlp_chain.py``). The H100's dense int8 tensor-core rate
 is twice its bf16 rate. The TPU's grid block (``--block`` columns) is
 kept only as the unit of ``us_per_block_step``: every column is
-independent, and the kernel gives each thread block 64 of them.
+independent, and the kernel gives each warpgroup 64 of them (a thread
+block 128).
 
 Weights and x come from a numpy seed: bf16 weights 0.05 N(0, 1), int8
 weights uniform in [-127, 127], x N(0, 1). Each chain is held to its

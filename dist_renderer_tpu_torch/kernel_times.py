@@ -44,7 +44,11 @@ Inputs (the committed bench fixture; seeded):
     ``torch.matmul``, a torch add into the output's first 512 columns,
     ``clone()``, ``x + 1.0``, ``torch.mm(..., out_dtype=float32)``): a
     launch's device time inside a CUDA graph of 200 (``graph_us``), in
-    ms.
+    ms;
+  - the MLP chains P23 (bf16) and P24 (int8) at ``diag_int8``'s defaults
+    (its seeded inputs: 8 layers of 512 x 512, 32 steps, 32,768 columns),
+    and "P23 library", "P24 library" (a bf16 ``torch.matmul``, a
+    ``torch._int_mm`` a layer).
 Each other: CUDA events around the wrapper, median of 3 after a warm-up
 (``utils/profiling.py``'s ``cuda_ms``, imported from the tree timed: a
 ``--root`` tree needs that module).
@@ -134,6 +138,20 @@ def main(argv=None) -> int:
             for name, fn in graphed.items():
                 if want(name):
                     times[name] = graph_us(fn) / 1e3
+        if want("P23", "P24"):
+            from dist_renderer_tpu_torch.diag import diag_int8
+            from dist_renderer_tpu_torch.ops.kernels import mlp_chain as mc
+
+            xc, wb, wi = diag_int8.inputs(dev, 8, 512, 32_768)
+            chains = {
+                "P23": lambda: mc.chain_bf16(xc, wb, 32),
+                "P23 library": lambda: mc.chain_bf16_library(xc, wb, 32),
+                "P24": lambda: mc.chain_int8(xc, wi, 32),
+                "P24 library": lambda: mc.chain_int8_library(xc, wi, 32),
+            }
+            for name, fn in chains.items():
+                if want(name):
+                    times[name] = cuda_ms(fn)
         if all(o.startswith("P") for o in only):
             return _report(times, root, smi, args.out)
         params, latent = load_params_npz(os.path.join(root, ".bench_decoder.npz"), dev)

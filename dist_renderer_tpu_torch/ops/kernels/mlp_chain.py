@@ -11,14 +11,16 @@ an fp32 carry (so no step can be hoisted):
       per layer int32 sums, h = int8(clip(round(acc / 512), 0, 127));
   then h0 = h0 + 0.125 h / (1 + |h|).
 
-On a CUDA tensor the wrappers launch ``csrc/mlp_chain.cu`` (mma.sync,
-bf16 m16n8k16 or s8 m16n8k32; a block per 64 columns); on a CPU tensor
+On a CUDA tensor the wrappers launch ``csrc/mlp_chain.cu`` (wgmma, bf16
+m64n128k16 or s8 m64n128k32, on a TMA weight ring a block of 128
+columns; the fp32 carry in ``out``); on a CPU tensor
 they run the plain versions. The int8 chain is exact, so kernel and
 plain version agree bit for bit; the bf16 one sums in another order and
-may round an activation the other way. ``round`` is half to even in all
-of them (jnp.round, torch.round, rintf). The ``*_library`` functions
-compute the same functions with one PyTorch call a layer (a bf16
-``torch.matmul``; ``torch._int_mm``), as yardsticks of speed only.
+may round an activation the other way (and divides the carry's
+increment by a reciprocal). ``round`` is half to even in all of them
+(jnp.round, torch.round, rintf). The ``*_library`` functions compute the
+same functions with one PyTorch call a layer (a bf16 ``torch.matmul``;
+``torch._int_mm``), as yardsticks of speed only.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from dist_renderer_tpu_torch.models.decoder import round_bf16
 from dist_renderer_tpu_torch.ops.kernels import build
 
-COLS = 64  # columns a block of the kernel owns
+COLS = 64  # the kernel's column granule: a warpgroup's columns
 
 
 def _carry(h0: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

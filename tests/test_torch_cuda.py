@@ -1810,15 +1810,21 @@ def test_cuda_small_mm_edges_of_its_tiling(m, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", [128, 256])
-def test_cuda_mlp_chains_match_plain(width):
+@pytest.mark.parametrize("width", [128, 256, 384, 512])
+@pytest.mark.parametrize("cols,layers", [(192, 3), (64, 3), (320, 3), (192, 1)])
+def test_cuda_mlp_chains_match_plain(width, cols, layers):
+    """Both chains at every width the kernel takes, on column counts that
+    leave a block's tail masked (64, 192, 320: 1, 3 and 5 warpgroups' 64
+    columns, a block spanning 128), and with one layer (the last layer is
+    the first): int8 bit for bit, bf16 within 2e-3, at 0, 1 and 3 steps."""
     from dist_renderer_tpu_torch.ops.kernels import mlp_chain as mc
 
     dev = _device()
-    rng = np.random.default_rng(width)
-    x = torch.from_numpy(rng.standard_normal((width, 192)).astype(np.float32)).to(dev)
-    wi = torch.from_numpy(rng.integers(-127, 128, (3, width, width)).astype(np.int8)).to(dev)
-    wb = torch.from_numpy((0.05 * rng.standard_normal((3, width, width)))
+    rng = np.random.default_rng(width + cols + layers)
+    x = torch.from_numpy(rng.standard_normal((width, cols)).astype(np.float32)).to(dev)
+    wi = torch.from_numpy(rng.integers(-127, 128, (layers, width, width))
+                          .astype(np.int8)).to(dev)
+    wb = torch.from_numpy((0.05 * rng.standard_normal((layers, width, width)))
                           .astype(np.float32)).to(torch.bfloat16).to(dev)
     before = (mc.chain_bf16.launches, mc.chain_int8.launches)
     for steps in (0, 1, 3):
@@ -2021,6 +2027,35 @@ def test_cuda_graph_replay_of_probes_equals_eager():
     for o in outs[-3:]:
         for got, want in zip(o[1:], eager):
             assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_replay_of_mlp_chains_equals_eager():
+    """A CUDA graph of both chains (a cudaLaunchKernelEx launch with a
+    tensor map among its parameters) replays eager's bits: int8 and bf16,
+    at the smallest and the widest width."""
+    from dist_renderer_tpu_torch.ops.kernels import mlp_chain as mc
+    from dist_renderer_tpu_torch.utils.profiling import capture
+
+    dev = _device()
+    rng = np.random.default_rng(11)
+    cases = []
+    for width in (128, 512):
+        x = torch.from_numpy(rng.standard_normal((width, 320)).astype(np.float32)).to(dev)
+        wi = torch.from_numpy(rng.integers(-127, 128, (2, width, width))
+                              .astype(np.int8)).to(dev)
+        wb = torch.from_numpy((0.05 * rng.standard_normal((2, width, width)))
+                              .astype(np.float32)).to(torch.bfloat16).to(dev)
+        cases.append((x, wi, wb))
+    eager = [(mc.chain_int8(x, wi, 2), mc.chain_bf16(x, wb, 2)) for x, wi, wb in cases]
+    outs = []
+    graph = capture(lambda: outs.append(
+        [(mc.chain_int8(x, wi, 2), mc.chain_bf16(x, wb, 2)) for x, wi, wb in cases]), 2)
+    graph.replay()
+    torch.cuda.synchronize()
+    for o in outs[-2:]:
+        for got, want in zip(o, eager):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu

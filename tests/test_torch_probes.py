@@ -669,6 +669,77 @@ def test_copy_designs_reads_each_kernels_memory_ops_in_order():
     }
 
 
+def test_chain_designs_needs_a_card(monkeypatch):
+    """The MLP chain design comparison measures the card: without one it
+    raises SystemExit before it builds or computes anything."""
+    from dist_renderer_tpu_torch.diag import chain_designs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        chain_designs.main([])
+
+
+def test_chain_designs_reads_registers_and_spills():
+    """chain_designs' ptxas reading: each matching entry function's
+    registers and spill bytes, other functions left out."""
+    from dist_renderer_tpu_torch.diag.chain_designs import ptxas_report
+
+    log = """
+ptxas info    : Compiling entry function '_ZN3drt2mc12chain_kernelINS0_3CfgILb1EEE' for 'sm_90a'
+ptxas info    : Function properties for _ZN3drt2mc12chain_kernelINS0_3CfgILb1EEE
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN3drt2pr5emptyEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN3drt2pr5emptyEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 4 registers
+"""
+    assert ptxas_report(log) == {"_ZN3drt2mc12chain_kernelINS0_3CfgILb1EEE": {
+        "spill_stores": 12, "spill_loads": 16, "registers": 168}}
+
+
+def test_chain_designs_counts_the_mma_opcodes():
+    """chain_designs' SASS reading: each chain kernel's warpgroup and warp
+    MMA opcodes (HGMMA, IGMMA, HMMA, IMMA), other kernels left out."""
+    from dist_renderer_tpu_torch.diag.chain_designs import mma_counts
+
+    sass = """
+        Function : _ZN3drt2mc12chain_kernelINS0_3CfgILb0ELi512EEELi7EEEvNS0_4ArgsE
+        /*16d0*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], R24 ;
+        /*1780*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], R24, gsb0 ;
+        Function : _ZN3drt2mc12chain_kernelINS0_3CfgILb1ELi512EEELi7EEEvNS0_4ArgsE
+        /*16d0*/   IGMMA.64x128x32.S8.S8 R24, gdesc[UR12], R24 ;
+        Function : _ZN3drt2pb8small_mmEv
+        /*0100*/   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+    """
+    got = mma_counts(sass)
+    assert list(got) == ["_ZN3drt2mc12chain_kernelINS0_3CfgILb0ELi512EEELi7EEEvNS0_4ArgsE",
+                         "_ZN3drt2mc12chain_kernelINS0_3CfgILb1ELi512EEELi7EEEvNS0_4ArgsE"]
+    assert [tuple(v.values()) for v in got.values()] == [(2, 0, 0, 0), (0, 1, 0, 0)]
+
+
+@pytest.mark.parametrize("kind,row,ok", [
+    ("int8", {"ms": 1.0, "max_abs_err": 0.0, "equal": True}, True),
+    ("int8", {"ms": 1.0, "max_abs_err": 1e-7, "equal": False}, False),
+    ("bf16", {"ms": 1.0, "max_abs_err": 5e-3, "equal": False}, True),
+    ("bf16", {"ms": 1.0, "max_abs_err": 2e-2, "equal": False}, False),
+    ("bf16", {"ms": 1.0, "max_abs_err": float("inf"), "equal": False}, False),
+    ("int8", {"ms": 1.0}, True),
+])
+def test_chain_designs_holds_each_design_to_its_bar(kind, row, ok):
+    """chain_designs' check: int8 designs bit for bit, bf16 within
+    CHAIN_BF16_BAR (NaN or inf fails); rows without a comparison (the
+    parts of a design) pass."""
+    from dist_renderer_tpu_torch.diag.chain_designs import check
+
+    res = {kind: {"design": row}}
+    if ok:
+        check(res)
+    else:
+        with pytest.raises(AssertionError):
+            check(res)
+
+
 def test_dma_designs_needs_a_card(monkeypatch):
     """The dma_loop / vec_while design comparison measures the card:
     without one it raises SystemExit before it builds anything."""
