@@ -1607,10 +1607,11 @@ DC_CHAMFER_MAX = 0.5
 # The first versions of the redesigned probe kernels: device us per launch
 # in a CUDA graph of 200 (PERF.md's P rows: P8, P18, P19 and P21 beside
 # the library call, P20 the launch table's; P7 at 8 trips and P15 at one,
-# the mean of two kernel_times.py runs of the first version), NVIDIA H100
-# 80GB HBM3, 700.00 W
-PARENT_GRAPH_US = {"P7": 2.75, "P8": 38.99, "P15": 2.81, "P18": 3.42, "P19": 3.61,
-                   "P20": 13.94, "P21": 19.76}
+# the mean of two kernel_times.py runs of the first version; P4 at n_live
+# 0 and P6 at 64 trips likewise, the bracketed first-version readings of
+# the P4 and P6 rows), NVIDIA H100 80GB HBM3, 700.00 W
+PARENT_GRAPH_US = {"P4": 91.47, "P6": 11.36, "P7": 2.75, "P8": 38.99, "P15": 2.81,
+                   "P18": 3.42, "P19": 3.61, "P20": 13.94, "P21": 19.76}
 # the MLP chains' first version (mma.sync, the weights' fragments from L2,
 # the carry in shared memory): ms at diag_int8.py's defaults, CUDA events,
 # median of 3 (PERF.md's P23 and P24 rows), NVIDIA H100 80GB HBM3, 700.00 W
@@ -1663,6 +1664,9 @@ def probes_phase(torch, dev):
                  if r["id"] in PARENT_GRAPH_US else "")
               + (f" (first version {PARENT_CHAIN_MS[r['id']]:.3f} ms)"
                  if r["id"] in PARENT_CHAIN_MS else ""))
+    sweep = res["diag_launch2"]["scalar_while_trips"]
+    print("  scalar_while (P6) in a graph of 200, us by trips: "
+          + ", ".join(f"{t}: {row['graph_us']:.3f}" for t, row in sweep.items()))
     lc = res["diag_launch_cost"]
     for name, row in lc["table"].items():
         print(f"  launch {name:<14} host {row['host_us']:8.2f} us  graph "

@@ -14,18 +14,27 @@
 // port's real kernels do; a DMA semaphore is an mbarrier, initialised by
 // one thread and fenced; an SMEM array is an int32 list staged in shared
 // memory; a DMA is a cp.async.bulk (TMA) copy completing on an mbarrier.
-// An SMEM scalar is on-chip, a cycle to read: P7 and P15 read their trip
-// count from device memory once, before the loop, into a register, its
-// counterpart. The loops of P3-P6 and P11-P14, whose function is a loop
-// bound read at every trip, keep a volatile load from device memory each
-// trip (~0.15 us a trip on the H100: P6 runs 64 trips in ~10.4 us, an
-// empty launch in ~0.8).
+// An SMEM scalar is on-chip, a cycle to read, and its counterpart is a
+// word on chip: P7 and P15 read their trip count from device memory once,
+// before the loop, into a register. The loops of P3-P6 and P11-P14, whose
+// function is a loop bound read at every trip, read it on chip at every
+// trip, as the TPU kernels read their SMEM scalar: one thread loads it
+// from device memory into a shared-memory word, a barrier publishes it
+// (__syncwarp in scalar_while, the block's in index_loop, whose list all
+// threads stage), and warp 0 alone runs the trips, each a volatile shared
+// load (LDS), a compare and a branch. Their first versions loaded it from
+// device memory at every trip (ld_volatile: ~0.14-0.18 us a trip on the
+// H100, P6's 64 trips 10.4 us in a CUDA graph, P4's 512 90.7, an empty
+// launch 0.8); diag/loop_designs.cu times the designs.
 //
 // Bound: none of these do work but P15's and P18/P19's copies (P15: rows
 // 0-7 of rays read, 16 KB, and 16 KB written; P18/P19 16 KB read and 16
 // KB written at [8, 512]: 0.0098 us at 3.35 TB/s) and P6/P7's zero and
 // carry stores (4 + 4 KB, 4 + 16 KB); the time is the launch's fixed
-// cost and the round trips the kernel waits for in turn. Design: one
+// cost and the round trips the kernel waits for in turn, and for the
+// loops of P3-P6 and P11-P14 their trips, each at least one dependent
+// shared load's latency (the floor trips x that latency + an empty
+// launch, which diag/loop_designs.cu measures). Design: one
 // block (the TPU's grid=(1,)), loops warp-uniform, but for P15, P18 and
 // P19, which fill a grid: their first versions, one block of 256
 // threads, waited out their round trips in series. P18/P19 ran a 16-trip
@@ -56,12 +65,22 @@ namespace pr {
 constexpr int THREADS = 128;
 constexpr int DEFAULT_SMEM = 48 * 1024;  // usable without the opt-in attribute
 
+// A device-memory word read anew at every call (the first versions' loop
+// bound; the design programs time it).
 __device__ __forceinline__ int ld_volatile(const int* p) {
   return *reinterpret_cast<const volatile int*>(p);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// A shared-memory word read anew at every call (ld.volatile.shared: an
+// LDS the compiler neither hoists nor merges).
+__device__ __forceinline__ int lds_volatile(const int* p) {
+  int v;
+  asm volatile("ld.volatile.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(smem_u32(p)) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -103,9 +122,10 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // n_bars mbarriers (arrival count 1) at the front of dynamic shared
 // memory, as the TPU kernels' DMA semaphores; 16 bytes per barrier
-// reserved, so what follows stays 16-byte aligned.
+// reserved, so what follows stays 16-byte aligned. Ends in the block's
+// barrier, n_bars 0 too.
 __device__ __forceinline__ void init_bars(char* smem, int n_bars) {
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && n_bars > 0) {
     for (int i = 0; i < n_bars; ++i) mbar_init(smem_u32(smem + 16 * i), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -122,48 +142,80 @@ __global__ void scratch_kernel(const float* a, float* b, int n_bars) {
   init_bars(smem, n_bars);
 }
 
-// P3, P5, P6, P11-P13: a while loop whose bound is read from device
-// memory at every trip (k < n_live[0]), the optional scratch set, and
-// with zeros != null an [n_zeros] zero write after the loop (P5, P6).
+// P3, P5, P6, P11-P13: a while loop whose bound, n_live[0], is read at
+// every trip from a shared-memory word (the TPU kernels' SMEM scalar):
+// thread 0 loads it from device memory once, and warp 0 alone runs the
+// trips, a dependent chain of LDS, compare and branch that no other warp
+// contends with. Only warp 0 reads the word, so __syncwarp publishes it
+// (the optional scratch set ends in the block's barrier, as P2's). With
+// zeros != null, an [n_zeros] zero write first (P5, P6: float4 stores,
+// two a thread at [8, 128]; n_zeros % 4 == 0 and zeros 16-byte aligned).
 // live, rays, bias and out are the TPU kernels' other operands: passed,
 // never read.
 __global__ void scalar_while_kernel(const int* n_live, const int* live, const float* rays,
                                     const float* bias, float* out, float* zeros,
                                     int n_zeros, int n_bars) {
   extern __shared__ __align__(16) char smem[];
-  if (n_bars > 0) init_bars(smem, n_bars);
-  int k = 0;
-  while (k < ld_volatile(n_live)) ++k;
+  __shared__ int bound;
+  const int b = threadIdx.x == 0 ? *n_live : 0;  // in flight during the stores
   if (zeros != nullptr)
-    for (int i = threadIdx.x; i < n_zeros; i += blockDim.x) zeros[i] = 0.f;
+    for (int i = threadIdx.x; i < n_zeros / 4; i += blockDim.x)
+      reinterpret_cast<float4*>(zeros)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n_bars > 0) init_bars(smem, n_bars);
+  if (threadIdx.x >= 32) return;
+  if (threadIdx.x == 0) bound = b;
+  __syncwarp();
+  int k = 0;
+  while (k < lds_volatile(&bound)) ++k;
 }
 
 // P4 (k_fori) and P14 (k_smemarr): the int32 list live[n_list] staged in
-// shared memory after the barriers, then
+// shared memory after the barriers, in one round trip where n_list % 4
+// == 0 and live is 16-byte aligned (int4 loads, one a thread at 512
+// entries; 4-byte loads otherwise), the bound as in scalar_while, then
+// warp 0 alone:
 //   mode 0: for k in [0, n_list): if k < n_live[0], ts = list[k];
 //   mode 1: while k < n_live[0]: k += list[k] * 0 + 1
 // (the TPU kernels' loops; ts is a shared scalar, the list read through
-// volatile so that neither loop folds away; mode 1 reads 0 past the end
-// of the list, where the TPU kernel read out of bounds).
+// volatile so that neither loop folds away). Each trip reads its list
+// entry beside the bound, before the compare: read after it, the entry
+// was a second shared round trip a trip, since the copy's store (and in
+// mode 1 the next trip's loads) waited for it, predicated off or not
+// (P4's 512 trips 22.3 us in a CUDA graph, 17.6 with the entry read
+// first; mode 1 0.031 us a trip against 0.023). Mode 0's loop runs over
+// the list, not the bound, and is unrolled by 4 (13.8 us). Mode 1 reads
+// entry min(k, n_list): past the end of the list, ts's word, times 0
+// (the TPU kernel read out of bounds).
 __global__ void index_loop_kernel(const int* live, int n_list, const int* n_live,
                                   const float* rays, const float* bias, float* out,
                                   int mode, int n_bars) {
   extern __shared__ __align__(16) char smem[];
-  volatile int* list = reinterpret_cast<volatile int*>(smem + 16 * n_bars);
-  volatile int* ts = list + n_list;
-  for (int i = threadIdx.x; i < n_list; i += blockDim.x) list[i] = live[i];
-  if (n_bars > 0) {
-    init_bars(smem, n_bars);
+  __shared__ int bound;
+  int* list = reinterpret_cast<int*>(smem + 16 * n_bars);
+  if (threadIdx.x == 0) bound = *n_live;
+  if (n_list % 4 == 0 && ((uintptr_t)live & 15) == 0) {
+    for (int i = threadIdx.x; i < n_list / 4; i += blockDim.x)
+      reinterpret_cast<int4*>(list)[i] = __ldg(reinterpret_cast<const int4*>(live) + i);
   } else {
-    __syncthreads();
+    for (int i = threadIdx.x; i < n_list; i += blockDim.x) list[i] = live[i];
   }
+  init_bars(smem, n_bars);
+  if (threadIdx.x >= 32) return;
+  const volatile int* vlist = list;
+  volatile int* ts = list + n_list;
   if (mode == 0) {
-#pragma unroll 1
-    for (int k = 0; k < n_list; ++k)
-      if (k < ld_volatile(n_live)) ts[0] = list[k];
+#pragma unroll 4
+    for (int k = 0; k < n_list; ++k) {
+      const int e = vlist[k];
+      if (k < lds_volatile(&bound)) ts[0] = e;
+    }
   } else {
-    int k = 0;
-    while (k < ld_volatile(n_live)) k += (k < n_list ? list[k] : 0) * 0 + 1;
+    for (int k = 0;;) {
+      const int b = lds_volatile(&bound);
+      const int e = vlist[min(k, n_list)];
+      if (k >= b) break;
+      k += e * 0 + 1;
+    }
   }
 }
 
@@ -381,11 +433,13 @@ extern "C" int drt_probe_scratch(const float* a, float* b, int smem_bytes, int n
   return (int)cudaGetLastError();
 }
 
+// zeros (or null) 16-byte aligned, n_zeros % 4 == 0; smem_bytes >= 16 * n_bars.
 extern "C" int drt_probe_scalar_while(const int* n_live, const int* live, const float* rays,
                                       const float* bias, float* out, float* zeros,
                                       int n_zeros, int smem_bytes, int n_bars,
                                       void* stream) {
-  if (smem_bytes < 16 * n_bars) return (int)cudaErrorInvalidValue;
+  if (smem_bytes < 16 * n_bars || n_zeros % 4 != 0 || ((uintptr_t)zeros & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = opt_in(scalar_while_kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   scalar_while_kernel<<<1, THREADS, smem_bytes, (cudaStream_t)stream>>>(

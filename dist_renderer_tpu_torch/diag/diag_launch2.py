@@ -68,18 +68,25 @@ def seeded(dev, seed: int = 0):
 
 
 def check(dev) -> list:
-    """P6-P10 against their plain versions, with their kernel rows."""
+    """P6-P10 against their plain versions, with their kernel rows (P6 at
+    every count of the trip sweep)."""
     x, m, xr, xs = script_inputs(dev)
     gx, gm, gs = seeded(dev)
     i32 = dict(dtype=torch.int32, device=dev)
     rows = []
     t64 = torch.tensor([64], **i32)
-    err = check_equal("P6", pk.scalar_while(t64, zeros=True),
-                      pk.scalar_while_plain(t64, zeros=True))
+    for trips in TRIPS:
+        t = torch.tensor([trips], **i32)
+        err = check_equal(f"P6 x{trips}", pk.scalar_while(t, zeros=True),
+                          pk.scalar_while_plain(t, zeros=True))
+    # one torch.zeros computes P6's function: its output is zeros at any
+    # count, and its loop leaves nothing the caller can see
+    zeros = lambda: torch.zeros(pk.ZEROS_SHAPE, device=dev)
+    check_equal("P6 (one torch.zeros)", zeros(), pk.scalar_while(t64, zeros=True))
     rows.append(kernel_row("P6", pk.scalar_while, SRC_L, f"{TPU}:65", err,
                            lambda: pk.scalar_while(t64, zeros=True),
-                           lambda: pk.scalar_while_plain(t64, zeros=True),
-                           nbytes=4 + 4 * 8 * 128))
+                           lambda: pk.scalar_while_plain(t64, zeros=True), zeros,
+                           nbytes=4 + 4 * 8 * 128, graphs=True))
     t8 = torch.tensor([8], **i32)
     for trips in (0, 1, 8, 1 << 20):
         t = torch.tensor([trips], **i32)

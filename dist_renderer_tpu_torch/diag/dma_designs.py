@@ -7,7 +7,8 @@ each in a CUDA graph of 200 at the TPU scripts' shapes (P15 at 0, 1 and
 1, 2 and 64 trips, P7 at 0, 1, 8 and 2^20). Then ``cuobjdump -sass`` of
 the same program counts what the first versions' and the kernels' loops
 hold: global loads (the count read every trip or not), adds, compares,
-barriers, bulk copies and mbarrier operations. Prints the card's name and power limit, then
+barriers, bulk copies and mbarrier operations, all loops together and
+loop by loop. Prints the card's name and power limit, then
 one JSON line {"dma_designs": {"dma_loop": {design: {"us": {trips: us},
 "rounds", "equal"}}, "vec_while": {...}, "sass": {kernel: {"loads",
 "loops", "in_loops"}}}}.
@@ -38,16 +39,18 @@ SASS_KERNELS = {
 COUNTED = ("LDG", "LD", "FADD", "FSETP", "BAR", "UBLKCP", "SYNCS")
 
 
-def loop_ops(sass: str) -> dict:
-    """For each kernel in SASS_KERNELS, from ``cuobjdump -sass``'s text:
-    its global loads in program order, its number of loops (backward
-    branches; not the branch to itself that pads a kernel's end) and how
-    many of each COUNTED opcode lie inside a loop (an address range from
-    a backward branch's target to the branch)."""
+def loop_ops(sass: str, kernels: dict = SASS_KERNELS, counted=COUNTED) -> dict:
+    """For each kernel in ``kernels`` (label -> a pattern of its mangled
+    name), from ``cuobjdump -sass``'s text: its global loads in program
+    order, its number of loops (backward branches; not the branch to
+    itself that pads a kernel's end) and how many of each ``counted``
+    opcode lie inside a loop (an address range from a backward branch's
+    target to the branch), all loops together and loop by loop
+    ("per_loop", in program order)."""
     res = {}
     for body in sass.split("Function : ")[1:]:
         name = body.split(None, 1)[0]
-        label = next((k for k, p in SASS_KERNELS.items() if re.search(p, name)), None)
+        label = next((k for k, p in kernels.items() if re.search(p, name)), None)
         if label is None:
             continue
         ins = [(int(addr, 16), re.sub(r"^@!?\w+\s+", "", text.strip()))
@@ -55,13 +58,13 @@ def loop_ops(sass: str) -> dict:
         loops = [(int(m.group(1), 16), addr) for addr, text in ins
                  for m in [re.match(r"BRA(?:\.\w+)*\s+0x([0-9a-f]+)", text)]
                  if m and int(m.group(1), 16) < addr]
-        inside = {}
-        for addr, text in ins:
-            op = text.split(None, 1)[0].split(".")[0] if text else ""
-            if op in COUNTED and any(lo <= addr <= hi for lo, hi in loops):
-                inside[op] = inside.get(op, 0) + 1
+        ops = [(addr, text.split(None, 1)[0].split(".")[0] if text else "")
+               for addr, text in ins]
+        count = lambda ranges: {op: n for op in counted if (n := sum(
+            1 for addr, o in ops if o == op and any(lo <= addr <= hi for lo, hi in ranges)))}
         loads = [t.split(None, 1)[0] for _, t in ins if re.match(r"(?:LDG|LD)\.", t)]
-        res[label] = dict(loads=" ".join(loads), loops=len(loops), in_loops=inside)
+        res[label] = dict(loads=" ".join(loads), loops=len(loops), in_loops=count(loops),
+                          per_loop=[count([r]) for r in sorted(loops)])
     return res
 
 

@@ -33,6 +33,12 @@ Inputs (the committed bench fixture; seeded):
     (K3) and cotangents (K4); K3 (b) and K4 (b) on K5's 262,144 points
     (the lazy margin's width: its backward runs K3, then K4, on every
     anchor), K4 (c) with 3 seed rows and the xyz gradient;
+  - the loop probes at their scripts' operands (diag_launch_cost's,
+    diag_launch2's and diag_launch3's zero operands, the bench decoder's
+    march plan as P3's and P4's scratch): P3, P5, P11, P12, P13 at
+    n_live 0, P4 and P14 at n_live 0 and 512 ("P4 x512", "P14 x512"),
+    P6 at 64 trips and 16,384 ("P6 x16384"), and "P6 library" (P5's
+    and P6's function, their [8, 128] zeros, by one ``torch.zeros``);
   - the probes P7 (vec_while at 8 trips, diag_launch2's), P8 (f32dot,
     diag_launch2's [24, 512] x [1024, 512]^T), P15 (dma_loop at one trip,
     diag_launch3's seeded [16, 262144] rays), P18 and P19 (copy, add_one
@@ -107,7 +113,7 @@ def main(argv=None) -> int:
                          text=True).stdout.strip().splitlines()[0]
     times = {}
     with torch.no_grad():
-        if want("P"):
+        if any(o == "" or o.startswith("P") for o in only):
             from dist_renderer_tpu_torch.diag import diag_launch2, diag_launch4
             from dist_renderer_tpu_torch.ops.kernels import probes
 
@@ -135,6 +141,28 @@ def main(argv=None) -> int:
                 "P20 library": lambda: torch.mm(xm.to(torch.bfloat16), w,
                                                 out_dtype=torch.float32),
             }
+            if want("P3", "P4", "P5", "P6", "P11", "P12", "P13", "P14"):
+                from dist_renderer_tpu_torch.diag import Operands, diag_launch3
+                from dist_renderer_tpu_torch.diag.diag_launch_cost import (
+                    bench_decoder, probe_calls,
+                )
+                from dist_renderer_tpu_torch.ops.kernels.mlp_eval import mma_smem_bytes
+
+                params, dcfg, _ = bench_decoder(dev)
+                shared = bm.pack_shared(params, dcfg)
+                calls = {**probe_calls(mma_smem_bytes(shared, march=True)),
+                         **diag_launch3.ladder()}
+                o0 = Operands(dev, shared.total)
+                o512 = Operands(dev, shared.total, n_live=512)
+                t64 = torch.full((1,), 64, dtype=torch.int32, device=dev)
+                t16k = torch.full((1,), 16384, dtype=torch.int32, device=dev)
+                for pid in ("P3", "P4", "P5", "P11", "P12", "P13", "P14"):
+                    graphed[pid] = lambda run=calls[pid][0]: run(o0)
+                for pid in ("P4", "P14"):
+                    graphed[f"{pid} x512"] = lambda run=calls[pid][0]: run(o512)
+                graphed["P6"] = lambda: probes.scalar_while(t64, zeros=True)
+                graphed["P6 x16384"] = lambda: probes.scalar_while(t16k, zeros=True)
+                graphed["P6 library"] = lambda: torch.zeros(probes.ZEROS_SHAPE, device=dev)
             for name, fn in graphed.items():
                 if want(name):
                     times[name] = graph_us(fn) / 1e3

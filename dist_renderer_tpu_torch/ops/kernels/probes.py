@@ -112,14 +112,16 @@ def scalar_while(n_live: torch.Tensor, rays: Optional[torch.Tensor] = None,
                  live: Optional[torch.Tensor] = None,
                  bias: Optional[torch.Tensor] = None, zeros: bool = False,
                  smem_bytes: int = 0, n_bars: int = 0) -> torch.Tensor:
-    """A while loop of n_live[0] trips (int32 [1] on the device, read at
-    every trip) that does nothing: P3 (k_noW, with the real kernel's
-    scratch set), P5 and P6 (zeros=True: an [8, 128] zero output, the
-    TPU's VMEM block), P11 (k_any: rays in, an [8, N] output never
-    written, its contents unspecified), P12 (k_alias: the output is
-    ``defaults``), P13 (k_scratch: with scratch and barriers). The
-    output: zeros, else ``defaults`` (aliased), else the unwritten one.
-    ``live``, ``rays`` and ``bias`` are operands the body never reads."""
+    """A while loop of n_live[0] trips (int32 [1] on the device) that
+    does nothing: P3 (k_noW, with the real kernel's scratch set), P5 and
+    P6 (zeros=True: an [8, 128] zero output, the TPU's VMEM block), P11
+    (k_any: rays in, an [8, N] output never written, its contents
+    unspecified), P12 (k_alias: the output is ``defaults``), P13
+    (k_scratch: with scratch and barriers). The kernel loads the bound
+    into shared memory once and reads it there at every trip, as the TPU
+    kernels read their SMEM scalar; one warp runs the trips. The output:
+    zeros, else ``defaults`` (aliased), else the unwritten one. ``live``,
+    ``rays`` and ``bias`` are operands the body never reads."""
     if not _cuda(n_live, rays, defaults, live, bias):
         return scalar_while_plain(n_live, rays, defaults, live, bias, zeros,
                                   smem_bytes, n_bars)
@@ -152,9 +154,12 @@ def index_loop(live: torch.Tensor, n_live: torch.Tensor, rays: torch.Tensor,
     """The int32 list ``live`` staged in shared memory and walked: mode 0
     is P4 (k_fori: a loop over the whole list copying entry k to a
     shared scalar while k < n_live[0]), mode 1 is P14 (k_smemarr: a while
-    loop of n_live[0] trips reading entry k). ``smem_bytes`` (at least
-    16 n_bars + 4 (len(live) + 1)) and ``n_bars`` give P4 the real
-    kernel's scratch set. The output is ``defaults`` (aliased)."""
+    loop of n_live[0] trips reading entry k). The bound is read as in
+    ``scalar_while``; the list is staged by 16-byte loads where its length
+    is a multiple of 4 and it starts on a 16-byte boundary, by 4-byte
+    loads otherwise. ``smem_bytes`` (at least 16 n_bars + 4 (len(live) +
+    1)) and ``n_bars`` give P4 the real kernel's scratch set. The output
+    is ``defaults`` (aliased)."""
     if not _cuda(live, n_live, rays, defaults, bias):
         return index_loop_plain(live, n_live, rays, defaults, bias, mode,
                                 smem_bytes, n_bars)

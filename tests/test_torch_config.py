@@ -99,6 +99,7 @@ def test_port_imports_no_jax():
         "dist_renderer_tpu_torch.diag.diag_launch4",
         "dist_renderer_tpu_torch.diag.diag_int8",
         "dist_renderer_tpu_torch.diag.chain_designs",
+        "dist_renderer_tpu_torch.diag.loop_designs",
     ]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

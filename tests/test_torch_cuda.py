@@ -1999,6 +1999,154 @@ def test_cuda_dma_loop_and_vec_while_reject_what_they_cannot_take():
         pk.vec_while(t.to(torch.int64))
 
 
+LOOP_TRIPS = (0, 1, 64, 512, 16384)
+
+
+def _loop_probes():
+    """P3-P6 and P11-P14: id -> (kernel call, plain call, whether the
+    kernel writes its output), each a function of diag.Operands; P3 and
+    P4 with the bench decoder's march plan as their scratch."""
+    from dist_renderer_tpu_torch.diag import diag_launch3, diag_launch_cost
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+    from dist_renderer_tpu_torch.ops.kernels.mlp_eval import smem_plan_bytes
+
+    calls = {**diag_launch_cost.probe_calls(smem_plan_bytes(512, march=True)),
+             **diag_launch3.ladder()}
+    calls["P6"] = (lambda o: pk.scalar_while(o.n_live, zeros=True),
+                   lambda o: pk.scalar_while_plain(o.n_live, zeros=True), True)
+    return {pid: calls[pid] for pid in ("P3", "P4", "P5", "P6", "P11", "P12", "P13", "P14")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trips", LOOP_TRIPS)
+@pytest.mark.parametrize("pid", ["P3", "P4", "P5", "P6", "P11", "P12", "P13", "P14"])
+def test_cuda_loop_probes_match_plain(pid, trips):
+    """The loop probes on seeded operands at n_live 0 to 16,384: the
+    output equal to the plain version's (zeros, or the aliased defaults
+    untouched), every operand equal to its clone taken before the launch
+    (diag.check_probe), one launch a call."""
+    from dist_renderer_tpu_torch.diag import Operands, check_probe
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    run, plain, written = _loop_probes()[pid]
+    kern = pk.index_loop if pid in ("P4", "P14") else pk.scalar_while
+    o = Operands(dev, total=40, seed=int(pid[1:]), n_live=trips)
+    before = kern.launches
+    assert check_probe(f"{pid} x{trips}", run, plain, o, written) == 0.0
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bars", [0, 3])
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("case", ["odd length", "misaligned", "aligned"])
+def test_cuda_index_loop_stages_any_list(case, mode, n_bars):
+    """index_loop on lists its int4 staging cannot take (511 entries; 512
+    starting 4 bytes past a 16-byte boundary: the 4-byte loads) and one it
+    can, with the least shared memory (the shared scalar ts right after
+    the list's last entry), at n_live 0 to 16,384: defaults untouched and
+    every operand as it was."""
+    from dist_renderer_tpu_torch.diag import Operands, check_probe
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    rng = np.random.default_rng(19 + mode + n_bars)
+    n = 511 if case == "odd length" else 512
+    live = torch.from_numpy(rng.integers(1, 512, n).astype(np.int32)).to(dev)
+    if case == "misaligned":
+        live = _misaligned(live)
+    run = lambda o: pk.index_loop(o.live, o.n_live, o.x16, o.x8, mode=mode, n_bars=n_bars)
+    plain = lambda o: pk.index_loop_plain(o.live, o.n_live, o.x16, o.x8, mode=mode)
+    for trips in LOOP_TRIPS:
+        o = Operands(dev, seed=trips, n_live=trips)
+        o.live = live
+        assert check_probe(f"{case} mode {mode} x{trips}", run, plain, o) == 0.0
+
+
+@pytest.mark.gpu
+def test_cuda_graph_replay_of_loop_probes_equals_eager():
+    """One CUDA graph of the loop probes (P3-P6, P11-P14), replayed after
+    their count is rewritten in place (the loops read it on the device at
+    every replay): the outputs equal the plain versions' and eager's, and
+    no operand changes."""
+    from dist_renderer_tpu_torch.diag import Operands
+    from dist_renderer_tpu_torch.utils.profiling import capture
+
+    dev = _device()
+    probes = _loop_probes()
+    o = Operands(dev, total=40, seed=5, n_live=0)
+    keep = o.clone()
+    outs = []
+    graph = capture(lambda: outs.append([run(o) for run, _, _ in probes.values()]), 1)
+    for n in (3, 0, 512, 1, 16384):
+        o.n_live.fill_(n)
+        keep.n_live.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = [run(o) for run, _, _ in probes.values()]
+        for (pid, (_, plain, written)), got, want in zip(probes.items(), outs[-1], eager):
+            if written:
+                assert torch.equal(got, plain(keep)), (pid, n)
+                assert torch.equal(got, want), (pid, n)
+            else:
+                assert got.shape == want.shape, (pid, n)
+        for name, t in vars(o).items():
+            assert torch.equal(t, getattr(keep, name)), (name, n)
+
+
+@pytest.mark.gpu
+def test_cuda_loop_probes_are_not_folded():
+    """The loops run their trips (a loop that read its bound once could
+    fold into k = max(n, 0)): in a CUDA graph, scalar_while (P6) and
+    index_loop mode 1 (P14, the scripts' 512-entry list) at 16,384 trips,
+    and mode 0 (P4) over a 16,384-entry list, take more than 20x their
+    time at 0 trips (or over a 4-entry list). Mode 0 runs its list's
+    trips at any bound, so its time cannot tell a bound read at every
+    trip from one held in a register: the SASS test below does."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+    from dist_renderer_tpu_torch.utils.profiling import graph_us
+
+    dev = _device()
+    i32 = dict(dtype=torch.int32, device=dev)
+    t0, tl = torch.zeros(1, **i32), torch.full((1,), 16384, **i32)
+    rays, dflt = torch.zeros((16, 512), device=dev), torch.zeros((8, 512), device=dev)
+    short, idx512, long = (torch.ones(n, **i32) for n in (4, 512, 16384))
+    pairs = {
+        "P6": (lambda: pk.scalar_while(t0, zeros=True),
+               lambda: pk.scalar_while(tl, zeros=True)),
+        "P14": (lambda: pk.index_loop(idx512, t0, rays, dflt, mode=1),
+                lambda: pk.index_loop(idx512, tl, rays, dflt, mode=1)),
+        "P4": (lambda: pk.index_loop(short, t0, rays, dflt, mode=0),
+               lambda: pk.index_loop(long, t0, rays, dflt, mode=0)),
+    }
+    for pid, (none, many) in pairs.items():
+        few_us, many_us = graph_us(none, 20), graph_us(many, 20)
+        assert many_us > 20 * few_us, (pid, few_us, many_us)
+
+
+@pytest.mark.gpu
+def test_cuda_loop_probes_read_their_bound_from_shared_memory():
+    """In the built library's SASS, scalar_while's and index_loop's trip
+    loops each read the bound by an LDS and read no device memory (no LDG,
+    no LD through a generic pointer): the bound is on chip at every trip,
+    not hoisted into a register and not read from L2."""
+    import shutil
+    import subprocess
+
+    from dist_renderer_tpu_torch.diag import loop_designs
+
+    _device()
+    lib = build.load()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", lib.path], capture_output=True, text=True,
+                          check=True).stdout
+    loops = loop_designs.sass_loops(sass)
+    assert {"scalar_while kernel", "index_loop kernel"} <= set(loops), sorted(loops)
+    loop_designs.check_sass(loops)
+
+
 @pytest.mark.gpu
 def test_cuda_graph_replay_of_probes_equals_eager():
     """A CUDA graph of the port's ctypes launches replays them: an aliased

@@ -772,9 +772,9 @@ def test_dma_designs_imports_no_jax():
 def test_dma_designs_counts_what_each_loop_holds():
     """dma_designs' SASS reading: a named kernel's global loads in order,
     its backward branches, and the counted opcodes inside a loop's address
-    range (predicated or not); code before and after the loop, the
-    branch to itself that pads a kernel's end and other kernels left
-    out."""
+    range (predicated or not), all loops together and loop by loop; code
+    before and after the loop, the branch to itself that pads a kernel's
+    end and other kernels left out."""
     from dist_renderer_tpu_torch.diag.dma_designs import loop_ops
 
     sass = """
@@ -797,10 +797,146 @@ def test_dma_designs_counts_what_each_loop_holds():
     """
     assert loop_ops(sass) == {
         "vec_while kernel": dict(loads="LDG.E", loops=1,
-                                 in_loops={"FSETP": 1, "FADD": 1, "BAR": 1}),
+                                 in_loops={"FSETP": 1, "FADD": 1, "BAR": 1},
+                                 per_loop=[{"FSETP": 1, "FADD": 1, "BAR": 1}]),
         "vec_while first version": dict(loads="LD.E.STRONG.SYS", loops=1,
-                                        in_loops={"LD": 1, "BAR": 1}),
+                                        in_loops={"LD": 1, "BAR": 1},
+                                        per_loop=[{"LD": 1, "BAR": 1}]),
     }
+
+
+def test_loop_designs_needs_a_card(monkeypatch):
+    """The scalar_while / index_loop design comparison measures the card:
+    without one it raises SystemExit before it builds anything."""
+    from dist_renderer_tpu_torch.diag import loop_designs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        loop_designs.main([])
+
+
+LOOP_SASS = """
+        Function : _ZN3drt2pr19scalar_while_kernelEPKiS2_PKfS4_PfS5_iii
+        /*0040*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0050*/                   STS [UR4], R2 ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/                   LDS R3, [UR4] ;
+        /*0080*/                   ISETP.GT.AND P0, PT, R3, R0, PT ;
+        /*0090*/              @P0 IADD3 R0, R0, 0x1, RZ ;
+        /*00a0*/              @P0 BRA 0x70 ;
+        /*00b0*/                   EXIT ;
+        /*00c0*/                   BRA 0xc0;
+        Function : _ZN12_GLOBAL__N_118first_scalar_whileEPKiPfi
+        /*0040*/                   LD.E.STRONG.SYS R3, desc[UR4][R2.64] ;
+        /*0050*/                   ISETP.GT.AND P0, PT, R3, R0, PT ;
+        /*0060*/              @P0 BRA 0x40 ;
+        /*0070*/                   STG.E desc[UR4][R4.64], RZ ;
+        Function : _ZN12_GLOBAL__N_112index_designILNS_5BoundE1ELb1ELb1ELNS_4BodyE0EEEvPKiiS2_ii
+        /*0040*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0050*/                   STS.128 [R7], R4 ;
+        /*0060*/                   IADD3 R0, R0, 0x1, RZ ;
+        /*0070*/                   ISETP.GE.AND P0, PT, R0, R9, PT ;
+        /*0080*/             @!P0 BRA 0x60 ;
+        Function : _ZN12_GLOBAL__N_112while_designILNS_5BoundE0ELb1ELb1EEEvPKiPfi
+        /*0040*/                   LDS R3, [UR4] ;
+        /*0050*/              @P0 BRA 0x40 ;
+        Function : _ZN3drt2pr12empty_kernelEPKfPf
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_loop_designs_reads_what_each_loop_holds():
+    """loop_designs' SASS reading: each named kernel's global loads, its
+    loops and the shared and global loads, shared stores and barriers
+    inside them; template designs told apart by their arguments, other
+    kernels left out."""
+    from dist_renderer_tpu_torch.diag.loop_designs import sass_loops
+
+    assert sass_loops(LOOP_SASS) == {
+        "scalar_while kernel": dict(loads="LDG.E", loops=1, in_loops={"LDS": 1},
+                                    per_loop=[{"LDS": 1}]),
+        "scalar_while (a) first version": dict(loads="LD.E.STRONG.SYS", loops=1,
+                                               in_loops={"LD": 1}, per_loop=[{"LD": 1}]),
+        "index_loop (e) register bound": dict(loads="LDG.E.128.CONSTANT", loops=1,
+                                              in_loops={}, per_loop=[{}]),
+        "scalar_while (c) one warp": dict(loads="", loops=1, in_loops={"LDS": 1},
+                                          per_loop=[{"LDS": 1}]),
+    }
+
+
+@pytest.mark.parametrize("per_loop,ok", [
+    ([{"LDG": 1, "STS": 1}, {"LDS": 1}], True),          # staging, then the trips
+    ([{"LDS": 2, "STS": 1}, {"LDS": 2}], True),
+    ([{"LDG": 1, "STS": 1}], False),                     # no trip loop
+    ([{"LDS": 1, "LDG": 1}], False),                     # the bound from device memory
+    ([{"LD": 1}, {"LDS": 1, "LD": 1}], False),
+])
+def test_loop_designs_requires_a_shared_bound_in_each_kernel_loop(per_loop, ok):
+    """Each kernel needs a trip loop (one holding an LDS), and no loop with
+    an LDS may read device memory; staging loops may."""
+    from dist_renderer_tpu_torch.diag.loop_designs import check_sass
+
+    loops = {"scalar_while kernel": dict(per_loop=[{"LDS": 1}]),
+             "index_loop kernel": dict(per_loop=per_loop)}
+    if ok:
+        check_sass(loops)
+    else:
+        with pytest.raises(AssertionError):
+            check_sass(loops)
+
+
+def test_loop_designs_reads_registers():
+    """loop_designs' ptxas reading: the registers of each named kernel,
+    other entry functions left out."""
+    from dist_renderer_tpu_torch.diag.loop_designs import registers
+
+    log = """
+ptxas info    : Compiling entry function '_ZN3drt2pr17index_loop_kernelEPKiiS2_PKfS4_Pfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN3drt2pr17index_loop_kernelEPKiiS2_PKfS4_Pfii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 14 registers, 4 bytes smem, 408 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112while_designILNS_5BoundE0ELb0ELb1EEEvPKiPfi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 9 registers, 4 bytes smem
+ptxas info    : Compiling entry function '_ZN3drt2pr12empty_kernelEPKfPf' for 'sm_90a'
+ptxas info    : Used 4 registers
+"""
+    assert registers(log) == {"index_loop kernel": 14, "scalar_while (b) shared bound": 9}
+
+
+def test_loop_designs_derives_trip_costs_and_floors():
+    """loop_designs' arithmetic: us a trip from the times at 16,384 and 0
+    trips, the shared-load latency from the chase alike, and each
+    kernel's floor, trips x that latency + the empty launch (P4's body:
+    its 512-entry list at every n_live)."""
+    from dist_renderer_tpu_torch.diag.loop_designs import OPS, derive
+
+    trips = {op: ("0", "512") if op.endswith("0") else ("0", "1", "64", "512", "1024",
+                                                          "16384") for op in OPS}
+    res = {"chase": {"us": {"0": 1.5, "16384": 1.5 + 16384 * 0.02}}}
+    for op in OPS:
+        res[op] = {"kernel": {"us": {t: 1.0 + 0.03 * int(t) for t in trips[op]},
+                              "equal": True},
+                   "empty launch": {"us": {t: 0.8 for t in trips[op]}, "equal": None}}
+    out = derive(res)
+    assert out["load_us"] == pytest.approx(0.02)
+    assert out["scalar_while"]["kernel"]["us_per_trip"] == pytest.approx(0.03)
+    assert "us_per_trip" not in out["index_loop mode 0"]["kernel"]
+    assert out["floor_us"]["index_loop mode 1"]["64"] == pytest.approx(0.8 + 64 * 0.02)
+    assert out["floor_us"]["index_loop mode 0"] == pytest.approx(
+        {"0": 0.8 + 512 * 0.02, "512": 0.8 + 512 * 0.02})
+
+
+def test_loop_designs_fails_a_design_that_differs():
+    """A design whose zeros or inputs were not as its plain version's
+    fails; the unchecked empty launch passes."""
+    from dist_renderer_tpu_torch.diag.loop_designs import OPS, check
+
+    res = {op: {"empty launch": {"equal": None}, "kernel": {"equal": True}} for op in OPS}
+    check(res)
+    res["index_loop mode 0"]["(b) shared bound"] = {"equal": False}
+    with pytest.raises(AssertionError, match="shared bound"):
+        check(res)
 
 
 @pytest.mark.parametrize("entry", ["drt_probe_copy", "drt_probe_add_one"])
