@@ -1609,9 +1609,12 @@ DC_CHAMFER_MAX = 0.5
 # the library call, P20 the launch table's; P7 at 8 trips and P15 at one,
 # the mean of two kernel_times.py runs of the first version; P4 at n_live
 # 0 and P6 at 64 trips likewise, the bracketed first-version readings of
-# the P4 and P6 rows), NVIDIA H100 80GB HBM3, 700.00 W
-PARENT_GRAPH_US = {"P4": 91.47, "P6": 11.36, "P7": 2.75, "P8": 38.99, "P15": 2.81,
-                   "P18": 3.42, "P19": 3.61, "P20": 13.94, "P21": 19.76}
+# the P4 and P6 rows; P10, P16 (scan: a block per row, two barriers a
+# step) and P17, P22 (compact: one block) at the scripts' inputs
+# likewise), NVIDIA H100 80GB HBM3, 700.00 W
+PARENT_GRAPH_US = {"P4": 91.47, "P6": 11.36, "P7": 2.75, "P8": 38.99, "P10": 1.72,
+                   "P15": 2.81, "P16": 1.84, "P17": 6.53, "P18": 3.42, "P19": 3.61,
+                   "P20": 13.94, "P21": 19.76, "P22": 6.52}
 # the MLP chains' first version (mma.sync, the weights' fragments from L2,
 # the carry in shared memory): ms at diag_int8.py's defaults, CUDA events,
 # median of 3 (PERF.md's P23 and P24 rows), NVIDIA H100 80GB HBM3, 700.00 W
@@ -1658,8 +1661,10 @@ def probes_phase(torch, dev):
         print(f"{r['id']:>4} {r['kernel'].__name__:<13} ms {r['ms']:.6f}  plain "
               f"{r['plain_ms']:.6f}  library {r['library_ms']}  bound "
               f"{r['bound_ms']:.3e} ({r['bound_by']})  max|diff| {r['max_abs_err']:.3e}"
-              + (f"  graph of 200: kernel {r['launch']['graph_us']:.3f} us, library "
-                 f"{r['library_launch']['graph_us']:.3f} us" if "launch" in r else "")
+              + (f"  graph of 200: kernel {r['launch']['graph_us']:.3f} us"
+                 if "launch" in r else "")
+              + (f", library {r['library_launch']['graph_us']:.3f} us"
+                 if "library_launch" in r else "")
               + (f" (first version {PARENT_GRAPH_US[r['id']]:.2f} us)"
                  if r["id"] in PARENT_GRAPH_US else "")
               + (f" (first version {PARENT_CHAIN_MS[r['id']]:.3f} ms)"

@@ -33,6 +33,20 @@
 //   a bf16x3 split of d because the TPU's MXU has no exact fp32 path;
 //   here the result is written directly. Positions of survivors are
 //   distinct (a compaction), as the one-hot product's exactness assumed.
+//   Bound: the bytes, at [24, 512] -> [24, 1024] the 148 KB of d, pos,
+//   surv and out (0.045 us); the first version (one block of 512: every
+//   output zeroed by 4-byte stores, a barrier, each survivor's 24 rows by
+//   4-byte stores 4 KB apart: a survivor's word written twice, all of it
+//   through one SM) took 6.5 us in a CUDA graph. Design: a block per row
+//   and 1,024 slots (24 blocks); a thread loads its two lanes' position,
+//   flag and value together (float2 loads where it can), survivor or not,
+//   before it zeroes its float4 of the tile in shared memory; after a
+//   barrier the survivors land in the tile, and after another each
+//   thread writes its float4 of the row once. What holds it on the card
+//   (diag/block_designs.cu): a load's round trip and the stores' drain
+//   behind a launch; more rows or fewer slots a block, a flat grid cut by
+//   a division, or an inverse map and gather (a second round trip) were
+//   each slower.
 // f32dot: x [R, K] times m [S, K] transposed in fp32 on CUDA cores (R <=
 //   32), every output's sum an fmaf chain over k in order. Bound: the
 //   bytes, at R = 24, K = 512, S = 1024 the 2.2 MB of x, m and out (0.67
@@ -56,8 +70,15 @@
 // scan: the inclusive prefix sum of each row by log-shift steps
 //   (c += c shifted by 1, 2, 4, ... with zeros shifted in: the TPU
 //   kernel's adds in the TPU kernel's order, so fp32 rows give its bits);
-//   fp32 or bf16 in, fp32 out (k_tri's triangular product on 0/1 rows).
-//   A block per row, L <= 1024.
+//   fp32 or bf16 in, fp32 out (k_tri's triangular product on 0/1 rows),
+//   L <= 1024. Bound: the bytes, 4 KB at [1, 512] fp32 (0.0012 us); the
+//   first version (a block per row, two barriers a step: 18 at L = 512)
+//   took 1.9 us in a CUDA graph. Design: a warp per row and no barrier,
+//   lane l holding c[l + 32 i]: each warp load and store is 32
+//   neighbouring values, the 5 steps with sh < 32 one shuffle a value, the
+//   others adds within the lane. Lanes holding contiguous values (float4
+//   loads, but every step a shuffle) or strided float4s (7 shuffle steps)
+//   were no faster (diag/block_designs.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -247,23 +268,95 @@ __global__ void __launch_bounds__(MM_THREADS)
   }
 }
 
-__global__ void compact_kernel(const float* d, const float* pos, const float* surv,
-                               float* out, int rows, int lanes, int slots, int int_pos) {
-  for (int i = threadIdx.x; i < rows * slots; i += blockDim.x) out[i] = 0.f;
-  __syncthreads();
-  for (int j = threadIdx.x; j < lanes; j += blockDim.x) {
-    if (!(surv[j] > 0.5f)) continue;
-    const float p = pos[j];
-    int slot;
-    if (int_pos) {
-      if (!(p > -2147483648.f && p < 2147483648.f)) continue;
-      slot = (int)p;  // truncation toward zero, as astype(int32)
-    } else {
-      if (!(p == floorf(p)) || !(p >= 0.f && p < (float)slots)) continue;
-      slot = (int)p;
+// The slot lane j's entry names, or -1 when it names none: not a
+// survivor, a position that is not finite (or not integral, for fp32
+// positions), or a slot outside [0, slots).
+__device__ __forceinline__ int compact_slot(float p, float s, int slots, int int_pos) {
+  if (!(s > 0.5f)) return -1;
+  int slot;
+  if (int_pos) {
+    if (!(p > -2147483648.f && p < 2147483648.f)) return -1;
+    slot = (int)p;  // truncation toward zero, as astype(int32)
+  } else {
+    if (!(p == floorf(p)) || !(p >= 0.f && p < (float)slots)) return -1;
+    slot = (int)p;
+  }
+  return slot >= 0 && slot < slots ? slot : -1;
+}
+
+constexpr int CP_THREADS = 256;           // a block's threads
+constexpr int CP_SLOTS = 4 * CP_THREADS;  // a block's slots of its row: a float4 a thread
+constexpr int CP_ROUND = 2 * CP_THREADS;  // lanes a round: two a thread
+constexpr int CP_ROWS = 65535;            // rows a grid (gridDim.y)
+
+// A round's loads from lane j0 on, survivor or not (zeros past the row's
+// end): a thread's two lanes' positions, flags and values in the block's
+// row, adjacent lanes by 8-byte loads (PAIRS: lanes even, the rows and
+// pos and surv 8-byte aligned), else lanes tid and tid + 256.
+template <bool PAIRS>
+__device__ __forceinline__ void compact_load(const float* __restrict__ dr,
+                                             const float* __restrict__ pos,
+                                             const float* __restrict__ surv, int lanes,
+                                             int j0, float (&p)[2], float (&s)[2],
+                                             float (&v)[2]) {
+  if (PAIRS) {
+    const int j = j0 + 2 * (int)threadIdx.x;
+    float2 a = make_float2(0.f, 0.f), b = a, c = a;
+    if (j < lanes) {
+      a = __ldg(reinterpret_cast<const float2*>(pos + j));
+      b = __ldg(reinterpret_cast<const float2*>(surv + j));
+      c = __ldg(reinterpret_cast<const float2*>(dr + j));
     }
-    if (slot < 0 || slot >= slots) continue;
-    for (int r = 0; r < rows; ++r) out[(size_t)r * slots + slot] = d[(size_t)r * lanes + j];
+    p[0] = a.x, p[1] = a.y, s[0] = b.x, s[1] = b.y, v[0] = c.x, v[1] = c.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = j0 + (int)threadIdx.x + e * CP_THREADS;
+      const bool in = j < lanes;
+      p[e] = in ? __ldg(pos + j) : 0.f;
+      s[e] = in ? __ldg(surv + j) : 0.f;
+      v[e] = in ? __ldg(dr + j) : 0.f;
+    }
+  }
+}
+
+// A block owns one row and 1,024 slots of the output (blockIdx.x the
+// slots, blockIdx.y the row): it builds them in shared memory (zeros,
+// then the survivors' values) and writes each output word once, a float4
+// a thread where slots % 4 == 0. A round's loads are all in flight
+// together, one round trip a round of 512 lanes, and the first round's
+// are issued before the tile is zeroed.
+template <bool PAIRS>
+__global__ void __launch_bounds__(CP_THREADS)
+    compact_kernel(const float* __restrict__ d, const float* __restrict__ pos,
+                   const float* __restrict__ surv, float* __restrict__ out, int lanes,
+                   int slots, int int_pos, int vec) {
+  __shared__ __align__(16) float tile[CP_SLOTS];
+  const int tid = threadIdx.x, s0 = blockIdx.x * CP_SLOTS;
+  const int sn = min(CP_SLOTS, slots - s0);
+  const float* dr = d + (size_t)blockIdx.y * lanes;
+  float p[2], s[2], v[2];
+  compact_load<PAIRS>(dr, pos, surv, lanes, 0, p, s, v);
+  reinterpret_cast<float4*>(tile)[tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  for (int j0 = 0;;) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int slot = compact_slot(p[e], s[e], slots, int_pos) - s0;
+      if (slot >= 0 && slot < sn) tile[slot] = v[e];  // not -1, nor another block's
+    }
+    j0 += CP_ROUND;
+    if (j0 >= lanes) break;
+    compact_load<PAIRS>(dr, pos, surv, lanes, j0, p, s, v);
+  }
+  __syncthreads();
+  float* row = out + (size_t)blockIdx.y * slots + s0;
+  if (vec) {  // slots % 4 == 0: sn too
+    if (4 * tid < sn) reinterpret_cast<float4*>(row)[tid] = reinterpret_cast<float4*>(tile)[tid];
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * tid + e < sn) row[4 * tid + e] = tile[4 * tid + e];
   }
 }
 
@@ -403,26 +496,72 @@ __global__ void roll_kernel(const float* x, float* out, int rows, int lanes, int
   out[i] = x[(size_t)r * lanes + src];
 }
 
-__global__ void scan_kernel(const void* x, float* out, int lanes, int bf16) {
-  __shared__ float c[1024];
-  const int j = threadIdx.x, r = blockIdx.x;
-  if (j < lanes) {
-    const size_t at = (size_t)r * lanes + j;
-    c[j] = bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[at])
-                : static_cast<const float*>(x)[at];
-  }
-  __syncthreads();
-  for (int sh = 1; sh < lanes; sh *= 2) {
-    float v = 0.f, add = 0.f;
-    if (j < lanes) {
-      v = c[j];
-      add = j >= sh ? c[j - sh] : 0.f;
+constexpr int SCAN_WARPS = 4;  // rows a block: a warp each
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// A warp per row, no barrier: lane l holds c[l + 32 i], i < K (K a power
+// of two, 32 K >= L; zeros past L), so that each load and store of the
+// warp is 32 neighbouring values. Each log-shift step adds c[j - sh] to
+// c[j] for every j (zero below j = sh, as the TPU kernel's masked roll
+// adds +0.0), reading only the step's old values: for sh < 32 the value
+// of lane l - sh (mod 32) by a shuffle, from register i, or from i - 1
+// where l < sh; for sh >= 32 the lane's own register i - sh / 32. The
+// steps run while sh < L, as the TPU kernel's (the values past L are read
+// by no earlier element).
+template <int K, typename In>
+__global__ void __launch_bounds__(32 * SCAN_WARPS)
+    scan_kernel(const In* __restrict__ x, float* __restrict__ out, int rows, int lanes) {
+  const int lane = threadIdx.x & 31, r = blockIdx.x * SCAN_WARPS + (threadIdx.x >> 5);
+  if (r >= rows) return;  // warp-uniform
+  const In* xr = x + (size_t)r * lanes;
+  float c[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) c[i] = 32 * i + lane < lanes ? to_float(xr[32 * i + lane]) : 0.f;
+#pragma unroll
+  for (int st = 0; st < 10; ++st) {
+    const int sh = 1 << st;
+    if (sh >= 32 * K || sh >= lanes) break;
+    if (sh < 32) {
+      float rot[K];
+#pragma unroll
+      for (int i = 0; i < K; ++i) rot[i] = __shfl_sync(FULL, c[i], (lane - sh) & 31);
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        c[i] = c[i] + (lane >= sh ? rot[i] : (i ? rot[i ? i - 1 : 0] : 0.f));
+    } else {
+      const int di = sh / 32;
+#pragma unroll
+      for (int i = K - 1; i >= 0; --i) c[i] = c[i] + (i >= di ? c[i >= di ? i - di : 0] : 0.f);
     }
-    __syncthreads();
-    if (j < lanes) c[j] = v + add;
-    __syncthreads();
   }
-  if (j < lanes) out[(size_t)r * lanes + j] = c[j];
+  float* o = out + (size_t)r * lanes;
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    if (32 * i + lane < lanes) o[32 * i + lane] = c[i];
+}
+
+// The K a row of L <= 1024 lanes needs: the least power of two with 32 K >= L.
+inline int scan_k(int lanes) {
+  int k = 1;
+  while (32 * k < lanes) k *= 2;
+  return k;
+}
+
+template <typename In>
+inline void launch_scan(const In* x, float* out, int rows, int lanes, cudaStream_t st) {
+  const int blocks = (rows + SCAN_WARPS - 1) / SCAN_WARPS;
+  const int threads = 32 * min(rows, SCAN_WARPS);
+  switch (scan_k(lanes)) {
+    case 1: scan_kernel<1, In><<<blocks, threads, 0, st>>>(x, out, rows, lanes); break;
+    case 2: scan_kernel<2, In><<<blocks, threads, 0, st>>>(x, out, rows, lanes); break;
+    case 4: scan_kernel<4, In><<<blocks, threads, 0, st>>>(x, out, rows, lanes); break;
+    case 8: scan_kernel<8, In><<<blocks, threads, 0, st>>>(x, out, rows, lanes); break;
+    case 16: scan_kernel<16, In><<<blocks, threads, 0, st>>>(x, out, rows, lanes); break;
+    default: scan_kernel<32, In><<<blocks, threads, 0, st>>>(x, out, rows, lanes); break;
+  }
 }
 
 }  // namespace pb
@@ -450,13 +589,31 @@ extern "C" int drt_probe_small_mm(const float* x, const void* w, float* out, int
   return (int)cudaGetLastError();
 }
 
-// d [rows][lanes], pos [lanes], surv [lanes] fp32 -> out [rows][slots].
+// d [rows][lanes], pos [lanes], surv [lanes] fp32 -> out [rows][slots]; a
+// block per row and 1,024 slots, a grid per 65,535 rows, nothing
+// launched for an empty output.
 extern "C" int drt_probe_compact(const float* d, const float* pos, const float* surv,
                                  float* out, int rows, int lanes, int slots, int int_pos,
                                  void* stream) {
-  compact_kernel<<<1, 512, 0, (cudaStream_t)stream>>>(d, pos, surv, out, rows, lanes,
-                                                      slots, int_pos);
-  return (int)cudaGetLastError();
+  if (rows < 0 || lanes < 0 || slots < 0) return (int)cudaErrorInvalidValue;
+  const bool pairs = lanes % 2 == 0 && (uintptr_t)d % 8 == 0 && (uintptr_t)pos % 8 == 0 &&
+                     (uintptr_t)surv % 8 == 0;
+  const int vec = slots % 4 == 0 && (uintptr_t)out % 16 == 0;
+  const int chunks = (slots + CP_SLOTS - 1) / CP_SLOTS;
+  for (int r0 = 0; r0 < rows && chunks; r0 += CP_ROWS) {
+    const dim3 grid(chunks, min(CP_ROWS, rows - r0));
+    const float* dr = d + (size_t)r0 * lanes;
+    float* o = out + (size_t)r0 * slots;
+    if (pairs)
+      compact_kernel<true><<<grid, CP_THREADS, 0, (cudaStream_t)stream>>>(
+          dr, pos, surv, o, lanes, slots, int_pos, vec);
+    else
+      compact_kernel<false><<<grid, CP_THREADS, 0, (cudaStream_t)stream>>>(
+          dr, pos, surv, o, lanes, slots, int_pos, vec);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // x [rows][k], mat [s][k] fp32 -> out [rows][s]; rows <= 32. The
@@ -487,11 +644,15 @@ extern "C" int drt_probe_roll(const float* x, float* out, int rows, int lanes, i
 }
 
 // x [rows][lanes] fp32 (bf16 = 0) or bf16 (bf16 = 1) -> out [rows][lanes]
-// fp32; lanes <= 1024.
+// fp32; 1 <= lanes <= 1024; nothing launched for no rows.
 extern "C" int drt_probe_scan(const void* x, float* out, int rows, int lanes, int bf16,
                               void* stream) {
-  if (lanes <= 0 || lanes > 1024) return (int)cudaErrorInvalidValue;
-  const int threads = (lanes + 31) / 32 * 32;
-  scan_kernel<<<rows, threads, 0, (cudaStream_t)stream>>>(x, out, lanes, bf16);
+  if (lanes <= 0 || lanes > 1024 || rows < 0) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    launch_scan(static_cast<const __nv_bfloat16*>(x), out, rows, lanes, st);
+  else
+    launch_scan(static_cast<const float*>(x), out, rows, lanes, st);
   return (int)cudaGetLastError();
 }

@@ -125,8 +125,8 @@ def kernel_row(pid: str, kernel, source: str, replaces: str, max_abs_err: float,
     kernel (``run``), its plain version and, where one PyTorch call
     computes the same function, that call (eager, CUDA events), beside
     the bound of the bytes and operations its function needs. graphs=True
-    (a row with a library call) adds the kernel's and the library call's
-    ``launch_row``: host us eager, device us inside a CUDA graph of 200,
+    adds the kernel's ``launch_row`` and, where there is a library call,
+    that call's: host us eager, device us inside a CUDA graph of 200,
     where the host's cost of a launch drops out."""
     b_ms, b_by = bound_ms(nbytes, ops, peak)
     row = dict(id=pid, kernel=kernel, source=source, replaces=replaces,
@@ -134,8 +134,10 @@ def kernel_row(pid: str, kernel, source: str, replaces: str, max_abs_err: float,
                plain_ms=per_call_ms(plain, calls),
                library_ms=None if library is None else per_call_ms(library, calls),
                bound_ms=b_ms, bound_by=b_by)
-    if graphs and library is not None:
-        row.update(launch=launch_row(run), library_launch=launch_row(library))
+    if graphs:
+        row["launch"] = launch_row(run)
+        if library is not None:
+            row["library_launch"] = launch_row(library)
     return row
 
 

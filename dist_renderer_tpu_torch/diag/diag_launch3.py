@@ -117,7 +117,8 @@ def check(dev) -> list:
     rows.append(kernel_row("P17", pk.compact, SRC_B, f"{TPU}:204", err,
                            lambda: pk.compact(d24, pos, surv),
                            lambda: pk.compact_plain(d24, pos, surv),
-                           nbytes=d24.nbytes + pos.nbytes + surv.nbytes + 24 * 1024 * 4))
+                           nbytes=d24.nbytes + pos.nbytes + surv.nbytes + 24 * 1024 * 4,
+                           graphs=True))
     return rows
 
 

@@ -105,7 +105,8 @@ def check(dev) -> list:
     rows.append(kernel_row("P22", pk.compact, SRC_B, f"{TPU}:123", err,
                            lambda: pk.compact(d24, pos, surv, int_pos=True),
                            lambda: pk.compact_plain(d24, pos, surv, int_pos=True),
-                           nbytes=d24.nbytes + pos.nbytes + surv.nbytes + 24 * 1024 * 4))
+                           nbytes=d24.nbytes + pos.nbytes + surv.nbytes + 24 * 1024 * 4,
+                           graphs=True))
     return rows
 
 

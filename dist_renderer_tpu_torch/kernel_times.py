@@ -40,17 +40,22 @@ Inputs (the committed bench fixture; seeded):
     P6 at 64 trips and 16,384 ("P6 x16384"), and "P6 library" (P5's
     and P6's function, their [8, 128] zeros, by one ``torch.zeros``);
   - the probes P7 (vec_while at 8 trips, diag_launch2's), P8 (f32dot,
-    diag_launch2's [24, 512] x [1024, 512]^T), P15 (dma_loop at one trip,
+    diag_launch2's [24, 512] x [1024, 512]^T), P9 (roll_lanes of its
+    [24, 1024] by -512), P10 (scan of its [1, 512] fp32 row), P16 (scan
+    of diag_launch3's [1, 512] bf16 row), P17 and P22 (compact of
+    diag_launch4's d24, pos, surv: fp32 and int positions), P15 (dma_loop at one trip,
     diag_launch3's seeded [16, 262144] rays), P18 and P19 (copy, add_one
     of diag_launch4's seeded [8, 512] x), P20 and P21 (small_mm plain and
     looped one trip, that x times a seeded [512, 512] w), and "P7
-    library", "P8 library", "P15 library", "P18 library", "P19 library",
-    "P20 library" (the PyTorch call computing each function:
-    ``torch.add(z8, t8)`` of an [8, 512] zero carry and the count,
-    ``torch.matmul``, a torch add into the output's first 512 columns,
-    ``clone()``, ``x + 1.0``, ``torch.mm(..., out_dtype=float32)``): a
-    launch's device time inside a CUDA graph of 200 (``graph_us``), in
-    ms;
+    library", "P8 library", "P9 library", "P10 library", "P16 library",
+    "P15 library", "P18 library", "P19 library", "P20 library" (the
+    PyTorch call computing each function: ``torch.add(z8, t8)`` of an [8,
+    512] zero carry and the count, ``torch.matmul``, ``torch.roll``,
+    ``torch.cumsum`` (P16's into fp32), a torch add into the output's first 512 columns,
+    ``clone()``, ``x + 1.0``, ``torch.mm(..., out_dtype=float32)``), and
+    "P17 zeros" (``torch.zeros`` of compact's [24, 1024] output, a memset:
+    no PyTorch call computes a compaction with its zero fill): a launch's
+    device time inside a CUDA graph of 200 (``graph_us``), in ms;
   - the MLP chains P23 (bf16) and P24 (int8) at ``diag_int8``'s defaults
     (its seeded inputs: 8 layers of 512 x 512, 32 steps, 32,768 columns),
     and "P23 library", "P24 library" (a bf16 ``torch.matmul``, a
@@ -117,7 +122,11 @@ def main(argv=None) -> int:
             from dist_renderer_tpu_torch.diag import diag_launch2, diag_launch4
             from dist_renderer_tpu_torch.ops.kernels import probes
 
-            x, m = diag_launch2.script_inputs(dev)[:2]
+            from dist_renderer_tpu_torch.diag.diag_launch3 import tri_inputs
+
+            x, m, xr, xs = diag_launch2.script_inputs(dev)
+            xb = tri_inputs(dev)[0]
+            d24, pos, surv = diag_launch4.compaction_inputs(dev)
             xm, w = diag_launch4.mm_inputs(dev)
             g = torch.Generator().manual_seed(0)
             rays = (torch.rand((16, 512 * 512), generator=g) * 2 - 1).to(dev)
@@ -130,6 +139,15 @@ def main(argv=None) -> int:
                 "P7 library": lambda: torch.add(z8, t8),
                 "P8": lambda: probes.f32dot(x, m),
                 "P8 library": lambda: torch.matmul(x, m.T),
+                "P9": lambda: probes.roll_lanes(xr, -512),
+                "P9 library": lambda: torch.roll(xr, -512, 1),
+                "P10": lambda: probes.scan(xs),
+                "P10 library": lambda: torch.cumsum(xs, 1),
+                "P16": lambda: probes.scan(xb),
+                "P16 library": lambda: torch.cumsum(xb, 1, dtype=torch.float32),
+                "P17": lambda: probes.compact(d24, pos, surv),
+                "P17 zeros": lambda: torch.zeros((24, 1024), device=dev),
+                "P22": lambda: probes.compact(d24, pos, surv, int_pos=True),
                 "P15": lambda: probes.dma_loop(t1, rays, d1),
                 "P15 library": lambda: torch.add(rays[:8, :512], 1.0, out=d1[:, :512]),
                 "P18": lambda: probes.copy(xm),

@@ -344,7 +344,10 @@ def compact(d: torch.Tensor, pos: torch.Tensor, surv: torch.Tensor,
     [0, slots); with int_pos, the position truncated toward zero), zeros
     elsewhere. Survivors' positions are distinct, as in a compaction. The
     TPU kernels reached this through a one-hot bf16x3 product; the kernel
-    writes it directly."""
+    writes it directly: a block per row and 1,024 slots builds them in
+    shared memory (zeros, then the survivors' values) and writes each
+    output word once, by 16-byte stores where slots % 4 == 0. An empty
+    output launches nothing."""
     if not _cuda(d, pos, surv):
         return compact_plain(d, pos, surv, slots, int_pos)
     for t, name in ((d, "d"), (pos, "pos"), (surv, "surv")):
@@ -353,9 +356,10 @@ def compact(d: torch.Tensor, pos: torch.Tensor, surv: torch.Tensor,
     if pos.numel() != lanes or surv.numel() != lanes:
         raise ValueError("pos and surv must have one entry per column of d")
     out = torch.empty((d.shape[0], slots), dtype=torch.float32, device=d.device)
-    _call("drt_probe_compact", d, build.ptr(d), build.ptr(pos), build.ptr(surv),
-          build.ptr(out), d.shape[0], lanes, slots, int(int_pos))
-    compact.launches += 1
+    if out.numel():
+        _call("drt_probe_compact", d, build.ptr(d), build.ptr(pos), build.ptr(surv),
+              build.ptr(out), d.shape[0], lanes, slots, int(int_pos))
+        compact.launches += 1
     return out
 
 
@@ -435,7 +439,11 @@ def scan(x: torch.Tensor) -> torch.Tensor:
     bf16 in, fp32 out: P10 (diag_launch2.py's cumsum_kernel, whose adds
     it makes in the same order: scan_plain, bit for bit on fp32) and P16
     (diag_launch3.py's k_tri, the triangular product: equal on 0/1 rows,
-    whose sums are exact in any order)."""
+    whose sums are exact in any order). The kernel runs a warp per row
+    with no barrier: lane l holds K contiguous values (K the least power
+    of two with 32 K >= L; 16 at L = 512), and each log-shift step's
+    addend comes from the lane's own registers or, by a shuffle, from a
+    lane before it. No rows launch nothing."""
     if not _cuda(x):
         return scan_plain(x)
     if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
@@ -444,9 +452,10 @@ def scan(x: torch.Tensor) -> torch.Tensor:
     if lanes > 1024:
         raise ValueError("scan takes rows of at most 1024 lanes")
     out = torch.empty((rows, lanes), dtype=torch.float32, device=x.device)
-    _call("drt_probe_scan", x, build.ptr(x), build.ptr(out), rows, lanes,
-          int(x.dtype == torch.bfloat16))
-    scan.launches += 1
+    if rows:
+        _call("drt_probe_scan", x, build.ptr(x), build.ptr(out), rows, lanes,
+              int(x.dtype == torch.bfloat16))
+        scan.launches += 1
     return out
 
 

@@ -1738,6 +1738,115 @@ def test_cuda_building_blocks_on_seeded_inputs():
                            pk.dma_loop_plain(t, rays, dflt.clone()))
 
 
+def _compaction_case(rows, lanes, slots, seed):
+    """d [rows, lanes] fp32 (a -0.0 among it), pos and surv [1, lanes]:
+    distinct integral positions from below 0 to past the slots, 70%
+    survivors, and lanes that name no slot of every kind: non-survivors
+    (0, exactly 0.5, NaN), NaN and infinite positions, positions past
+    int32's range, and positions p + 0.25 (p >= 0: no slot in fp32, slot
+    p truncated)."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(-4, 4, (rows, lanes)).astype(np.float32)
+    d.flat[rng.integers(d.size)] = -0.0
+    surv = (rng.random(lanes) < 0.7).astype(np.float32)
+    pos = rng.permutation(np.arange(-lanes, slots + lanes))[:lanes].astype(np.float32)
+    kinds = [("surv", 0.5), ("surv", np.nan), ("pos", np.nan), ("pos", np.inf),
+             ("pos", -np.inf), ("pos", 2.0 ** 31), ("pos", -(2.0 ** 31) - 256.0),
+             ("pos", 3.0e9), ("frac", 0.25)]
+    for (kind, v), j in zip(kinds, rng.permutation(lanes)):
+        if kind == "surv":
+            surv[j] = v
+        elif kind == "pos":
+            surv[j], pos[j] = 1.0, v
+        elif pos[j] >= 0:
+            surv[j], pos[j] = 1.0, pos[j] + v
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return as_t(d), as_t(pos[None]), as_t(surv[None])
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", [1, 256, 1024, 4096])
+@pytest.mark.parametrize("lanes", [1, 33, 512, 1000])
+@pytest.mark.parametrize("rows", [1, 3, 24, 64])
+def test_cuda_compact_equals_plain_at_any_shape(rows, lanes, slots):
+    """compact's blocks (a row and 1,024 slots each, rounds of 512 lanes,
+    16-byte stores where slots % 4 == 0) give compact_plain's bits, -0.0
+    included, with fp32 and int positions, every kind of dropped lane
+    among the survivors."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    d, pos, surv = _compaction_case(rows, lanes, slots, rows * 7919 + lanes * 31 + slots)
+    for int_pos in (False, True):
+        want = pk.compact_plain(d, pos, surv, slots, int_pos)
+        got = pk.compact(d.to(dev), pos.to(dev), surv.to(dev), slots, int_pos)
+        assert torch.equal(_bits(got.cpu()), _bits(want)), (int_pos, rows, lanes, slots)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(24, 512, 1024), (64, 1000, 4096), (3, 33, 257)])
+def test_cuda_compact_writes_every_slot(shape):
+    """The output's block, filled with NaN and freed just before the call,
+    comes back from the allocator as the output; no NaN is left in it, so
+    the kernel wrote every slot (d holds no NaN)."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    rows, lanes, slots = shape
+    d, pos, surv = (t.to(dev) for t in _compaction_case(rows, lanes, slots, 11))
+    for int_pos in (False, True):
+        nan = torch.full((rows, slots), float("nan"), device=dev)
+        at = nan.data_ptr()
+        del nan
+        got = pk.compact(d, pos, surv, slots, int_pos)
+        assert got.data_ptr() == at
+        assert not torch.isnan(got).any()
+        assert torch.equal(_bits(got), _bits(pk.compact_plain(d, pos, surv, slots, int_pos)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 2, 31, 32, 33, 511, 512, 1000, 1024])
+@pytest.mark.parametrize("rows", [1, 4, 65])
+def test_cuda_scan_equals_plain(rows, lanes):
+    """scan's warp per row gives scan_plain's bits on seeded fp32 (-0.0
+    leading a row, which the first step's +0.0 turns into 0.0), also from
+    a misaligned row (4-byte loads), and torch.cumsum's on bf16 0/1."""
+    from dist_renderer_tpu_torch.ops.kernels import probes as pk
+
+    dev = _device()
+    rng = np.random.default_rng(rows * 1031 + lanes)
+    x = torch.from_numpy(rng.uniform(-100, 100, (rows, lanes)).astype(np.float32))
+    x[0, 0] = -0.0
+    want = _bits(pk.scan_plain(x))
+    assert torch.equal(_bits(pk.scan(x.to(dev)).cpu()), want)
+    assert torch.equal(_bits(pk.scan(_misaligned(x.to(dev))).cpu()), want)
+    b = torch.from_numpy(rng.integers(0, 2, (rows, lanes)).astype(np.float32)).to(torch.bfloat16)
+    want_b = torch.cumsum(b.float(), 1)
+    assert torch.equal(pk.scan(b.to(dev)).cpu(), want_b)
+    assert torch.equal(pk.scan(_misaligned(b.to(dev))).cpu(), want_b)
+
+
+@pytest.mark.gpu
+def test_cuda_compact_and_scan_sass():
+    """In the built library's SASS, compact's kernel stores by STG.E.128
+    and scan's kernels (fp32 and bf16 at L = 512) hold no barrier."""
+    import shutil
+    import subprocess
+
+    from dist_renderer_tpu_torch.diag import block_designs
+
+    _device()
+    lib = build.load()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", lib.path], capture_output=True, text=True,
+                          check=True).stdout
+    block_designs.check_sass(block_designs.sass_ops(sass))
+
+
 def _misaligned(t: torch.Tensor) -> torch.Tensor:
     """t's values in a contiguous tensor starting 4 bytes past a 16-byte
     boundary."""

@@ -278,6 +278,62 @@ def test_p10_log_shift_prefix_sum_bit_for_bit(inputs):
     _same(pk.scan_plain(_t(xs)), got)
 
 
+
+def _warp_scan_model(x: torch.Tensor) -> torch.Tensor:
+    """csrc/probe_blocks.cu's scan_kernel in torch: a warp per row, lane l
+    holding c[l + 32 i], i < K (K the least power of two with 32 K >= L,
+    zeros past L); c[i] below is register i of the 32 lanes. A step with
+    sh < 32 takes lane l - sh (mod 32)'s register i, by __shfl_sync, or
+    its register i - 1 where l < sh (zero for i = 0); one with sh >= 32
+    the lane's own register i - sh / 32."""
+    rows, lanes = x.shape
+    k = 1
+    while 32 * k < lanes:
+        k *= 2
+    pad = torch.zeros((rows, 32 * k))
+    pad[:, :lanes] = x.to(torch.float32)
+    c = [pad[:, 32 * i:32 * i + 32] for i in range(k)]
+    lane = torch.arange(32)
+    zero = torch.zeros(())
+    for st in range(10):
+        sh = 1 << st
+        if sh >= 32 * k or sh >= lanes:
+            break
+        if sh < 32:
+            rot = [ci[:, (lane - sh) % 32] for ci in c]  # __shfl_sync(c[i], (l - sh) & 31)
+            c = [c[i] + torch.where(lane >= sh, rot[i], rot[i - 1] if i else zero)
+                 for i in range(k)]
+        else:
+            c = [c[i] + (c[i - sh // 32] if i >= sh // 32 else torch.zeros_like(c[i]))
+                 for i in range(k)]
+    return torch.cat(c, 1)[:, :lanes]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 31, 32, 33, 511, 512, 1000, 1024])
+def test_scan_kernel_lane_layout_gives_scan_plain_bits(lanes):
+    """The kernel's lanes, registers and shuffles make the TPU kernel's
+    adds in its order: scan_plain's bits on seeded fp32 rows, a -0.0
+    leading one (the first step's +0.0 turns it into 0.0)."""
+    x = torch.from_numpy(_seeded((3, lanes), lanes, -100.0, 100.0))
+    x[0, 0] = -0.0
+    assert torch.equal(_bits(_warp_scan_model(x)), _bits(pk.scan_plain(x)))
+
+
+@pytest.mark.parametrize("inputs", ["script", "seeded"])
+def test_scan_kernel_lane_layout_equals_the_tpu_kernel(inputs):
+    """The kernel's lane layout against diag_launch2.py's cumsum_kernel in
+    interpret mode at [1, 512], bit for bit."""
+    if inputs == "script":
+        xs = (jnp.arange(512, dtype=jnp.float32) % 3 == 0).astype(jnp.float32)[None]
+    else:
+        xs = jnp.asarray(_seeded((1, 512), 10, -100.0, 100.0))
+    got = _call(cumsum_kernel, jax.ShapeDtypeStruct((1, 512), F32), [VMEM], VMEM, xs)
+    assert torch.equal(_bits(_warp_scan_model(_t(xs))), _bits(_t(got)))
+
 # ---- scripts/diag_launch3.py ----------------------------------------------
 
 def scalar_while(nl_ref):  # scripts/diag_launch3.py:60
@@ -486,6 +542,81 @@ def test_compaction_positions_int_truncates_fp32_needs_integral():
     assert torch.equal(i[:, 2], d[:, 0]) and torch.equal(i[:, 0], d[:, 1])
     assert torch.equal(i[:, 3], d[:, 2]) and i.count_nonzero() == 6
 
+
+
+def _kernel_slot(p, s, slots, int_pos):
+    """csrc/probe_blocks.cu's compact_slot on tensors: the slot each lane
+    names, -1 where it names none."""
+    keep = s > 0.5
+    if int_pos:
+        keep = keep & (p > -(2.0 ** 31)) & (p < 2.0 ** 31)
+    else:
+        keep = keep & (p == torch.floor(p)) & (p >= 0) & (p < float(slots))
+    slot = torch.where(keep, p, 0.0).to(torch.int64)  # truncation toward zero
+    return torch.where(keep & (slot >= 0) & (slot < slots), slot, -1)
+
+
+def _compact_kernel_model(d, pos, surv, slots, int_pos, rb=1, t=256, lpt=2):
+    """csrc/probe_blocks.cu's compact_kernel (rb=1, t=256, lpt=2) and
+    diag/block_designs.cu's tiled_compact<RB, T, LPT> in torch: block b
+    owns rows r0 = b / chunks * RB .. + RB and slots s0 = (b % chunks) 4 T
+    .. + 4 T; its tile starts at zero, takes each round's LPT T lanes (at
+    least one round) and is copied out. The output starts as NaN, so a
+    slot no block writes shows."""
+    rows, lanes = d.shape
+    p, s = pos.reshape(-1), surv.reshape(-1)
+    chunks = -(-slots // (4 * t))
+    out = torch.full((rows, slots), float("nan"))
+    for b in range(chunks * -(-rows // rb)):
+        r0, s0 = b // chunks * rb, b % chunks * 4 * t
+        rn, sn = min(rb, rows - r0), min(4 * t, slots - s0)
+        tile = torch.zeros((rb, 4 * t))
+        for j0 in range(0, max(lanes, 1), lpt * t):
+            for e in range(lpt):
+                j = j0 + torch.arange(t) + e * t
+                j = j[j < lanes]
+                slot = _kernel_slot(p[j], s[j], slots, int_pos) - s0
+                ok = (slot >= 0) & (slot < sn)
+                tile[:rn, slot[ok]] = d[r0:r0 + rn, j[ok]]
+        out[r0:r0 + rn, s0:s0 + sn] = tile[:rn, :sn]
+    return out
+
+
+def _compaction_case(rows, lanes, slots, seed):
+    """Seeded d, and pos, surv with distinct integral positions from below
+    0 to past the slots, and lanes of every dropped kind (non-survivors at
+    0, 0.5 and NaN; NaN, infinite and out-of-int32 positions; p + 0.25)."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(-4, 4, (rows, lanes)).astype(np.float32)
+    surv = (rng.random(lanes) < 0.7).astype(np.float32)
+    pos = rng.permutation(np.arange(-lanes, slots + lanes))[:lanes].astype(np.float32)
+    kinds = [("surv", 0.5), ("surv", np.nan), ("pos", np.nan), ("pos", np.inf),
+             ("pos", -np.inf), ("pos", 2.0 ** 31), ("pos", 3.0e9), ("frac", 0.25)]
+    for (kind, v), j in zip(kinds, rng.permutation(lanes)):
+        if kind == "surv":
+            surv[j] = v
+        elif kind == "pos":
+            surv[j], pos[j] = 1.0, v
+        elif pos[j] >= 0:
+            surv[j], pos[j] = 1.0, pos[j] + v
+    return torch.from_numpy(d), torch.from_numpy(pos[None]), torch.from_numpy(surv[None])
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 33, 256), (24, 512, 1024), (24, 1000, 1030),
+                                   (5, 700, 4096), (64, 512, 255)])
+@pytest.mark.parametrize("int_pos", [False, True])
+def test_compact_kernel_tiling_writes_every_slot_once(shape, int_pos):
+    """compact's tiling (a row and 1,024 slots a block, rounds of 512
+    lanes: the kernel's; the designs' 2 rows a block and 256 slots of 64
+    threads, 8 lanes each a round) covers every output slot, lanes past a
+    round and ragged slot chunks included, and gives compact_plain's
+    bits."""
+    rows, lanes, slots = shape
+    d, pos, surv = _compaction_case(rows, lanes, slots, sum(shape))
+    want = pk.compact_plain(d, pos, surv, slots, int_pos)
+    for rb, t, lpt in ((1, 256, 2), (2, 256, 2), (1, 64, 8)):
+        got = _compact_kernel_model(d, pos, surv, slots, int_pos, rb, t, lpt)
+        assert torch.equal(_bits(got), _bits(want)), (rb, t, lpt)
 
 # ---- scripts/diag_launch4.py ----------------------------------------------
 
@@ -956,3 +1087,116 @@ def test_copy_and_add_one_take_a_64_bit_count(entry):
     decl = re.search(r'extern "C" int %s\(([^)]*)\)' % entry, src).group(1)
     assert [a.strip().rsplit(" ", 1)[0] for a in decl.split(",")] == [
         "const float*", "float*", "long long", "void*"]
+
+
+
+def test_block_designs_needs_a_card(monkeypatch):
+    """The compact / scan design comparison measures the card: without one
+    it raises SystemExit before it builds anything."""
+    from dist_renderer_tpu_torch.diag import block_designs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        block_designs.main([])
+
+
+BLOCK_SASS = """
+        Function : _ZN3drt2pb14compact_kernelILb1EEEvPKfS3_S3_Pfiiii
+        /*0040*/                   LDG.E.64.CONSTANT R2, desc[UR4][R2.64] ;
+        /*0050*/                   STS.128 [R7], RZ ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/              @!P0 STS [R4], R2 ;
+        /*0080*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0090*/                   LDS.128 R8, [R5] ;
+        /*00a0*/                   STG.E.128 desc[UR4][R2.64], R8 ;
+        /*00b0*/              @!P1 STG.E desc[UR4][R2.64], R9 ;
+        Function : _ZN3drt2pb14compact_kernelILb0EEEvPKfS3_S3_Pfiiii
+        /*0040*/                   LDG.E.CONSTANT R2, desc[UR4][R2.64] ;
+        /*00a0*/                   STG.E.128 desc[UR4][R2.64], R8 ;
+        Function : _ZN3drt2pb11scan_kernelILi16EfEEvPKT0_Pfii
+        /*0040*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0050*/                   SHFL.IDX PT, R5, R4, R3, 0x1f ;
+        /*0060*/                   SHFL.IDX PT, R6, R4, R3, 0x1f ;
+        /*0070*/                   STG.E desc[UR4][R2.64], R5 ;
+        Function : _ZN3drt2pb11scan_kernelILi16E13__nv_bfloat16EEvPKT0_Pfii
+        /*0040*/                   LDG.E.U16.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0070*/                   STG.E desc[UR4][R2.64], R5 ;
+        Function : _ZN12_GLOBAL__N_110first_scanEPKvPfii
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        Function : _ZN3drt2pb11scan_kernelILi8EfEEvPKT0_Pfii
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+"""
+
+
+def test_block_designs_counts_each_kernels_memory_ops():
+    """block_designs' SASS reading: each named kernel's global and shared
+    loads and stores, shuffles and barriers by opcode with its modifiers,
+    predicated ones too; kernels not named (another K) left out."""
+    from dist_renderer_tpu_torch.diag.block_designs import sass_ops
+
+    assert sass_ops(BLOCK_SASS) == {
+        "compact kernel": {"LDG.E.64.CONSTANT": 1, "STS.128": 1,
+                           "BAR.SYNC.DEFER_BLOCKING": 2, "STS": 1, "LDS.128": 1,
+                           "STG.E.128": 1, "STG.E": 1},
+        "compact (b) 4-byte loads": {"LDG.E.CONSTANT": 1, "STG.E.128": 1},
+        "scan kernel": {"LDG.E.CONSTANT": 1, "SHFL.IDX": 2, "STG.E": 1},
+        "scan kernel bf16": {"LDG.E.U16.CONSTANT": 1, "STG.E": 1},
+        "scan (a) first version": {"BAR.SYNC.DEFER_BLOCKING": 1},
+    }
+
+
+@pytest.mark.parametrize("fault", [None, "4-byte stores", "4-byte stores, 4-byte loads",
+                                   "a barrier", "bf16 barrier", "missing"])
+def test_block_designs_requires_16_byte_stores_and_no_barrier(fault):
+    """check_sass passes the shipped kernels' SASS and fails either of
+    compact's without STG.E.128, either scan kernel with a BAR, or a
+    kernel not found."""
+    from dist_renderer_tpu_torch.diag.block_designs import check_sass, sass_ops
+
+    ops = sass_ops(BLOCK_SASS)
+    if fault is None:
+        check_sass(ops)
+        return
+    if fault == "4-byte stores":
+        ops["compact kernel"] = {"STG.E": 4}
+    elif fault == "4-byte stores, 4-byte loads":
+        ops["compact (b) 4-byte loads"] = {"LDG.E.CONSTANT": 1, "STG.E": 4}
+    elif fault == "a barrier":
+        ops["scan kernel"]["BAR.SYNC.DEFER_BLOCKING"] = 1
+    elif fault == "bf16 barrier":
+        ops["scan kernel bf16"]["BAR.SYNC"] = 1
+    else:
+        del ops["scan kernel bf16"]
+    with pytest.raises(AssertionError):
+        check_sass(ops)
+
+
+def test_block_designs_fails_a_design_that_differs():
+    """A design whose output was not its plain version's fails; the
+    unchecked empty launch and memset pass."""
+    from dist_renderer_tpu_torch.diag.block_designs import check
+
+    ops = ("compact", "compact int", "scan", "scan bf16")
+    res = {op: {"empty launch": {"equal": None}, "kernel": {"equal": True}} for op in ops}
+    check(res)
+    res["scan bf16"]["(b) contiguous lanes"] = {"equal": False}
+    with pytest.raises(AssertionError, match="contiguous lanes"):
+        check(res)
+
+
+def test_block_designs_reads_registers():
+    """block_designs' ptxas reading: registers and spills of each named
+    kernel, other entry functions left out."""
+    from dist_renderer_tpu_torch.diag.block_designs import registers
+
+    log = """
+ptxas info    : Compiling entry function '_ZN3drt2pb11scan_kernelILi16EfEEvPKT0_Pfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN3drt2pb11scan_kernelILi16EfEEvPKT0_Pfii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 55 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN3drt2pb11scan_kernelILi4EfEEvPKT0_Pfii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 19 registers, used 0 barriers
+"""
+    assert registers(log) == {"scan kernel": {"registers": 55, "spill_stores": 0,
+                                              "spill_loads": 0}}
