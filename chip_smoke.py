@@ -59,7 +59,13 @@ diagnostics (dist_renderer_tpu_torch.diag's diag_perf to diag_caps_ab)
 at the bench cell, F=8: render_batched_c2f's straggler telemetry
 (with_diag, which must change no bit of the render) and unverified proxy
 trace (proxy_verify=False), the cost of a march tile-step, the cap
-sweeps, each render held to its plain versions. Prints the timings, one
+sweeps, each render held to its plain versions. Phase 14 runs the last
+diagnostics (diag_f1_stages to diag_finalize_compile) at the bench
+cell, 512^2: the single-frame stages, compose's pieces and the glue, the
+recompute routes and value paths, polish and band fidelity, warm fits,
+a re-distilled proxy (into a temporary directory) and the batched
+polish's trace / finalize split, each render held to its plain versions.
+Prints the timings, one
 JSON line of per-kernel results, the card's name and power limit, and
 last a JSON status line.
 
@@ -2746,6 +2752,162 @@ def schedule_summary(res):
                             for r in res["sweep_batched"]["rows"]])
 
 
+# Phase 14: the stage splits and the last JAX diagnostic scripts
+# (dist_renderer_tpu_torch/diag/: the counterparts of diag_f1_stages,
+# diag_compose, diag_glue, diag_sortcost, diag_fused_dd, diag_recompute,
+# diag_precision, diag_polish_parity, diag_band_fidelity,
+# debug_band_probe, diag_warm, retrain_proxy and diag_finalize_compile) at
+# the bench cell, 512^2, in one process: the single-frame stages (the
+# proxy march, both recompute routes), compose's pieces, the glue and
+# reordering primitives at F=8, the value paths' error, the polish and
+# band-probe fidelity, warm against cold fits, a re-distilled proxy and
+# the batched polish's trace / finalize split at F=64 (the script's scene
+# and the (b) cell); diag_f1_stages runs last, since its profiled passes
+# (each stage's device time and idle share) slow later launches on the
+# host. Each module holds
+# every render it times to its plain versions with the in-order product,
+# bit for bit, and raises on any failed check. Cuts: one timed repetition
+# a configuration (of 3-10); diag_polish_parity 2 repetitions (of 10);
+# diag_warm 16 steps (of 30: two refreshes, since the zero latent's warm
+# carry renders no hit before the first); retrain_proxy 300 steps (of 30,000) at its
+# full batch and width, into a temporary directory (.bench_proxy.npz is
+# never touched: its bytes and .bench_decoder.npz's are checked
+# unchanged); diag_fused_dd takes phase 12 (f)'s reading of the same two
+# routes (fused_dd against the K3 route) rather than timing them again.
+F14 = 8
+
+
+def stages_phase(torch, dev, smi, fixture, fused_reading, img=IMG):
+    """Phase 14 (the comment above); any failed check exits nonzero.
+    Returns its numbers for the JSON line."""
+    import hashlib
+    import tempfile
+
+    from dist_renderer_tpu_torch.diag import (
+        BenchCell, debug_band_probe, diag_band_fidelity, diag_compose,
+        diag_f1_stages, diag_finalize_compile, diag_fused_dd, diag_glue, diag_polish_parity,
+        diag_precision, diag_recompute, diag_sortcost, diag_warm, retrain_proxy,
+    )
+    from dist_renderer_tpu_torch.ops.kernels import batched_march as bm
+    from dist_renderer_tpu_torch.ops.kernels import mlp_eval
+    from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
+    from dist_renderer_tpu_torch.ops.kernels.recompute import (
+        precise_bias_grads_call, precise_sdg_call,
+    )
+
+    print(f"\n== phase 14: the stage splits and the last diagnostics at the bench cell, "
+          f"{img}x{img} ==", flush=True)
+    t_phase = time.perf_counter()
+    fixtures = [os.path.join(HERE, n) for n in (".bench_decoder.npz", ".bench_proxy.npz")]
+    digest = lambda: [hashlib.sha256(open(p, "rb").read()).hexdigest() for p in fixtures]
+    before = digest()
+    counters = (bm.sphere_trace_persistent, queue_march, precise_sdg_call,
+                precise_bias_grads_call, mlp_eval.point_eval_banked)
+    for c in counters:
+        c.launches = 0
+    cell1 = BenchCell(dev, 1, img, fixture=fixture)
+    cell8 = BenchCell(dev, F14, img, fixture=fixture)
+    res, secs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        modules = (
+            ("diag_compose", lambda: diag_compose.measure(dev, cell1, proxy=True, reps=1)),
+            ("diag_glue", lambda: diag_glue.measure(dev, cell1, reps=1, with_appendix=True)),
+            ("diag_sortcost", lambda: diag_sortcost.measure(dev, reps=1)),
+            ("diag_fused_dd", lambda: diag_fused_dd.measure(dev, cell1,
+                                                            reading=fused_reading)),
+            ("diag_recompute", lambda: diag_recompute.measure(dev, cell1, "xla,pallas",
+                                                              reps=1)),
+            ("diag_precision", lambda: diag_precision.measure(dev, cell1, reps=1)),
+            ("diag_polish_parity", lambda: diag_polish_parity.measure(dev, cell1, reps=2)),
+            ("diag_band_fidelity", lambda: diag_band_fidelity.measure(dev, cell8, reps=1)),
+            ("debug_band_probe", lambda: debug_band_probe.measure(dev)),
+            ("diag_warm", lambda: diag_warm.measure(dev, (256, img), steps=16,
+                                                    fixture=fixture)),
+            ("retrain_proxy", lambda: retrain_proxy.measure(
+                dev, steps=300, out=os.path.join(tmp, ".bench_proxy_v2.npz"))),
+            ("diag_finalize_compile", lambda: diag_finalize_compile.measure(
+                dev, img, 64, reps=1, fixture=fixture)),
+            # last: its torch.profiler passes leave later launches dearer
+            ("diag_f1_stages", lambda: diag_f1_stages.measure(dev, cell1, "xla,pallas",
+                                                              proxy=True, reps=1)),
+        )
+        try:
+            for name, run in modules:
+                t1 = time.perf_counter()
+                res[name] = run()
+                secs[name] = time.perf_counter() - t1
+                print(f"{name}: {secs[name]:.1f} s", flush=True)
+                print(json.dumps({name: res[name]}), flush=True)
+        except AssertionError as e:
+            fail(f"phase 14: {e}")
+    check(digest() == before, "phase 14 changed .bench_decoder.npz or .bench_proxy.npz")
+    check(not res["retrain_proxy"]["promoted"]
+          and os.path.dirname(res["retrain_proxy"]["written"][0]) == tmp,
+          "phase 14's retrain_proxy wrote outside its temporary directory")
+    launches = {c.__name__: c.launches for c in counters}
+    res["launches"], res["module_seconds"] = launches, secs
+    res["seconds"] = time.perf_counter() - t_phase
+    f1, comp = res["diag_f1_stages"], res["diag_compose"]
+    busy = lambda b: f"(device {b['device_ms']:.3f}, idle {b['idle_share']:.1%})"
+    print(f"single frame (proxy trace): pyramid {f1['pyramid_ms']:.3f} ms "
+          f"{busy(f1['busy']['pyramid'])}, trace {f1['trace_ms']:.3f} "
+          f"{busy(f1['busy']['trace'])}; " + "; ".join(
+              f"{m}: compose {r['compose_ms']:.3f} {busy(r['busy']['compose'])}, fwd "
+              f"{r['fwd_ms']:.3f} {busy(r['busy']['fwd'])}, fwd+bwd {r['fwdbwd_ms']:.3f} "
+              f"{busy(r['busy']['fwdbwd'])} (fwd's factory {r['fwd_factory']})"
+              for m, r in f1["modes"].items()) + f"  [{smi}]")
+    print("compose's pieces, ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in comp["pieces_ms"].items())
+        + f" (bucket {comp['bucket']}, hits {comp['hits']})  [{smi}]")
+    print(f"phase 14: {res['seconds']:.1f} s; launches {launches}", flush=True)
+    for k, v in launches.items():
+        check(v > 0, f"phase 14 never launched {k}")
+    return res
+
+
+def stages_summary(res):
+    """Phase 14's numbers for the timings line (every module's whole
+    result is printed as its own JSON line)."""
+    f1, comp, glue = res["diag_f1_stages"], res["diag_compose"], res["diag_glue"]
+    pol, band = res["diag_polish_parity"], res["diag_band_fidelity"]
+    probe, fin = res["debug_band_probe"], res["diag_finalize_compile"]
+    return dict(
+        seconds=res["seconds"], module_seconds=res["module_seconds"],
+        launches=res["launches"],
+        f1=dict(pyramid_ms=f1["pyramid_ms"], trace_ms=f1["trace_ms"],
+                busy={k: {kk: b[kk] for kk in ("device_ms", "idle_share", "launches")}
+                      for k, b in f1["busy"].items()},
+                modes={m: dict({k: r[k] for k in ("compose_ms", "fwd_ms", "fwdbwd_ms",
+                                                  "stage_sum_ms")},
+                               busy={k: {kk: b[kk] for kk in ("device_ms", "idle_share",
+                                                              "launches")}
+                                     for k, b in r["busy"].items()})
+                       for m, r in f1["modes"].items()}),
+        compose_ms=comp["pieces_ms"], compose_bucket=comp["bucket"],
+        glue_ms=glue["pieces_ms"],
+        glue_launch_ms={k: glue["launch"][k]["ms"] for k in ("all_dead", "live_6pct")},
+        sortcost_ms=res["diag_sortcost"]["ms"],
+        fused_over_k3=res["diag_fused_dd"]["fused_over_k3"],
+        recompute={k: {kk: r[kk] for kk in ("fwd_ms", "fwdbwd_ms")}
+                   for k, r in res["diag_recompute"]["routes"].items()},
+        precision={k: dict(ms=r["ms"], p95=r["all"]["p95"], max=r["all"]["max"])
+                   for k, r in res["diag_precision"]["variants"].items()},
+        polish=dict(flips=pol["flips"], frontal=pol["frontal"],
+                    gate_p95_met=pol["gate_p95_met"], modes=pol["modes"]),
+        band=dict(hit_agree=band["hit_agree"], promoted=band["promoted"],
+                  demoted=band["demoted"], band_margin=band["band_margin"]),
+        band_probe=dict(band_rays=probe["band_rays"], probe_vs_true=probe["probe_vs_true"],
+                        march_vs_true=probe["march_vs_true"]),
+        warm={k: dict(cold=r["cold"], warm=r["warm"])
+              for k, r in res["diag_warm"]["imgs"].items()},
+        retrain=dict(ms_per_step=res["retrain_proxy"]["ms_per_step"],
+                     old=res["retrain_proxy"]["old"], new=res["retrain_proxy"]["new"]),
+        finalize_ms_per_frame=fin["ms_per_frame"],
+        finalize_bench_b=dict(ms_per_frame=fin["bench_b"]["ms_per_frame"],
+                              trace_hits_max_frame=fin["bench_b"]["trace_hits_max_frame"],
+                              bucket=fin["bench_b"]["bucket"]))
+
+
 def main():
     import torch
 
@@ -3231,6 +3393,8 @@ def main():
                         k9["mesh_arrays"])
     t13 = schedule_phase(torch, dev, smi, (params, dcfg, latent, (pparams, pcfg),
                                            (backoff, band)))
+    t14 = stages_phase(torch, dev, smi, (params, dcfg, latent, (pparams, pcfg),
+                                         (backoff, band)), t12["f"])
 
     src = "dist_renderer_tpu_torch/csrc/"
     kernels = [
@@ -3344,6 +3508,7 @@ def main():
                       "train": t11,
                       "sharded": t12,
                       "schedule": schedule_summary(t13),
+                      "stages": stages_summary(t14),
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

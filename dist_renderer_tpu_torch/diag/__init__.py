@@ -19,12 +19,28 @@ JSON line.
   versions (``use_kernel=False``) with the kernels' summation order
   (``in_order``), bit for bit, on its first ``PLAIN_FRAMES`` frames. ``chip_smoke.py``'s phase 13
   runs them all in one process.
+- The stage splits and the fidelity diagnostics (``scripts/diag_f1_stages.py``,
+  ``diag_compose.py``, ``diag_glue.py``, ``diag_sortcost.py``,
+  ``diag_fused_dd.py``, ``diag_recompute.py``, ``diag_precision.py``,
+  ``diag_polish_parity.py``, ``diag_band_fidelity.py``,
+  ``debug_band_probe.py``, ``diag_warm.py``, ``retrain_proxy.py``,
+  ``diag_finalize_compile.py``): the single-frame render's stages and
+  compose's pieces, the reordering glue, the recompute routes and value
+  paths, polish and band-probe fidelity, warm fits, a re-distilled proxy
+  and the batched polish's trace / finalize split, on the bench cell;
+  each render held to its plain versions (``BenchCell.hold_frame``,
+  ``hold_to_plain``), two recompute routes to each other under
+  ``ROUTE_BARS``. Each module's command is in its docstring; the CPU
+  tests are ``tests/test_torch_diag_stages.py`` and the card tests
+  ``-k stage_diagnostic`` in ``tests/test_torch_cuda.py``.
+  ``chip_smoke.py``'s phase 14 runs them all in one process at 512^2.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -36,7 +52,7 @@ import torch
 
 from dist_renderer_tpu_torch.ops.kernels import build
 from dist_renderer_tpu_torch.utils.profiling import (
-    PEAK_BF16, bound_ms, graph_us, host_us, per_call_ms, timed,
+    PEAK_BF16, bound_ms, device_kernels, graph_us, host_us, per_call_ms, timed,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -226,6 +242,7 @@ def scatter_ms(dev, calls: int = 10) -> dict:
 PLAIN_FRAMES = 1     # frames of a render held to its plain versions
 TRACE_FIELDS = ("depth", "hit", "min_sdf", "depth_at_min", "last_sdf", "steps",
                 "unresolved", "weak")
+RENDER_FIELDS = ("depth", "mask", "min_sdf", "normal")   # render()'s output
 
 
 def load_bench(dev, root: str = ROOT):
@@ -326,6 +343,69 @@ class BenchCell:
         return (self.origins[None, :1].expand(f, 1, 3),
                 self.dirs[None].expand(f, self.img * self.img, 3))
 
+    def frame_cfg(self, grad=None, proxy: bool = False, **march_kw):
+        """bench.py's single-frame RenderConfig at the cell's march: the
+        IFT gradient on an n/4 bucket (``grad``, default
+        ``GradConfig(mode="ift", compact_frac=4)``), bf16 march, the
+        kernels; proxy=True adds the proxy's margins (march_kw overrides
+        any MarchConfig field)."""
+        from dist_renderer_tpu_torch.config import GradConfig, RenderConfig
+
+        if proxy:
+            march_kw = dict(dict(proxy_backoff=self.backoff, proxy_band=self.band),
+                            **march_kw)
+        return RenderConfig(img_h=self.img, img_w=self.img,
+                            march=dataclasses.replace(self.march, **march_kw),
+                            grad=grad or GradConfig(mode="ift", compact_frac=4),
+                            compute_dtype="bfloat16", use_pallas=True)
+
+    def factory(self, cfg, proxy: bool = False, use_kernel: bool = True):
+        """make_march_factory of the 8x512 decoder at ``cfg``, marching the
+        proxy when proxy=True."""
+        from dist_renderer_tpu_torch.ops.renderer import make_march_factory
+
+        kw = dict(march_params=self.proxy[0], march_dcfg=self.proxy[1]) if proxy else {}
+        return make_march_factory(self.params, self.dcfg, cfg, use_kernel=use_kernel, **kw)
+
+    def sdf(self, use_kernel: bool = True):
+        """The 8x512 decoder's precise value (make_precise_sdf)."""
+        from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
+
+        return make_precise_sdf(self.params, self.dcfg, use_kernel)
+
+    def frame_fns(self, cfg, factory, sdf=None):
+        """(fwd, fwdbwd) of render() of the bench latent at ``cfg``: fwd
+        under no_grad returns the RenderOutput, fwdbwd (out, gradient of
+        the scripts' depth L1 to 1.5 over every pixel to the latent)."""
+        from dist_renderer_tpu_torch.ops.renderer import render
+        from dist_renderer_tpu_torch.utils.losses import masked_l1
+
+        sdf = sdf or self.sdf()
+        target = torch.full((self.img, self.img), 1.5, device=self.dev)
+        everywhere = torch.ones((self.img, self.img), dtype=torch.bool, device=self.dev)
+
+        def fwd():
+            with torch.no_grad():
+                return render(sdf, self.latent, self.cam, cfg, factory)
+
+        def fwdbwd():
+            z = self.latent.detach().clone().requires_grad_(True)
+            out = render(sdf, z, self.cam, cfg, factory)
+            return out, torch.autograd.grad(masked_l1(out.depth, target, everywhere), z)[0]
+
+        return fwd, fwdbwd
+
+    def hold_frame(self, name: str, cfg, out, proxy: bool = False) -> dict:
+        """Hold render()'s output ``out`` at ``cfg`` to the same render
+        through the plain versions with the in-order product, bit for bit
+        (``hold_to_plain`` on depth, mask, min_sdf, normal)."""
+        from dist_renderer_tpu_torch.ops.renderer import render
+
+        with torch.no_grad(), in_order():
+            plain = render(self.sdf(False), self.latent, self.cam, cfg,
+                           self.factory(cfg, proxy, use_kernel=False))
+        return hold_to_plain(name, out, plain, RENDER_FIELDS)
+
     def timed_render(self, reps: int = 1, held: bool = True, **kw):
         """(output, median device ms of ``reps`` renders after a warm-up,
         CUDA events, and how it held to its plain versions): render(**kw),
@@ -354,6 +434,18 @@ def time_ms(fn, reps: int = 1):
         out, t = timed(fn)
         times.append(t)
     return out, statistics.median(times)
+
+
+def busy_split(fn, ms: float, top: int = 4) -> dict:
+    """One more call of fn() under torch.profiler (``device_kernels``):
+    the card's kernel time (``device_ms``, the sum of every kernel's), its
+    idle share of ``ms`` (fn's CUDA-event time from the same process), the
+    launches and the ``top`` kernels by device ms."""
+    kernels, launches = device_kernels(fn)
+    busy = sum(kernels.values())
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    return dict(device_ms=busy, idle_share=1.0 - busy / ms, launches=int(launches),
+                top_ms={k[:80]: v for k, v in ranked})
 
 
 def hold_to_plain(name: str, got, want, fields=TRACE_FIELDS) -> dict:
@@ -396,6 +488,52 @@ def differ(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_floating_point():
         return (a != b) & ~(a.isnan() & b.isnan())
     return a != b
+
+
+def quantiles(x, qs=(50, 95)) -> dict:
+    """The p50, p95 (``qs``) and max of a tensor or array of errors (n 0:
+    none), as the scripts print them."""
+    a = np.asarray(x.detach().double().cpu() if isinstance(x, torch.Tensor) else x,
+                   dtype=np.float64).ravel()
+    if a.size == 0:
+        return dict(n=0)
+    return dict(n=int(a.size), **{f"p{q}": float(np.percentile(a, q)) for q in qs},
+                max=float(a.max()))
+
+
+def compare_routes(a, ga, b, gb, dirs) -> dict:
+    """Two renders of one frame (RenderOutputs a, b, and their latent
+    gradients ga, gb): hit agreement, the depth difference on common hits
+    (shares within 1e-5 and 1e-3, max, p95 on the frontal ones, |<n, v>|
+    > 0.2 with a's normal), and the gradients' cosine and relative L2."""
+    both = a.mask & b.mask
+    dd = (a.depth - b.depth).detach().abs()
+    frontal = both & ((a.normal * dirs.reshape(a.normal.shape)).sum(-1).abs() > 0.2)
+    return dict(hit_agree=float((a.mask == b.mask).float().mean()),
+                within_1e5=float((dd[both] <= 1e-5).float().mean()),
+                within_1e3=float((dd[both] <= 1e-3).float().mean()),
+                max=float(dd[both].max()) if both.any() else 0.0,
+                frontal_p95=float(dd[frontal].quantile(0.95)) if frontal.any() else 0.0,
+                frontal_share=float(frontal.sum() / max(int(both.sum()), 1)),
+                grad_cos=float(ga @ gb / (ga.norm() * gb.norm())),
+                grad_rel=float((gb - ga).norm() / ga.norm()))
+
+
+# chip_smoke.py phase 12 (f)'s bars between two recompute routes of one
+# render: the IFT denominator of all but the K3 route is a bf16 slope
+# (fused_dd's tangent, the xla route's march-function gradient), ~1e-2
+# relative, so a grazing hit's depth moves by its |f| times that over
+# |dd|: tests/test_parity.py's p95 on the frontal common hits, and the
+# whole-render gradient bars of tests/test_torch_grad.py
+ROUTE_BARS = dict(hit_agree=0.999, frontal_p95=1e-3, grad_cos=0.999, grad_rel=3e-2)
+
+
+def routes_within(name: str, cmp: dict) -> None:
+    """Raise unless compare_routes' numbers hold ROUTE_BARS."""
+    b = ROUTE_BARS
+    if not (cmp["hit_agree"] >= b["hit_agree"] and cmp["frontal_p95"] <= b["frontal_p95"]
+            and cmp["grad_cos"] >= b["grad_cos"] and cmp["grad_rel"] <= b["grad_rel"]):
+        raise AssertionError(f"{name}: the routes differ beyond the bars {b}: {cmp}")
 
 
 def summary(x) -> dict:

@@ -18,50 +18,29 @@ same render through the plain versions with the in-order product.
 
 from __future__ import annotations
 
-import dataclasses
-
-import torch
-
 from dist_renderer_tpu_torch.diag import (
-    BenchCell, device, differ, emit, hold_to_plain, in_order, parser,
+    RENDER_FIELDS, BenchCell, device, differ, emit, parser,
 )
-from dist_renderer_tpu_torch.diag.diag_perf import RENDER_FIELDS
 from dist_renderer_tpu_torch.diag.diag_round_caps import caps_list
 from dist_renderer_tpu_torch.utils.profiling import timed
 
 
 def measure(dev, cell: BenchCell, caps: str = "1,2,6,16;1,2,4,12;4,12;1,4,12",
             calls: int = 8, reps: int = 3) -> dict:
-    from dist_renderer_tpu_torch.config import GradConfig, RenderConfig
-    from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
-    from dist_renderer_tpu_torch.ops.renderer import make_march_factory, render
+    from dist_renderer_tpu_torch.config import GradConfig
 
-    img = cell.img
-    params, dcfg, z = cell.params, cell.dcfg, cell.latent
-    sdf_fn = make_precise_sdf(params, dcfg)
+    sdf_fn = cell.sdf()
     rows, first = [], None
     for qc in caps_list(caps, ";"):
-        cfg = RenderConfig(img_h=img, img_w=img,
-                           march=dataclasses.replace(cell.march, queue_caps=qc),
-                           grad=GradConfig(mode="ift", compact_frac=4, recompute="pallas"),
-                           compute_dtype="bfloat16", use_pallas=True)
-        factory = make_march_factory(params, dcfg, cfg)
-
-        def fwd():
-            with torch.no_grad():
-                return render(sdf_fn, z, cell.cam, cfg, factory)
-
+        cfg = cell.frame_cfg(GradConfig(mode="ift", compact_frac=4, recompute="pallas"),
+                             queue_caps=qc)
+        fwd = cell.frame_fns(cfg, cell.factory(cfg), sdf_fn)[0]
         out = fwd()
         t = min(timed(lambda: [fwd() for _ in range(calls)])[1] for _ in range(reps)) / calls
         row = dict(caps=list(qc), fwd_ms=t, hits=int(out.mask.sum()))
         if first is None:
             # the later schedules are held to this one's bits
-            with torch.no_grad(), in_order():
-                plain = render(make_precise_sdf(params, dcfg, use_kernel=False), z,
-                               cell.cam, cfg,
-                               make_march_factory(params, dcfg, cfg, use_kernel=False))
-            row["plain"] = hold_to_plain(f"render() queue_caps={qc}", out, plain,
-                                         RENDER_FIELDS)
+            row["plain"] = cell.hold_frame(f"render() queue_caps={qc}", cfg, out)
             first = out
         else:
             row["rays_differing"] = {k: int(differ(getattr(first, k), getattr(out, k)).sum())
@@ -71,7 +50,7 @@ def measure(dev, cell: BenchCell, caps: str = "1,2,6,16;1,2,4,12;4,12;1,4,12",
                                      f"{row['rays_differing']} pixels differ from "
                                      f"{rows[0]['caps']}")
         rows.append(row)
-    return dict(img=img, calls=calls, rows=rows)
+    return dict(img=cell.img, calls=calls, rows=rows)
 
 
 def main(argv=None) -> int:

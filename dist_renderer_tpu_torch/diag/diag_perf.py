@@ -27,12 +27,8 @@ from __future__ import annotations
 import torch
 
 from dist_renderer_tpu_torch.diag import (
-    BenchCell, device, emit, hold_to_plain, in_order, parser, residency, stage_lanes,
-    summary, time_ms,
+    BenchCell, device, emit, parser, residency, stage_lanes, summary, time_ms,
 )
-
-
-RENDER_FIELDS = ("depth", "mask", "min_sdf", "normal")
 
 
 def batched(cell: BenchCell, strides, coarse_steps: int, reps: int) -> dict:
@@ -55,42 +51,18 @@ def batched(cell: BenchCell, strides, coarse_steps: int, reps: int) -> dict:
 
 def single_frame(cell: BenchCell, strides, coarse_steps: int, reps: int) -> dict:
     """render() of the bench latent and its pieces, no proxy."""
-    import dataclasses
-
-    from dist_renderer_tpu_torch.config import GradConfig, RenderConfig
-    from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
-    from dist_renderer_tpu_torch.ops.renderer import (
-        _trace, c2f_plan, make_march_factory, render,
-    )
-    from dist_renderer_tpu_torch.utils.losses import masked_l1
+    from dist_renderer_tpu_torch.ops.renderer import _trace, c2f_plan
 
     img = cell.img
-    march = dataclasses.replace(cell.march, c2f_strides=tuple(strides),
-                                c2f_coarse_steps=coarse_steps)
-    cfg = RenderConfig(img_h=img, img_w=img, march=march,
-                       grad=GradConfig(mode="ift", compact_frac=4),
-                       compute_dtype="bfloat16", use_pallas=True)
-    params, dcfg, z = cell.params, cell.dcfg, cell.latent
-    sdf_fn = make_precise_sdf(params, dcfg)
-    factory = make_march_factory(params, dcfg, cfg)
+    cfg = cell.frame_cfg(c2f_strides=tuple(strides), c2f_coarse_steps=coarse_steps)
+    march = cfg.march
+    z = cell.latent
+    sdf_fn = cell.sdf()
+    factory = cell.factory(cfg)
     o, v = cell.origins, cell.dirs
-    target = torch.full((img, img), 1.5, device=z.device)
-    everywhere = torch.ones((img, img), dtype=torch.bool, device=z.device)
-
-    def fwd():
-        with torch.no_grad():
-            return render(sdf_fn, z, cell.cam, cfg, factory)
-
-    def fwdbwd():
-        zz = z.detach().clone().requires_grad_(True)
-        out = render(sdf_fn, zz, cell.cam, cfg, factory)
-        return torch.autograd.grad(masked_l1(out.depth, target, everywhere), zz)[0]
-
+    fwd, fwdbwd = cell.frame_fns(cfg, factory, sdf_fn)
     out, t_fwd = time_ms(fwd, reps)
-    with torch.no_grad(), in_order():
-        plain = render(make_precise_sdf(params, dcfg, use_kernel=False), z, cell.cam, cfg,
-                       make_march_factory(params, dcfg, cfg, use_kernel=False))
-    held = hold_to_plain("render() fwd", out, plain, RENDER_FIELDS)
+    held = cell.hold_frame("render() fwd", cfg, out)
     _, t_fb = time_ms(fwdbwd, reps)
     mf = factory(z)
     with torch.no_grad():

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from dist_renderer_tpu_torch.config import DecoderConfig
-from dist_renderer_tpu_torch.models.decoder import Params
+from dist_renderer_tpu_torch.models.decoder import Params, round_bf16
 
 
 def make_color_config(latent_size: int = 256, hidden_dims=(512,) * 8,
@@ -30,20 +30,26 @@ def color_layer_dims(cfg: DecoderConfig):
 
 
 def init_color_params(generator: torch.Generator, cfg: DecoderConfig,
-                      device="cpu") -> Params:
-    """He-style init from a seeded torch.Generator. Its numbers differ
-    from the JAX package's for the same seed; weights made there carry
-    across with params_from_numpy."""
+                      device="cpu", dtype: torch.dtype = torch.float32) -> Params:
+    """He-style init from a seeded torch.Generator, weights and biases in
+    ``dtype``. Its numbers differ from the JAX package's for the same
+    seed; weights made there carry across with params_from_numpy."""
     layers = []
     for d_in, d_out in color_layer_dims(cfg):
-        w = torch.randn((d_in, d_out), generator=generator) * float(np.sqrt(2.0 / d_in))
-        layers.append({"w": w.to(device), "b": torch.zeros(d_out, device=device)})
+        w = torch.randn((d_in, d_out), generator=generator, dtype=dtype) * float(
+            np.sqrt(2.0 / d_in))
+        layers.append({"w": w.to(device),
+                       "b": torch.zeros(d_out, dtype=dtype, device=device)})
     return {"layers": layers}
 
 
 def color_apply(params: Params, latent: torch.Tensor, points: torch.Tensor,
-                cfg: DecoderConfig) -> torch.Tensor:
-    """[..., 3] points -> [..., 3] RGB in [0, 1], fp32."""
+                cfg: DecoderConfig, compute_dtype: torch.dtype = torch.float32
+                ) -> torch.Tensor:
+    """[..., 3] points -> [..., 3] RGB in [0, 1], fp32. With bf16 compute
+    every product takes bf16-rounded operands with fp32 sums, and the
+    bias add stays fp32 (the JAX package's ``_matmul``)."""
+    cast = round_bf16 if compute_dtype == torch.bfloat16 else (lambda a: a)
     shape = points.shape[:-1]
     x = points.reshape(-1, 3).to(torch.float32)
     z = latent.reshape(1, -1).to(torch.float32).expand(x.shape[0], -1)
@@ -53,7 +59,8 @@ def color_apply(params: Params, latent: torch.Tensor, points: torch.Tensor,
     for i, layer in enumerate(params["layers"]):
         if i in cfg.latent_in:
             h = torch.cat([h, inp], dim=-1)
-        h = h @ layer["w"] + layer["b"]
+        w, b = (layer[k].to(torch.float32) for k in ("w", "b"))
+        h = cast(h) @ cast(w) + b
         if i < n_layers - 1:
             h = torch.relu(h)
     return torch.sigmoid(h).reshape(shape + (3,))

@@ -11,6 +11,9 @@ switched off (``torch.backends.*.allow_tf32 = False``, set by
 exception is ``decoder_apply_with_dd``, the hit finalize's evaluation,
 which keeps the JAX package's roundings: its value and slope decide
 which proxy hits are demoted, and an fp32 pass demotes other rays.
+``decoder_apply(..., precision="split" / "split_x")`` gives the JAX
+package's split value paths too, for the comparison of value paths
+(``diag/diag_precision.py``).
 """
 
 from __future__ import annotations
@@ -110,11 +113,21 @@ def decoder_apply(
     points: torch.Tensor,
     cfg: DecoderConfig = DecoderConfig(),
     compute_dtype: torch.dtype = torch.float32,
+    precision: Optional[str] = None,
 ) -> torch.Tensor:
     """Evaluate f_theta(z, x) -> sdf for latent [L] or [N, L] and points
     [..., 3]; returns [...] fp32. With bf16 compute every product takes
     bf16-rounded operands and accumulates in fp32 (the JAX package's
-    bf16 dots with fp32 accumulation); the bias add stays fp32."""
+    bf16 dots with fp32 accumulation); the bias add stays fp32.
+
+    precision, the JAX package's value paths: "split" takes every layer
+    as the bf16x3 split ``_matmul_split`` (xh@Wh + xh@Wl + xl@Wh, the
+    operands split at bf16), "split_x" only the layers that read the raw
+    (z, x) input and one bf16 product on the hidden ones; each product
+    is ``_dot_bf16``, as in ``decoder_apply_with_dd``, whose value this
+    is. None: ``compute_dtype``."""
+    if precision not in (None, "split", "split_x"):
+        raise ValueError(f"unknown precision {precision!r}")
     cast = round_bf16 if compute_dtype == torch.bfloat16 else (lambda a: a)
     pts_shape = points.shape[:-1]
     x = points.reshape(-1, 3).to(torch.float32)
@@ -128,7 +141,13 @@ def decoder_apply(
             h = torch.cat([h, inp], dim=-1)
         elif cfg.xyz_in_all and 0 < i < n_layers - 1:
             h = torch.cat([h, x], dim=-1)
-        h = cast(h) @ cast(layer["w"]) + layer["b"]
+        takes_input = i == 0 or i in cfg.latent_in
+        if precision == "split" or (precision == "split_x" and takes_input):
+            h = _matmul_split(h, layer["w"], layer["b"])
+        elif precision == "split_x":
+            h = _dot_bf16(h, layer["w"]) + layer["b"]
+        else:
+            h = cast(h) @ cast(layer["w"]) + layer["b"]
         if i == n_layers - 1:
             if cfg.use_tanh:
                 h = torch.tanh(h)

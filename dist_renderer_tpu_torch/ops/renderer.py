@@ -212,13 +212,16 @@ _FD_OFFSETS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
 def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
                 dirs: torch.Tensor, cfg: RenderConfig, march_fn=None,
                 init_depth: Optional[torch.Tensor] = None,
+                init_active: Optional[torch.Tensor] = None,
                 trace: Optional[TraceResult] = None) -> RenderOutput:
     """Trace + differentiable composition for a flat ray batch [N, 3].
 
     march_fn: optional point function for the no-grad march (the folded
     decoder, or a FusedMarchFn); without it the march evaluates ``sdf_fn``
-    on the detached latent. trace: a precomputed march result (then only
-    the composition runs). depth, min_sdf and points carry gradients to
+    on the detached latent. init_depth, init_active: the march's seeds
+    and the rays it marches at all (False: the c2f skip class, never
+    marched). trace: a precomputed march result (then only the
+    composition runs). depth, min_sdf and points carry gradients to
     ``latent`` and, through ``origins`` and ``dirs``, to whatever they were
     computed from; the mask and, but for finite-difference normals, the
     normals are constants.
@@ -241,7 +244,7 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
             lambda p: sdf_fn(latent.detach(), p))
         with torch.no_grad():
             trace = _trace(trace_fn, origins.detach(), dirs.detach(), cfg,
-                           init_depth)
+                           init_depth, init_active)
     g = cfg.grad
     # proxy_verify_hits="polish": the proxy trace's confident hits skipped
     # the verify march, so the composition owns their verdict: the Newton

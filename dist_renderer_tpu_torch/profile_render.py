@@ -126,10 +126,12 @@ def batched_setup(dev, frames=64, img=512, seed=9):
     bench latent + 0.001 jitter each, from ``seed``), one pinhole camera,
     the proxy with its margins, verify caps (2, 4, 12), 50 steps. Returns
     (batch, latents, packed) where batch(mode, f=frames, persistent=True,
-    use_kernel=True, **kw) renders the first f frames through
-    render_batched_c2f on the rounds scheduler in BATCHED_MODES[mode] and,
-    in the polish modes, finalizes them (finalize_hits_batched, the weak
-    mask in polish-all), as bench.py's timed step does."""
+    use_kernel=True, finalize=True, **kw) renders the first f frames
+    through render_batched_c2f on the rounds scheduler in
+    BATCHED_MODES[mode] and, in the polish modes, finalizes them
+    (``batch.finalize(mode, trace, f)``: finalize_hits_batched, the weak
+    mask in polish-all), as bench.py's timed step does; finalize=False
+    returns the trace unfinalized."""
     import torch
 
     from dist_renderer_tpu_torch.ops import renderer
@@ -149,7 +151,7 @@ def batched_setup(dev, frames=64, img=512, seed=9):
     packed = (bm.pack_shared(params, dcfg), bm.pack_shared(*proxy))
 
     @torch.no_grad()
-    def batch(vh, f=frames, persistent=True, use_kernel=True, **kw):
+    def batch(vh, f=frames, persistent=True, use_kernel=True, finalize=True, **kw):
         st = bm.render_batched_c2f(
             params, dcfg, lats[:f], ob[:f], vb[:f], (img, img), march,
             proxy=proxy, proxy_backoff=march.proxy_backoff,
@@ -157,8 +159,12 @@ def batched_setup(dev, frames=64, img=512, seed=9):
             verify_round_caps=march.proxy_verify_caps,
             proxy_block=march.proxy_block_width, shared_origin=True,
             packed=packed, persistent=persistent, use_kernel=use_kernel, **kw)
-        if vh not in ("polish", "polish-all"):
+        if vh not in ("polish", "polish-all") or not finalize:
             return st
+        return batch.finalize(vh, st, f)
+
+    @torch.no_grad()
+    def finish(vh, st, f=frames):
         d, h, m = renderer.finalize_hits_batched(
             params, dcfg, lats[:f], ob[:f], vb[:f], st.depth, st.hit, st.min_sdf,
             convergence_eps=march.convergence_eps,
@@ -167,6 +173,7 @@ def batched_setup(dev, frames=64, img=512, seed=9):
             compact_frac=3 if vh == "polish-all" else 4, weak=st.weak)
         return st._replace(depth=d, hit=h, min_sdf=m)
 
+    batch.finalize = finish
     return batch, lats, packed
 
 
@@ -319,21 +326,9 @@ def _timed(run, requests):
 
 def _device_ms(run, requests):
     """torch.profiler's device time per kernel, ms per call of run()."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from dist_renderer_tpu_torch.utils.profiling import device_kernels
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(requests):
-            run()
-        torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        if t > 0:
-            kernels[ev.key] = t / 1e3 / requests
-    return kernels
+    return device_kernels(run, requests)[0]
 
 
 def main(argv=None):

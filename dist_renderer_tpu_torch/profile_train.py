@@ -56,24 +56,13 @@ def _stage_split(torch, step, steps):
 def _profile(torch, run, steps):
     """(device ms per step by kernel, launches per step, wall ms per step)
     of ``steps`` calls of run() under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    from dist_renderer_tpu_torch.utils.profiling import device_kernels
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            run()
-        torch.cuda.synchronize()
+    kernels, launches = device_kernels(run, steps)
     wall = 1e3 * (time.perf_counter() - t0) / steps
-    kernels, launches = {}, 0
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        if t > 0:
-            kernels[ev.key] = t / 1e3 / steps
-            launches += ev.count
-    return kernels, launches / steps, wall
+    return kernels, launches, wall
 
 
 def _summary(kernels, wall):

@@ -55,6 +55,28 @@ def device_profile(out_dir: str) -> Iterator[torch.profiler.profile]:
         prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
 
+def device_kernels(fn: Callable[[], Any], calls: int = 1) -> Tuple[Dict[str, float], float]:
+    """``calls`` calls of fn() under torch.profiler (the card's activity
+    only): device ms per kernel name and launches, each per call. A
+    profiler pass leaves later launches dearer on the host, so time
+    nothing after it that the comparison needs."""
+    _need_card()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels, launches = {}, 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + t / 1e3 / calls
+            launches += ev.count
+    return kernels, launches / calls
+
+
 def _devices(result: Any, found: set) -> set:
     if isinstance(result, torch.Tensor):
         if result.is_cuda:

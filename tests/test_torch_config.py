@@ -101,7 +101,10 @@ def test_port_imports_no_jax():
         "dist_renderer_tpu_torch.diag.chain_designs",
         "dist_renderer_tpu_torch.diag.loop_designs",
         "dist_renderer_tpu_torch.diag.block_designs",
-    ]
+    ] + [f"dist_renderer_tpu_torch.diag.{m}" for m in (
+        "diag_f1_stages", "diag_compose", "diag_glue", "diag_sortcost", "diag_fused_dd",
+        "diag_recompute", "diag_precision", "diag_polish_parity", "diag_band_fidelity",
+        "debug_band_probe", "diag_warm", "retrain_proxy", "diag_finalize_compile")]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

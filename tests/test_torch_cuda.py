@@ -1083,6 +1083,31 @@ def test_cuda_decoder_apply_with_dd_matches_cpu():
     assert d_card <= 0.25 * d_fp32
 
 
+@pytest.mark.gpu
+def test_cuda_split_x_is_the_with_dd_value():
+    """decoder_apply(precision="split_x") on the card takes the finalize's
+    products (bf16 GEMMs with an fp32 output), so its value is
+    decoder_apply_with_dd's bit for bit, as on the CPU; "split" (every
+    layer split) lies closer to the fp32 value than "split_x" does. The
+    bench decoder at 4096 seeded points."""
+    from dist_renderer_tpu_torch.models.decoder import (
+        decoder_apply, decoder_apply_with_dd, set_fp32_matmul,
+    )
+
+    set_fp32_matmul()
+    dev = _device()
+    params, z = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    pts = (0.6 * torch.randn((4096, 3), generator=gen)).to(dev)
+    v = torch.nn.functional.normalize(torch.randn((4096, 3), generator=gen), dim=-1).to(dev)
+    s, _ = decoder_apply_with_dd(params, z, pts, v, DecoderConfig())
+    sx = decoder_apply(params, z, pts, DecoderConfig(), precision="split_x")
+    assert sx.is_cuda and torch.equal(sx, s)
+    f32 = decoder_apply(params, z, pts, DecoderConfig())
+    split = decoder_apply(params, z, pts, DecoderConfig(), precision="split")
+    assert (split - f32).abs().mean() < (sx - f32).abs().mean()
+
+
 DOT_SHAPES = [(1000, 515, 70), (4096, 3, 512), (65, 512, 1), (1, 17, 64), (0, 8, 8)]
 
 
@@ -2581,3 +2606,59 @@ def test_cuda_round_cap_sweep_matches_plain(k_order):
             assert _same(getattr(k, name), getattr(p, name)), (caps, name)
         outs.append(k)
     assert (outs[0].hit == outs[1].hit).float().mean().item() >= 0.999
+
+
+# ---- the stage-split and fidelity diagnostics (diag/, chip_smoke.py phase 14) ----
+
+def _stage_cell(frames=1, img=64):
+    from dist_renderer_tpu_torch.diag import BenchCell
+
+    return BenchCell(_device(), frames, img)
+
+
+STAGE_RUNS = {
+    "diag_f1_stages": lambda m, tmp: m.measure(_device(), _stage_cell(), "xla,pallas",
+                                               proxy=True, reps=1),
+    "diag_compose": lambda m, tmp: m.measure(_device(), _stage_cell(), proxy=True, reps=1),
+    "diag_glue": lambda m, tmp: m.measure(_device(), _stage_cell(), 1, True, frames=2,
+                                          rays=64 * 64),
+    "diag_sortcost": lambda m, tmp: m.measure(_device(), 1, frames=2, rays=64 * 64),
+    "diag_fused_dd": lambda m, tmp: m.measure(_device(), _stage_cell(), 1),
+    "diag_recompute": lambda m, tmp: m.measure(_device(), _stage_cell(), "xla,fused,pallas",
+                                               1),
+    "diag_precision": lambda m, tmp: m.measure(_device(), _stage_cell(), 20000, 64 * 64, 1),
+    "diag_polish_parity": lambda m, tmp: m.measure(_device(), _stage_cell(), reps=1),
+    "diag_band_fidelity": lambda m, tmp: m.measure(_device(), _stage_cell(2), 1),
+    "debug_band_probe": lambda m, tmp: m.measure(_device()),
+    "diag_warm": lambda m, tmp: m.measure(_device(), (64,), 9),
+    "retrain_proxy": lambda m, tmp: m.measure(_device(), steps=5,
+                                              out=os.path.join(tmp, "proxy_v2.npz")),
+    "diag_finalize_compile": lambda m, tmp: m.measure(_device(), 64, 2, reps=1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(STAGE_RUNS))
+def test_cuda_stage_diagnostic_runs_and_holds(name, tmp_path):
+    """Each module of chip_smoke.py's phase 14 at a small size (one or two
+    frames of 64^2; diag_glue and diag_sortcost at 2 x 4,096 rays;
+    debug_band_probe its own 32^2 scene; diag_warm 9 steps, past its
+    first refresh): measure runs on the card, every
+    check inside it holds (renders held to their plain versions with the
+    in-order product, bit for bit), and its result is JSON. The bench
+    fixtures keep their bytes (retrain_proxy writes into tmp_path)."""
+    import hashlib
+    import importlib
+    import json
+
+    fixtures = [os.path.join(ROOT, n) for n in (".bench_decoder.npz", ".bench_proxy.npz")]
+    digest = lambda: [hashlib.sha256(open(p, "rb").read()).hexdigest() for p in fixtures]
+    before = digest()
+    mod = importlib.import_module(f"dist_renderer_tpu_torch.diag.{name}")
+    res = STAGE_RUNS[name](mod, str(tmp_path))
+    torch.cuda.synchronize()
+    json.dumps(res)
+    assert digest() == before
+    if name == "retrain_proxy":
+        assert res["written"] == [os.path.join(str(tmp_path), "proxy_v2.npz")]
+        assert os.path.exists(res["written"][0]) and not res["promoted"]
