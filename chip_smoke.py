@@ -65,7 +65,10 @@ cell, 512^2: the single-frame stages, compose's pieces and the glue, the
 recompute routes and value paths, polish and band fidelity, warm fits,
 a re-distilled proxy (into a temporary directory) and the batched
 polish's trace / finalize split, each render held to its plain versions.
-Prints the timings, one
+Phase 15 runs batched_render --stream at 512^2 on the bench proxy, the
+host loop of per-chunk launches against --scan (the chunk loop as one
+CUDA graph, replayed once), under --verify-hits march and polish, with
+the hit counts and fp64 depth sums equal bit for bit. Prints the timings, one
 JSON line of per-kernel results, the card's name and power limit, and
 last a JSON status line.
 
@@ -2908,6 +2911,88 @@ def stages_summary(res):
                               bucket=fin["bench_b"]["bucket"]))
 
 
+# ---- phase 15: batched_render --scan ----
+# The batched CLI's --stream chunk loop at 512^2 with the bench proxy (the
+# acceptance command: 16 latents x 4 views in 4 chunks of 16 frames), the
+# host loop against --scan under --verify-hits march and polish: the same
+# hit count and fp64 depth sum, bit for bit. For information, config #5's
+# chunk of 128 frames: 32 latents x 16 views in 4 chunks, each way (march).
+# Cut: 64 and 512 frames of config #5's 16,384.
+SCAN_RUNS = [(16, 4, 16, "march"), (16, 4, 16, "polish"), (32, 16, 128, "march")]
+
+
+def scan_phase(torch, smi):
+    """Phase 15 (the comment above); any failed check exits nonzero.
+    Returns its numbers for the JSON line."""
+    import contextlib
+    import io
+    import math
+
+    from dist_renderer_tpu_torch.ops.kernels.batched_march import sphere_trace_persistent
+    from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
+    from dist_renderer_tpu_torch.tasks import batched_render
+
+    print("\n== phase 15: batched_render --scan, the chunk loop as one CUDA graph ==",
+          flush=True)
+    t_phase = time.perf_counter()
+    counters = (sphere_trace_persistent, queue_march)
+    for c in counters:
+        c.launches = 0
+
+    def run(argv):
+        """main(argv) with the peak memory counted from its start; its
+        result and its scan_graph line (None for the host loop)."""
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = batched_render.main(argv)
+        graph = [json.loads(l)["scan_graph"] for l in buf.getvalue().splitlines()
+                 if l.startswith('{"scan_graph"')]
+        return res, graph[0] if graph else None
+
+    rows = []
+    try:
+        for latents, views, chunk, vh in SCAN_RUNS:
+            argv = ["--fast", "--pallas", "--stream", "--img", str(IMG), "--proxy",
+                    os.path.join(HERE, ".bench_proxy.npz"), "--latents", str(latents),
+                    "--views", str(views), "--chunk", str(chunk), "--verify-hits", vh]
+            host, none = run(argv)
+            scan, graph = run(argv + ["--scan"])
+            check(none is None and graph is not None and graph["nodes"] > 0,
+                  f"phase 15: --scan captured no graph ({graph})")
+            frames = latents * views
+            row = dict(latents=latents, views=views, chunk=chunk, verify_hits=vh,
+                       frames=frames, hits=host["hits"], hit_frac=host["hit_frac"],
+                       mean_hit_depth=host["mean_hit_depth"], graph=graph,
+                       equal=(scan["hits"], scan["depth_sum"])
+                       == (host["hits"], host["depth_sum"]))
+            for name, r in (("host", host), ("scan", scan)):
+                row[name] = dict(ms_per_frame=1e3 * r["seconds"] / frames,
+                                 mrays_per_s=r["Mrays_per_s"], peak_gb=r["peak_hbm_gb"])
+            rows.append(row)
+            print(f"{latents} latents x {views} views at {IMG}^2, chunk {chunk}, "
+                  f"{vh}: host loop {row['host']['ms_per_frame']:.3f} ms/frame "
+                  f"({host['Mrays_per_s']} Mrays/s, peak {host['peak_hbm_gb']} GB), --scan "
+                  f"{row['scan']['ms_per_frame']:.3f} ms/frame ({scan['Mrays_per_s']} "
+                  f"Mrays/s, peak {scan['peak_hbm_gb']} GB), graph {graph['nodes']} nodes, "
+                  f"capture {graph['capture_s']:.3f} s, instantiate "
+                  f"{graph['instantiate_s']:.3f} s; hits {host['hits']} / {scan['hits']}, "
+                  f"depth sums {host['depth_sum']!r} / {scan['depth_sum']!r}  [{smi}]",
+                  flush=True)
+            check(row["equal"], f"phase 15: --scan's hits and depth sum differ from the "
+                  f"host loop's at {latents}x{views}, {vh}")
+            check(host["hit_frac"] > 0.01 and math.isfinite(host["depth_sum"]),
+                  f"phase 15 rendered almost nothing: {host}")
+    except (RuntimeError, ValueError) as e:
+        fail(f"phase 15: {e}")
+    launches = {c.__name__: c.launches for c in counters}
+    res = dict(rows=rows, launches=launches, seconds=time.perf_counter() - t_phase)
+    print(f"phase 15: {res['seconds']:.1f} s; launches {launches} (a graph replay "
+          "launches its captured kernels again without counting)", flush=True)
+    check(launches["sphere_trace_persistent"] > 0, "phase 15 never launched K1")
+    return res
+
+
 def main():
     import torch
 
@@ -3395,13 +3480,17 @@ def main():
                                            (backoff, band)))
     t14 = stages_phase(torch, dev, smi, (params, dcfg, latent, (pparams, pcfg),
                                          (backoff, band)), t12["f"])
+    t15 = scan_phase(torch, smi)
 
     src = "dist_renderer_tpu_torch/csrc/"
     kernels = [
         dict(name="sphere_trace_persistent (K1)", route="cuda",
              source=src + "batched_march.cu",
              replaces="dist_renderer_tpu/ops/pallas/batched_march.py:254",
-             launches=b8["launches"]["sphere_trace_persistent"],
+             launches=(b8["launches"]["sphere_trace_persistent"]
+                       + t15["launches"]["sphere_trace_persistent"]),
+             launches_by_phase={"8": b8["launches"]["sphere_trace_persistent"],
+                                "15": t15["launches"]["sphere_trace_persistent"]},
              max_abs_err=max([max_err(km["d_k1"])] + [max_err(lv[0]) for lv in k1_levels]),
              ms=km["k1_ms"], plain_ms=km["plain_ms"], bound_ms=km["bound_ms"],
              bound_by=km["bound_by"], library_ms=None),
@@ -3509,6 +3598,7 @@ def main():
                       "sharded": t12,
                       "schedule": schedule_summary(t13),
                       "stages": stages_summary(t14),
+                      "scan": t15,
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

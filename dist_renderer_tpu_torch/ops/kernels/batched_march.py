@@ -33,8 +33,8 @@ from dist_renderer_tpu_torch.models.decoder import Params
 from dist_renderer_tpu_torch.models.folded import fold_latent
 from dist_renderer_tpu_torch.ops.camera import dot3, ray_sphere_entry
 from dist_renderer_tpu_torch.ops.kernels import build
-from dist_renderer_tpu_torch.ops.kernels.march_body import (
-    POS_BIG, make_carry, march_loop, mlp_apply, rows_from_carry,
+from dist_renderer_tpu_torch.ops.kernels.march_body import (  # noqa: F401 (host_free)
+    POS_BIG, host_free, in_host_free, make_carry, march_loop, mlp_apply, rows_from_carry,
 )
 from dist_renderer_tpu_torch.ops.tracer import TraceResult, live_counts_from_steps
 
@@ -643,8 +643,10 @@ def fine_march_rounds(
     round marches the full width, so every live ray gets every round's
     cap and the results are a pure function of each ray's (seed, class,
     caps), whatever the layout. Those overflow guards are host decisions
-    on the live count (one device sync each). One scatter on the carried
-    pixel index un-sorts.
+    on the live count (one device sync each); under ``host_free()`` every
+    round marches the full width instead, which gives the same bits and
+    reads nothing on the host. One scatter on the carried pixel index
+    un-sorts.
 
     Flags pick the optional outputs (each is a payload of every re-pack
     sort): return_anchor the depth of the min-SDF sample, return_steps
@@ -689,7 +691,7 @@ def fine_march_rounds(
     def fit(bucket: int, width: int, live: torch.Tensor) -> int:
         """The columns a round marches: the bucket, unless the live rays
         of some frame overflow it."""
-        if bucket >= width:
+        if bucket >= width or in_host_free():
             return width
         return width if int(live.sum(dim=1).max()) > bucket else bucket
 
@@ -727,11 +729,11 @@ def fine_march_rounds(
     def repack(s):
         """Live-first re-pack by remaining work (one payload sort)."""
         if difficulty_repack:
-            eps = march.convergence_eps
-            bins = torch.tensor([4 * eps, 16 * eps, 64 * eps],
-                                dtype=torch.float32, device=dev)
-            qf = torch.bucketize(torch.nan_to_num(s["lsdf"], posinf=1e9).abs(),
-                                 bins, right=True)
+            # the bin of |last SDF| among 4, 16 and 64 eps (a bucketize whose
+            # bins need no copy to the device: the comparisons round each
+            # bound to fp32, as a float32 bins tensor does)
+            a = torch.nan_to_num(s["lsdf"], posinf=1e9).abs()
+            qf = sum((a >= m * march.convergence_eps).long() for m in (4, 16, 64))
             k2 = torch.where(~s["live"], 99, torch.where(s["brk"], 4, 0) + qf)
         else:
             k2 = torch.where(~s["live"], 99, torch.where(s["brk"], 1, 0))

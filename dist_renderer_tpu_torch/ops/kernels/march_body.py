@@ -20,6 +20,7 @@ schedule to produce the same row sums.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -28,6 +29,31 @@ from dist_renderer_tpu_torch.models.decoder import dot_f32, round_bf16
 
 NEG_BIG = -3.0e38  # stand-ins for +-inf that survive fp32 where-games
 POS_BIG = 3.0e38
+
+_HOST_FREE = [False]
+
+
+@contextlib.contextmanager
+def host_free():
+    """A mode in which the multi-frame render (``render_batched_c2f`` on
+    the rounds scheduler, and ``finalize_hits_batched``) reads nothing
+    from the device on the host, so a CUDA graph can hold it, with the
+    eager call's bits. The rounds scheduler marches the full width (its
+    rounds are a pure function of each ray, whatever the width), the
+    finalize evaluates both of its branches and picks one on the device,
+    and the plain march runs its whole step budget instead of stopping
+    when no ray is live (a step changes no dead ray)."""
+    prev = _HOST_FREE[0]
+    _HOST_FREE[0] = True
+    try:
+        yield
+    finally:
+        _HOST_FREE[0] = prev
+
+
+def in_host_free() -> bool:
+    """Whether the caller runs inside ``host_free()``."""
+    return _HOST_FREE[0]
 
 
 class Carry(NamedTuple):
@@ -101,7 +127,9 @@ def march_loop(mlp: Callable[[torch.Tensor], torch.Tensor],
                c: Carry, kmax: Optional[int] = None) -> Carry:
     """Run the bracket-secant march from carry ``c`` for at most ``kmax``
     iterations (None = max_steps) or until no ray is active. max_steps is
-    each ray's total budget, compared with its carried step count.
+    each ray's total budget, compared with its carried step count. Under
+    ``host_free()`` it runs all kmax iterations: a step with no active
+    ray changes no field of the carry, so the result is the same.
 
     mlp: bf16-rounded positions [N, 3] -> sdf [N]."""
     eps, deps = march.convergence_eps, march.depth_eps
@@ -109,7 +137,7 @@ def march_loop(mlp: Callable[[torch.Tensor], torch.Tensor],
     kmax = max_steps if kmax is None else kmax
     near_lo = near - margin
     k = 0
-    while k < kmax and bool((c.act > 0.5).any()):
+    while k < kmax and (in_host_free() or bool((c.act > 0.5).any())):
         (d, act_f, hit_f, d_lo, f_lo, d_hi, f_hi, min_sdf, d_at_min,
          last_f, steps, unres_f) = c
         act = act_f > 0.5

@@ -637,11 +637,15 @@ def finalize_hits_batched(
     is not a hit keeps its trace depth and margin. When every frame's hits
     fit an N // compact_frac bucket (one host decision on the largest
     per-frame hit count) only a hit-first bucket of each frame is
-    evaluated, else every ray; the two give the same result. (The JAX
-    package's bucketed branch also resets the depth of misses to the
-    background and overwrites the margins of the misses that pad the
-    bucket; its full-width branch does neither.)"""
+    evaluated, else every ray. The two give the same result up to the
+    GEMMs' sums, whose order the card's GEMM picks by shape (on the CPU
+    bit for bit). Under ``batched_march.host_free()`` both are evaluated
+    and the choice is made on the device, with no host read and the eager
+    call's bits. (The JAX package's bucketed branch also resets the depth
+    of misses to the background and overwrites the margins of the misses
+    that pad the bucket; its full-width branch does neither.)"""
     from dist_renderer_tpu_torch.models.decoder import decoder_apply_with_dd
+    from dist_renderer_tpu_torch.ops.kernels.march_body import in_host_free
 
     set_fp32_matmul()
     f, n = depth.shape
@@ -670,19 +674,25 @@ def finalize_hits_batched(
         d_fin = torch.where(h_new, d_fin, torch.full_like(d_fin, background_depth))
         return d_fin, h_new, s
 
-    bucketed = int(hit.sum(dim=1).max()) <= bucket
-    outs = []
-    for i in range(f):
-        d, h, m = depth[i], hit[i], msdf[i]
-        sel = (torch.sort((~h).to(torch.int32), stable=True).indices[:bucket]
-               if bucketed else torch.arange(n, device=d.device))
-        hs = h[sel]
-        d_f, h_f, s_f = polish(latents[i], origins[i][sel], dirs[i][sel], d[sel],
-                               hs, weak[i][sel])
-        outs.append((d.index_put((sel,), torch.where(hs, d_f, d[sel])),
-                     h.index_put((sel,), h_f),
-                     m.index_put((sel,), torch.where(hs, s_f, m[sel]))))
-    return tuple(torch.stack(x) for x in zip(*outs))
+    def branch(bucketed):
+        outs = []
+        for i in range(f):
+            d, h, m = depth[i], hit[i], msdf[i]
+            sel = (torch.sort((~h).to(torch.int32), stable=True).indices[:bucket]
+                   if bucketed else torch.arange(n, device=d.device))
+            hs = h[sel]
+            d_f, h_f, s_f = polish(latents[i], origins[i][sel], dirs[i][sel], d[sel],
+                                   hs, weak[i][sel])
+            outs.append((d.index_put((sel,), torch.where(hs, d_f, d[sel])),
+                         h.index_put((sel,), h_f),
+                         m.index_put((sel,), torch.where(hs, s_f, m[sel]))))
+        return tuple(torch.stack(x) for x in zip(*outs))
+
+    if not in_host_free():
+        return branch(int(hit.sum(dim=1).max()) <= bucket)
+    # both branches, the choice made on the device: the eager call's bits
+    fits = hit.sum(dim=1).max() <= bucket
+    return tuple(torch.where(fits, a, b) for a, b in zip(branch(True), branch(False)))
 
 
 class SDFRenderer:

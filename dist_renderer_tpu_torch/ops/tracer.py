@@ -43,9 +43,11 @@ class TraceResult(NamedTuple):
 def live_counts_from_steps(steps_per_ray: torch.Tensor,
                            max_steps: int) -> torch.Tensor:
     """live_counts[k] = #rays active at the start of step k+1 =
-    #{i: steps_i > k}."""
-    s = torch.clamp(steps_per_ray.to(torch.int64), 0, max_steps)
-    hist = torch.bincount(s.reshape(-1), minlength=max_steps + 1)
+    #{i: steps_i > k}. The histogram has max_steps + 1 fixed bins, so
+    the host reads nothing from the device (a CUDA graph can hold it)."""
+    s = torch.clamp(steps_per_ray.to(torch.int64), 0, max_steps).reshape(-1)
+    hist = torch.zeros(max_steps + 1, dtype=torch.int64, device=s.device)
+    hist.index_add_(0, s, torch.ones_like(s))
     c = torch.cumsum(hist, 0)
     return (c[-1] - c[:-1]).to(torch.int32)
 

@@ -8,27 +8,39 @@ pair one frame.
 coarse-to-fine render (render_batched_c2f: the rounds scheduler on the
 march kernels); without it every frame goes through render_rays. Under
 --verify-hits polish or polish-all each chunk's hits are finalized against
-the full decoder (finalize_hits_batched) before they are counted. The JAX
-package's --scan (its chunk loop as one on-device lax.map) is not ported:
-it measured slower there than the host loop of per-chunk launches kept
-here.
+the full decoder (finalize_hits_batched) before they are counted.
+
+--scan (with --pallas --stream, and ignored otherwise, as in the JAX
+package, whose --scan is one lax.map over the chunks in one jit) runs the
+whole chunk loop as one program. On the card that is one CUDA graph of
+every chunk's render and its on-device depth sum and hit count, captured
+inside batched_march.host_free() (which takes every host read off the
+batched render's path and keeps its bits) after an eager warm-up chunk
+and before the timed region, which is one replay. With --cpu the same
+host-free loop runs without a capture. On the card the line before the
+result gives the graph's nodes and its capture and instantiate seconds:
+
+    python -m dist_renderer_tpu_torch.tasks.batched_render --fast --pallas \\
+        --proxy .bench_proxy.npz --stream --scan --latents 16 --views 4 --img 512 --chunk 16
 
 Under a process group of several ranks (torchrun, which this module
 joins with --dist-backend, or a group the caller initialised) each rank
-renders its share of the latents, with no collectives in the march; the
-hit counts, depth sums and times are reduced to rank 0, which prints the
-result line:
+renders its share of the latents, with no collectives in the march (under
+--scan each rank captures its own graph); the hit counts, depth sums and
+times are reduced to rank 0, which prints the result line:
 
-    torchrun --nproc-per-node 4 -m dist_renderer_tpu_torch.tasks.batched_render \
+    torchrun --nproc-per-node 4 -m dist_renderer_tpu_torch.tasks.batched_render \\
         --pallas --dist-backend gloo     # 4 ranks sharing one card
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
+from typing import Callable, List, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -36,6 +48,7 @@ import torch.distributed as dist
 from dist_renderer_tpu_torch.models.decoder import make_precise_sdf
 from dist_renderer_tpu_torch.models.folded import make_point_fn
 from dist_renderer_tpu_torch.ops.camera import pixel_rays
+from dist_renderer_tpu_torch.ops.kernels.batched_march import host_free
 from dist_renderer_tpu_torch.ops.renderer import finalize_hits_batched, render_rays
 from dist_renderer_tpu_torch.tasks.common import (
     add_common_args, load_task_decoder, make_render_cfg, ring_cameras,
@@ -65,6 +78,51 @@ def pick_chunk(args, n_frames: int) -> int:
     return chunk
 
 
+class ChunkStream(NamedTuple):
+    """The --pallas path's chunk loop: render_chunk(lat_f) -> (depth, hit),
+    each [chunk, N], of one chunk's frames, and the chunks' latents (fixed
+    views of one tensor)."""
+
+    render_chunk: Callable
+    chunks: List[torch.Tensor]
+    device: torch.device
+
+
+def stream_sums(cs: ChunkStream):
+    """The fp64 depth sum over every chunk's hits and the hit count
+    (int64), both summed on the device."""
+    dsum = torch.zeros((), dtype=torch.float64, device=cs.device)
+    hits = torch.zeros((), dtype=torch.int64, device=cs.device)
+    for lat_c in cs.chunks:
+        d, h = cs.render_chunk(lat_c)
+        dsum += torch.where(h, d, 0.0).sum(dtype=torch.float64)
+        hits += h.sum()
+    return dsum, hits
+
+
+def capture_scan(cs: ChunkStream):
+    """--scan on the card: stream_sums as one CUDA graph, captured inside
+    host_free() after one chunk's warm-up on a side stream. Returns (the
+    instantiated graph; its (depth sum, hit count), which every replay
+    rewrites; {nodes, capture_s, instantiate_s}). A call that cannot be
+    captured raises: nothing runs eagerly in its place."""
+    from dist_renderer_tpu_torch.utils.profiling import (
+        capture, graph_nodes, warm_on_side_stream,
+    )
+
+    out = []
+    with host_free():
+        warm_on_side_stream(lambda: cs.render_chunk(cs.chunks[0]))
+        t0 = time.perf_counter()
+        graph = capture(lambda: out.append(stream_sums(cs)), 1, warm=False,
+                        keep_graph=True)
+        t1 = time.perf_counter()
+        nodes = graph_nodes(graph)
+        graph.instantiate()
+        t2 = time.perf_counter()
+    return graph, out[0], dict(nodes=nodes, capture_s=t1 - t0, instantiate_s=t2 - t1)
+
+
 def join_torchrun(args) -> bool:
     """Under torchrun (WORLD_SIZE > 1) with no process group yet: put this
     rank on its device and initialise the group (env://) on
@@ -86,9 +144,7 @@ def join_torchrun(args) -> bool:
     return True
 
 
-def main(argv=None):
-    """Prints (on rank 0) and returns the result line: Mrays/s and
-    hit_frac."""
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     add_common_args(ap)
@@ -102,6 +158,10 @@ def main(argv=None):
                     help="with --pallas: reduce each chunk to a hit count and "
                     "a depth sum instead of keeping every depth map (1k "
                     "latents x 16 views at 512^2 is 16.8 GB of depth)")
+    ap.add_argument("--scan", action="store_true",
+                    help="with --pallas --stream: the whole chunk loop as one "
+                    "program, on the card one CUDA graph captured before the "
+                    "timed region and replayed once in it")
     ap.add_argument("--proxy", default=None,
                     help="a distilled proxy npz (models/proxy.py): the march "
                     "runs the proxy and a full-decoder verify stage re-derives "
@@ -119,7 +179,14 @@ def main(argv=None):
                     help="under torchrun: the process group's backend (default: "
                     "nccl on the card, gloo with --cpu; gloo lets ranks share "
                     "a card)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    """Prints (on rank 0) and returns the result line: Mrays/s and
+    hit_frac. The returned dict also holds the exact ``hits`` and
+    ``depth_sum`` (fp64) the line's hit_frac and mean depth round."""
+    args = parse_args(argv)
     owns_group = join_torchrun(args)
     try:
         return _run(args)
@@ -128,112 +195,150 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
-def _run(args):
+class Scene(NamedTuple):
+    """This rank's frames: the decoder, the config, every view's rays
+    [views, N, 3] and this rank's latents."""
+
+    params: dict
+    dcfg: object
+    cfg: object
+    origins: torch.Tensor
+    dirs: torch.Tensor
+    latents: torch.Tensor
+    device: torch.device
+
+
+def scene(args) -> Scene:
+    """The decoder, the ring cameras' rays and this rank's share of the
+    latents (base latent + --latent-noise x latent_draws)."""
     dev = task_device(args)
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if args.latents % world:
         raise SystemExit(f"--latents {args.latents} must divide over the {world} ranks")
     params, base_latent, dcfg = load_task_decoder(args)
-    cfg = make_render_cfg(args)
     cams = ring_cameras(args.img, args.views, device=dev)
     rays = [pixel_rays(c, args.img, args.img) for c in cams]
-    origins = torch.stack([r[0] for r in rays])    # [views, N, 3]
-    dirs = torch.stack([r[1] for r in rays])
     latents = base_latent[None] + args.latent_noise * latent_draws(
         args.latents, base_latent.shape[0], dev)
     # each rank renders its share of the latents (pure data parallel)
     per_rank = args.latents // world
-    latents = latents[rank * per_rank:(rank + 1) * per_rank]
-    n_frames = per_rank * args.views
+    return Scene(params, dcfg, make_render_cfg(args),
+                 torch.stack([r[0] for r in rays]), torch.stack([r[1] for r in rays]),
+                 latents[rank * per_rank:(rank + 1) * per_rank], dev)
+
+
+def chunk_stream(args, sc: Scene) -> ChunkStream:
+    """The --pallas path's chunks (pick_chunk) and their render: the
+    rounds scheduler on K1, and under --verify-hits polish or polish-all
+    the full-decoder finalize."""
+    from dist_renderer_tpu_torch.ops.kernels.batched_march import (
+        pack_shared, render_batched_c2f,
+    )
+
+    params, dcfg, cfg, dev = sc.params, sc.dcfg, sc.cfg, sc.device
+    n_frames = sc.latents.shape[0] * args.views
+    chunk = pick_chunk(args, n_frames)
+    reps = (chunk + args.views - 1) // args.views
+    # ring cameras are pinholes: one origin per view
+    o_chunk = sc.origins[:, :1].repeat(reps, 1, 1)[:chunk]
+    v_chunk = sc.dirs.repeat(reps, 1, 1)[:chunk]
+    m = cfg.march
+    proxy = None
+    pbo, pband = m.proxy_backoff, m.proxy_band
+    if args.proxy:
+        from dist_renderer_tpu_torch.models.proxy import (
+            load_proxy_meta, load_proxy_npz, proxy_march_margins,
+        )
+        proxy = load_proxy_npz(args.proxy, dev)
+        # the verify margins follow this proxy's measured error
+        meta = load_proxy_meta(args.proxy)
+        if meta:
+            pbo, pband = proxy_march_margins(meta, m.convergence_eps)
+    vh = args.verify_hits
+    packed = (pack_shared(params, dcfg),
+              None if proxy is None else pack_shared(*proxy))
+
+    @torch.no_grad()
+    def render_chunk(lat_f):
+        st = render_batched_c2f(
+            params, dcfg, lat_f, o_chunk, v_chunk, (args.img, args.img), m,
+            shared_origin=True, proxy=proxy, proxy_backoff=pbo,
+            proxy_band=pband, verify_mode=m.proxy_verify_mode,
+            verify_band=m.proxy_verify_band, verify_hits=vh,
+            verify_round_caps=m.proxy_verify_caps,
+            verify_gen_caps=m.proxy_verify_caps_queue,
+            proxy_block=m.proxy_block_width, packed=packed)
+        if proxy is None or vh == "march":
+            return st.depth, st.hit
+        # the trace's confident proxy hits are unverified until here
+        d, h, _ = finalize_hits_batched(
+            params, dcfg, lat_f, o_chunk, v_chunk, st.depth, st.hit,
+            st.min_sdf, convergence_eps=m.convergence_eps,
+            background_depth=cfg.background_depth,
+            ift_min_denom=cfg.grad.ift_min_denom,
+            polish_iters=max(cfg.grad.polish_iters, 2),
+            compact_frac=3 if vh == "polish-all" else 4, weak=st.weak)
+        return d, h
+
+    lat_frames = sc.latents.repeat_interleave(args.views, dim=0)
+    return ChunkStream(render_chunk,
+                       [lat_frames[s:s + chunk] for s in range(0, n_frames, chunk)], dev)
+
+
+def _run(args):
+    sc = scene(args)
+    dev, cfg = sc.device, sc.cfg
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
     extra = {}
+    stream = args.pallas and args.stream
+    # a warm-up on the card (the kernels build at their first launch); the
+    # CPU has nothing to warm
+    warm = dev.type == "cuda"
 
     if args.pallas:
-        from dist_renderer_tpu_torch.ops.kernels.batched_march import (
-            pack_shared, render_batched_c2f,
-        )
+        cs = chunk_stream(args, sc)
+        extra["chunk_frames"] = cs.chunks[0].shape[0]
+        if stream:
+            # warm up on one chunk; the timed region streams every chunk
+            if warm:
+                cs.render_chunk(cs.chunks[0])
+                synchronize(dev)
+            if args.scan and warm:
+                graph, (dsum_t, hits_t), info = capture_scan(cs)
+                if rank == 0:
+                    print(json.dumps({"scan_graph": info}))
 
-        chunk = pick_chunk(args, n_frames)
-        reps = (chunk + args.views - 1) // args.views
-        # ring cameras are pinholes: one origin per view
-        o_chunk = origins[:, :1].repeat(reps, 1, 1)[:chunk]
-        v_chunk = dirs.repeat(reps, 1, 1)[:chunk]
-        m = cfg.march
-        proxy = None
-        pbo, pband = m.proxy_backoff, m.proxy_band
-        if args.proxy:
-            from dist_renderer_tpu_torch.models.proxy import (
-                load_proxy_meta, load_proxy_npz, proxy_march_margins,
-            )
-            proxy = load_proxy_npz(args.proxy, dev)
-            # the verify margins follow this proxy's measured error
-            meta = load_proxy_meta(args.proxy)
-            if meta:
-                pbo, pband = proxy_march_margins(meta, m.convergence_eps)
-        vh = args.verify_hits
-        packed = (pack_shared(params, dcfg),
-                  None if proxy is None else pack_shared(*proxy))
-
-        @torch.no_grad()
-        def render_chunk(lat_f):
-            st = render_batched_c2f(
-                params, dcfg, lat_f, o_chunk, v_chunk, (args.img, args.img), m,
-                shared_origin=True, proxy=proxy, proxy_backoff=pbo,
-                proxy_band=pband, verify_mode=m.proxy_verify_mode,
-                verify_band=m.proxy_verify_band, verify_hits=vh,
-                verify_round_caps=m.proxy_verify_caps,
-                verify_gen_caps=m.proxy_verify_caps_queue,
-                proxy_block=m.proxy_block_width, packed=packed)
-            if proxy is None or vh == "march":
-                return st.depth, st.hit
-            # the trace's confident proxy hits are unverified until here
-            d, h, _ = finalize_hits_batched(
-                params, dcfg, lat_f, o_chunk, v_chunk, st.depth, st.hit,
-                st.min_sdf, convergence_eps=m.convergence_eps,
-                background_depth=cfg.background_depth,
-                ift_min_denom=cfg.grad.ift_min_denom,
-                polish_iters=max(cfg.grad.polish_iters, 2),
-                compact_frac=3 if vh == "polish-all" else 4, weak=st.weak)
-            return d, h
-
-        lat_frames = latents.repeat_interleave(args.views, dim=0)
-        chunks = [lat_frames[s:s + chunk] for s in range(0, n_frames, chunk)]
-        if args.stream:
-            def render_batch():
-                dsum = torch.zeros((), dtype=torch.float64, device=dev)
-                hits = torch.zeros((), dtype=torch.int64, device=dev)
-                for lat_c in chunks:
-                    d, h = render_chunk(lat_c)
-                    dsum += torch.where(h, d, 0.0).sum(dtype=torch.float64)
-                    hits += h.sum()
-                return float(dsum), int(hits)
+                def render_batch():
+                    graph.replay()
+                    synchronize(dev)
+                    return float(dsum_t), int(hits_t)
+            else:
+                def render_batch():
+                    with host_free() if args.scan else contextlib.nullcontext():
+                        dsum, hits = stream_sums(cs)
+                    return float(dsum), int(hits)
         else:
             def render_batch():
-                ds, hs = zip(*(render_chunk(lat_c) for lat_c in chunks))
+                ds, hs = zip(*(cs.render_chunk(lat_c) for lat_c in cs.chunks))
                 return torch.cat(ds), torch.cat(hs)
-        extra["chunk_frames"] = chunk
     else:
+        params, dcfg = sc.params, sc.dcfg
         sdf_fn = make_precise_sdf(params, dcfg)
 
         @torch.no_grad()
         def render_batch():
             ds, hs = [], []
-            for z in latents:
+            for z in sc.latents:
                 mf = make_point_fn(params, z, dcfg, cfg.dtype)
-                for o, v in zip(origins, dirs):
+                for o, v in zip(sc.origins, sc.dirs):
                     out = render_rays(sdf_fn, z, o, v, cfg, mf)
                     ds.append(out.depth)
                     hs.append(out.mask)
             return torch.stack(ds), torch.stack(hs)
 
-    # a warm-up on the card (the kernels build at their first launch); the
-    # CPU has nothing to warm
-    warm = dev.type == "cuda"
-    if args.pallas and args.stream:
-        # warm up on one chunk; the timed region streams every chunk
-        if warm:
-            render_chunk(chunks[0])
-            synchronize(dev)
+    if stream:
         t0 = time.perf_counter()
         dsum, hits = render_batch()
         dt = time.perf_counter() - t0
@@ -268,7 +373,7 @@ def _run(args):
               "Mrays_per_s": round(n_rays / dt / 1e6, 2), "devices": world, **extra}
     if rank == 0:
         print(json.dumps(result))
-    return result
+    return {**result, "hits": hits, "depth_sum": dsum}
 
 
 if __name__ == "__main__":

@@ -223,10 +223,9 @@ def host_us(fn: Callable[[], Any], n: int = 200, warmup: int = 5) -> float:
     return 1e6 * statistics.median(times)
 
 
-def capture(fn: Callable[[], Any], n: int) -> torch.cuda.CUDAGraph:
-    """One CUDA graph of ``n`` back-to-back fn() calls (warmed up on a
-    side stream first, as capture needs). A call that cannot be captured
-    raises here."""
+def warm_on_side_stream(fn: Callable[[], Any]) -> None:
+    """Run fn() once on a side stream and wait for it: the warm-up a
+    capture needs (lazy handles and workspaces made outside the graph)."""
     _need_card()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -234,11 +233,36 @@ def capture(fn: Callable[[], Any], n: int) -> torch.cuda.CUDAGraph:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
+
+
+def capture(fn: Callable[[], Any], n: int, warm: bool = True,
+            keep_graph: bool = False) -> torch.cuda.CUDAGraph:
+    """One CUDA graph of ``n`` back-to-back fn() calls, fn warmed up on a
+    side stream first unless warm=False (the caller warmed it). With
+    keep_graph the graph stays uninstantiated until ``instantiate()`` or
+    its first replay, and ``graph_nodes`` can count it. A call that
+    cannot be captured raises here."""
+    if warm:
+        warm_on_side_stream(fn)
+    _need_card()
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
     with torch.cuda.graph(graph):
         for _ in range(n):
             fn()
     return graph
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The node count of a graph captured with keep_graph=True
+    (libcuda's cuGraphGetNodes on its cudaGraph_t)."""
+    import ctypes
+
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes: CUDA error {err}")
+    return count.value
 
 
 def graph_us(fn: Callable[[], Any], n: int = 200, reps: int = 3) -> float:

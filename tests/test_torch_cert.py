@@ -150,10 +150,10 @@ def _cert_scene(decoders, eye=-1.2):
 def _certify_both(s, seeded, depth, band=None, anchor=None, **kw):
     jargs = (s["jshared"], s["jbank"], jnp.asarray(s["ob"]), jnp.asarray(s["vb"]),
              jnp.asarray(depth), jnp.asarray(seeded), JMarchConfig(**MARCH_KW))
-    ref = jcert.certify_hits_batched(
+    ref = jax.jit(lambda: jcert.certify_hits_batched(
         *jargs, interpret=True,
         band=None if band is None else jnp.asarray(band),
-        anchor=None if anchor is None else jnp.asarray(anchor), **kw)
+        anchor=None if anchor is None else jnp.asarray(anchor), **kw))()
     out = cert.certify_hits_batched(
         s["shared"], s["bank"], T(s["ob"]), T(s["vb"]), T(depth), T(seeded),
         MarchConfig(**MARCH_KW), band=None if band is None else T(band),

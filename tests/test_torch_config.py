@@ -79,6 +79,7 @@ def test_port_imports_no_jax():
         "dist_renderer_tpu_torch.data.datasets",
         "dist_renderer_tpu_torch.tasks.make_synthetic_data",
         "dist_renderer_tpu_torch.tasks.train",
+        "dist_renderer_tpu_torch.tasks.batched_render",
         "dist_renderer_tpu_torch.ops.camera",
         "dist_renderer_tpu_torch.ops.tracer",
         "dist_renderer_tpu_torch.ops.c2f",

@@ -2662,3 +2662,41 @@ def test_cuda_stage_diagnostic_runs_and_holds(name, tmp_path):
     if name == "retrain_proxy":
         assert res["written"] == [os.path.join(str(tmp_path), "proxy_v2.npz")]
         assert os.path.exists(res["written"][0]) and not res["promoted"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("verify_hits", ["march", "polish"])
+def test_cuda_scan_graph_replays_the_eager_loop(verify_hits, monkeypatch):
+    """batched_render --scan's CUDA graph (4 latents x 2 views at 64^2 with
+    the bench proxy, 2 chunks of 4 frames): its replay gives the eager
+    host loop's hit count and fp64 depth sum bit for bit, a second replay
+    repeats the first, main() reports them, and a capture of the loop
+    with a host read in it (host_free() made a no-op) raises instead of
+    running eagerly."""
+    import contextlib
+
+    from dist_renderer_tpu_torch.tasks import batched_render as br
+
+    _device()
+    argv = ["--fast", "--pallas", "--stream", "--scan", "--img", "64", "--latents", "4",
+            "--views", "2", "--chunk", "4", "--proxy", os.path.join(ROOT, ".bench_proxy.npz"),
+            "--verify-hits", verify_hits]
+    args = br.parse_args(argv)
+    cs = br.chunk_stream(args, br.scene(args))
+    assert len(cs.chunks) == 2
+    eager = tuple(t.item() for t in br.stream_sums(cs))
+    graph, out, info = br.capture_scan(cs)
+    assert info["nodes"] > 0
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(tuple(t.item() for t in out))
+    assert replays[0] == eager == replays[1] and eager[1] > 0
+    res = br.main(argv)
+    assert (res["depth_sum"], res["hits"]) == eager
+    monkeypatch.setattr(br, "host_free", contextlib.nullcontext)
+    with pytest.raises(RuntimeError):
+        br.capture_scan(cs)
+    # the card still works after the refused capture
+    assert tuple(t.item() for t in br.stream_sums(cs)) == eager

@@ -50,11 +50,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMG = 32
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """torch on one thread: these tests run many small products (the
     in-order loop below: 512 per layer), and with the default intra-op
-    threads, pytest workers sharing the cores slowed them up to 30-fold."""
+    threads, pytest workers sharing the cores slowed them up to 30-fold.
+    Module-scoped, so a module's own module-scoped fixtures (set up before
+    any function-scoped one) run on one thread too: tests/test_torch_cert.py's
+    port_modes took 41-73 s of setup in 4-worker runs with the default
+    threads, ~1 s on one."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -89,8 +93,9 @@ def _dot_k_order(a, b):
     """a [N, K] @ b [K, M] summed over k in order from zero (each product
     of bf16-valued operands is exact in fp32)."""
     out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    a_t = a.T.contiguous()   # each k's column one contiguous run
     for k in range(a.shape[1]):
-        out.addcmul_(a[:, k:k + 1], b[k:k + 1])
+        out.addcmul_(a_t[k][:, None], b[k:k + 1])
     return out
 
 
@@ -252,10 +257,22 @@ def _bench():
     return params_np, z0.numpy(), z.astype(np.float32)
 
 
+_TRACES = {}
+
+
 def _fixed_trace(params_np, z, eye, march):
     """JAX's plain masked sphere tracer on the fp32 decoder, as numpy.
     Rays that never enter the bounding sphere get the geometric margin
-    the march kernels record (the plain tracer leaves +inf there)."""
+    the march kernels record (the plain tracer leaves +inf there). Traced
+    once per (latent, eye, march) in this module (params_np is always the
+    bench decoder): the tests read it and never write it."""
+    key = (np.asarray(z, np.float32).tobytes(), tuple(eye), march)
+    if key not in _TRACES:
+        _TRACES[key] = _trace_with_jax(params_np, z, eye, march)
+    return _TRACES[key]
+
+
+def _trace_with_jax(params_np, z, eye, march):
     jp = jax.tree_util.tree_map(jnp.asarray, params_np)
     jc = JDecoderConfig()
     cam = jcam.Camera.looking_at(eye, focal=IMG * 1.2, img_hw=(IMG, IMG))
@@ -464,14 +481,24 @@ def _one_margin_ray(kind):
     return int(cand[cand.size // 2])
 
 
+@pytest.fixture(scope="module")
+def far_trace():
+    """The far camera's _FixedTrace with JAX's bias fold (the jax_fold
+    fixture's), built once for the margin tests, which only read it (their
+    backward passes keep its graph)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trec, "fold_bias_precise", _jax_fold)
+        return _FixedTrace((0.0, 0.0, -2.5))
+
+
 @pytest.mark.parametrize("kind", ["out-of-bucket miss", "non-entering ray"])
-def test_margin_gradient_repairs(kind, jax_fold):
+def test_margin_gradient_repairs(kind, jax_fold, far_trace):
     """A loss on one ray's margin gives the latent (and pose) gradient
     JAX gives, nonzero: the decoder's gradient at the ray's anchor (the
     lazy margin), or the margin's gradient kept under the geometric value
     on a ray outside the bounding sphere. Bars as the fixed-trace test."""
     i = _one_margin_ray(kind)
-    ft = _FixedTrace((0.0, 0.0, -2.5))
+    ft = far_trace
     assert not ft.d["hit"][i]
     (jgz, jgp), (gz, gp) = ft.grads(lambda lib, where, out, z: out.min_sdf[i])
     for a, b in ((gz, jgz), (gp, jgp)):
@@ -545,7 +572,7 @@ def test_render_gradients_match_jax():
                             min_sdf=out.min_sdf.ravel())
         return _objective(JL, jnp.where, flat, zz, tuple(map(jnp.asarray, obs)))
 
-    jgz, jgp = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(z), jnp.asarray(pose))
+    jgz, jgp = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jnp.asarray(z), jnp.asarray(pose))
 
     tp = params_from_numpy(params)
     tfac = make_march_factory(tp, DecoderConfig(**kw), tcfg,

@@ -14,6 +14,8 @@ halves its loss and follows JAX's first 3 steps within 1e-4 (optax's
 fp32 Adam bias correction and torch's differ at ~1e-5).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -77,13 +79,16 @@ def _batched_rays(img, n_frames):
             np.broadcast_to(v[None], (n_frames,) + v.shape).copy())
 
 
+@functools.lru_cache(maxsize=None)
 def _fit_obs(img=16):
-    """tests/test_parallel.py's batch: 4 spheres' JAX renders."""
+    """tests/test_parallel.py's batch: 4 spheres' JAX renders (made once;
+    the callers only read it)."""
     jcam, _ = _frame(img, 40.0)
     jcfg = JRenderConfig(img_h=img, img_w=img, march=JMarchConfig(**FRAME_MARCH))
     f = jlatent_sphere_sdf()
-    depths, masks = jax.vmap(lambda r: (lambda o: (o.depth.reshape(-1), o.mask.reshape(-1)))(
-        jrender(f, r, jcam, jcfg)))(jnp.asarray(TRUE_R))
+    depths, masks = jax.jit(jax.vmap(lambda r: (lambda o: (
+        o.depth.reshape(-1), o.mask.reshape(-1)))(jrender(f, r, jcam, jcfg))))(
+        jnp.asarray(TRUE_R))
     o, v = (np.asarray(a) for a in jpixel_rays(jcam, img, img))
     n = o.shape[0]
     return dict(origins=np.broadcast_to(o[None], (4, n, 3)).copy(),
@@ -152,8 +157,9 @@ def test_sharded_frame_render_matches_jax(ranks, img, focal):
     padded to 328 and trimmed), against JAX's on its fake mesh."""
     jcam, _ = _frame(img, focal)
     cfg = JRenderConfig(img_h=img, img_w=img, march=JMarchConfig(**FRAME_MARCH))
-    ref = jsh.render_frame_sharded(jlatent_sphere_sdf(), jnp.array([0.5]), jcam, cfg,
-                                   jmake_mesh(("rays",)))
+    # jitted: eager shard_map runs primitive by primitive (~20x slower)
+    ref = jax.jit(lambda: jsh.render_frame_sharded(
+        jlatent_sphere_sdf(), jnp.array([0.5]), jcam, cfg, jmake_mesh(("rays",))))()
     out = ranks[f"frame{img}"]
     assert out.depth.shape == (img, img) and out.normal.shape == (img, img, 3)
     np.testing.assert_array_equal(out.mask.numpy(), np.asarray(ref.mask))
@@ -167,9 +173,9 @@ def test_view_sharded_render_matches_jax(ranks):
     """render_views_sharded: 8 views over the 8-shard latents axis."""
     vo, vv = _view_rays()
     cfg = JRenderConfig(img_h=16, img_w=16, march=JMarchConfig(**FRAME_MARCH))
-    ref = jsh.render_views_sharded(jlatent_sphere_sdf(), jnp.array([0.5]),
-                                   jnp.asarray(vo), jnp.asarray(vv), cfg,
-                                   jmake_mesh(("latents",)))
+    ref = jax.jit(lambda: jsh.render_views_sharded(
+        jlatent_sphere_sdf(), jnp.array([0.5]), jnp.asarray(vo), jnp.asarray(vv), cfg,
+        jmake_mesh(("latents",))))()
     out = ranks["views"]
     assert out.depth.shape == (8, 256)
     np.testing.assert_array_equal(out.mask.numpy(), np.asarray(ref.mask))
@@ -200,10 +206,10 @@ def test_sharded_trace_matches_jax(ranks, torus):
     o, v = _batched_rays(32, 1)
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     dcfg = JDecoderConfig(**DEC_KW)
-    jd, jhit, _ = jsh.trace_sharded_pallas(
-        jpack_folded(jfold_latent(jp, jnp.asarray(z0), dcfg), dcfg), jnp.asarray(o[0]),
-        jnp.asarray(v[0]), JMarchConfig(**BATCH_MARCH), jmake_mesh(("rays",)),
-        block=128, interpret=True)
+    packed = jpack_folded(jfold_latent(jp, jnp.asarray(z0), dcfg), dcfg)
+    jd, jhit, _ = jax.jit(lambda o, v: jsh.trace_sharded_pallas(
+        packed, o, v, JMarchConfig(**BATCH_MARCH), jmake_mesh(("rays",)), block=128,
+        interpret=True))(jnp.asarray(o[0]), jnp.asarray(v[0]))
     d, hit, msdf = ranks["trace"]
     assert d.shape == (1024,) and torch.isfinite(msdf).all()
     jhit, hit = np.asarray(jhit), hit.numpy()
