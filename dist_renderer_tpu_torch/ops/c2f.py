@@ -23,6 +23,8 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from dist_renderer_tpu_torch.utils.profiling import annotate
+
 
 class C2FMaps(NamedTuple):
     """Full-resolution per-pixel planning maps, all [F, H, W]."""
@@ -77,63 +79,65 @@ def classify_pyramid(
         return g[:, jr][:, :, jc]
 
     for stride in strides:
-        hh, ww = h // stride, w // stride
-        o_l = o_g[:, ::stride, ::stride].reshape(f, -1, 3)
-        v_l = v_g[:, ::stride, ::stride].reshape(f, -1, 3)
-        down = lambda g: resample(g, prev_stride, stride)
-        if maps is None:
-            seed = None
-            active = torch.ones((f, hh * ww), dtype=torch.bool, device=dev)
-        else:
-            # coarse rays whose parent neighborhood missed never re-march;
-            # their margin anchor travels down in the seed slot
-            seed = down(maps.seed).reshape(f, -1)
-            active = down(maps.hit_any).reshape(f, -1)
-            seed = torch.where(active, seed, down(maps.anchor).reshape(f, -1))
-        res = trace_level(o_l, v_l, seed, active, stride)
+        with annotate(f"drt.plan.level{stride}"):
+            hh, ww = h // stride, w // stride
+            o_l = o_g[:, ::stride, ::stride].reshape(f, -1, 3)
+            v_l = v_g[:, ::stride, ::stride].reshape(f, -1, 3)
+            down = lambda g: resample(g, prev_stride, stride)
+            if maps is None:
+                seed = None
+                active = torch.ones((f, hh * ww), dtype=torch.bool, device=dev)
+            else:
+                # coarse rays whose parent neighborhood missed never re-march;
+                # their margin anchor travels down in the seed slot
+                seed = down(maps.seed).reshape(f, -1)
+                active = down(maps.hit_any).reshape(f, -1)
+                seed = torch.where(active, seed, down(maps.anchor).reshape(f, -1))
+            res = trace_level(o_l, v_l, seed, active, stride)
 
-        seedable = res.hit | res.unresolved
-        inf = torch.full_like(res.depth, float("inf"))
-        depth_grid = torch.where(seedable, res.depth, inf).reshape(f, hh, ww)
-        hitish = seedable.reshape(f, hh, ww)
-        strict = res.hit.reshape(f, hh, ww)
+            seedable = res.hit | res.unresolved
+            inf = torch.full_like(res.depth, float("inf"))
+            depth_grid = torch.where(seedable, res.depth, inf).reshape(f, hh, ww)
+            hitish = seedable.reshape(f, hh, ww)
+            strict = res.hit.reshape(f, hh, ww)
 
-        dmin = windows(depth_grid, "min")
-        dmax = windows(torch.where(torch.isfinite(depth_grid), depth_grid,
-                                   torch.full_like(depth_grid, -float("inf"))),
-                       "max")
-        hit_any = windows(hitish, "or")
-        hit_all = windows(strict, "and")
+            dmin = windows(depth_grid, "min")
+            dmax = windows(torch.where(torch.isfinite(depth_grid), depth_grid,
+                                       torch.full_like(depth_grid, -float("inf"))),
+                           "max")
+            hit_any = windows(hitish, "or")
+            hit_all = windows(strict, "and")
 
-        rng = dmax - dmin
-        bo = torch.where(rng < backoff, torch.full_like(rng, 0.2 * backoff),
-                         torch.full_like(rng, backoff))
-        # margin/anchor come from the last level at which a ray actually
-        # marched (a level-skipped ray's tracer output is a sentinel)
-        new_anchor = res.depth_at_min.reshape(f, hh, ww)
-        new_margin = res.min_sdf.reshape(f, hh, ww)
-        if maps is not None:
-            act_g = active.reshape(f, hh, ww)
-            new_anchor = torch.where(act_g, new_anchor, down(maps.anchor))
-            new_margin = torch.where(act_g, new_margin, down(maps.margin))
-        nan = torch.full_like(dmin, float("nan"))
-        maps = C2FMaps(
-            seed=torch.where(torch.isfinite(dmin), dmin - bo, nan),
-            hit_any=hit_any,
-            hit_all=hit_all,
-            anchor=new_anchor,
-            margin=new_margin,
-            width=torch.where(torch.isfinite(rng), rng,
-                              torch.full_like(rng, float("inf"))),
-        )
-        prev_stride = stride
+            rng = dmax - dmin
+            bo = torch.where(rng < backoff, torch.full_like(rng, 0.2 * backoff),
+                             torch.full_like(rng, backoff))
+            # margin/anchor come from the last level at which a ray actually
+            # marched (a level-skipped ray's tracer output is a sentinel)
+            new_anchor = res.depth_at_min.reshape(f, hh, ww)
+            new_margin = res.min_sdf.reshape(f, hh, ww)
+            if maps is not None:
+                act_g = active.reshape(f, hh, ww)
+                new_anchor = torch.where(act_g, new_anchor, down(maps.anchor))
+                new_margin = torch.where(act_g, new_margin, down(maps.margin))
+            nan = torch.full_like(dmin, float("nan"))
+            maps = C2FMaps(
+                seed=torch.where(torch.isfinite(dmin), dmin - bo, nan),
+                hit_any=hit_any,
+                hit_all=hit_all,
+                anchor=new_anchor,
+                margin=new_margin,
+                width=torch.where(torch.isfinite(rng), rng,
+                                  torch.full_like(rng, float("inf"))),
+            )
+            prev_stride = stride
 
     if maps is None:
         return None
     # one upsample to full resolution: pixel i reads coarse cell i // stride
     up = lambda g: g.repeat_interleave(prev_stride, 1).repeat_interleave(
         prev_stride, 2)
-    return C2FMaps(*(up(g) for g in maps))
+    with annotate("drt.plan.maps"):
+        return C2FMaps(*(up(g) for g in maps))
 
 
 def warm_maps(depth: torch.Tensor, hitish: torch.Tensor,

@@ -37,6 +37,7 @@ from dist_renderer_tpu_torch.ops.kernels.march_body import (  # noqa: F401 (host
     POS_BIG, host_free, in_host_free, make_carry, march_loop, mlp_apply, rows_from_carry,
 )
 from dist_renderer_tpu_torch.ops.tracer import TraceResult, live_counts_from_steps
+from dist_renderer_tpu_torch.utils.profiling import annotate, count, count_device
 
 FRAME_TILE = 128  # bias-bank frame padding (the JAX package's layout)
 TILE = 32         # frames pad to a multiple of this many rays (the plain
@@ -544,6 +545,7 @@ def batched_trace_padded(
     res = trace(shared, bank, frame_of_ray, o_p, v_p, march, s_p,
                 init_active=a_p, block=block, salvage=salvage,
                 rays_per_frame=r_pad, use_kernel=use_kernel)
+    count_device("ray_steps", res.steps_per_ray)
     return unpad_frames(res, f, r, r_pad)
 
 
@@ -693,54 +695,58 @@ def fine_march_rounds(
         of some frame overflow it."""
         if bucket >= width or in_host_free():
             return width
-        return width if int(live.sum(dim=1).max()) > bucket else bucket
+        with annotate(".read"):
+            over = int(live.sum(dim=1).max()) > bucket
+        return width if over else bucket
 
     def run_round(ri, s, r, m, salvage):
         """March the first r columns (current order); merge back."""
-        v_r = torch.stack([s["vx"][:, :r], s["vy"][:, :r], s["vz"][:, :r]], -1)
-        o_r = (origins.expand(f, r, 3) if shared_origin else torch.stack(
-            [s["ox"][:, :r], s["oy"][:, :r], s["oz"][:, :r]], -1))
-        res = batched_trace_padded(shared, bank, o_r, v_r, m, s["d"][:, :r],
-                                   s["live"][:, :r], block, salvage,
-                                   use_kernel, persistent)
-        if diag is not None:
-            diag[f"fine_r{ri}_block_residency"] = march_tile_steps(res.steps_per_ray)
-        s = dict(s)
-        was = s["live"][:, :r]
-        upd = lambda full, part: _merge_cols(full, r, torch.where(was, part, full[:, :r]))
-        if return_anchor:
-            # keyed on the msdf before this round: the anchor of the
-            # round that reached the min
-            s["dam"] = upd(s["dam"], torch.where(
-                res.min_sdf <= s["msdf"][:, :r], res.depth_at_min, s["dam"][:, :r]))
-        s["d"] = upd(s["d"], res.depth)
-        s["hit"] = upd(s["hit"], s["hit"][:, :r] | res.hit)
-        s["msdf"] = upd(s["msdf"], torch.minimum(s["msdf"][:, :r], res.min_sdf))
-        s["brk"] = upd(s["brk"], res.bracketed)
-        if return_steps:
-            r_pad = res.steps_per_ray.shape[0] // f
-            s["stp"] = upd(s["stp"], s["stp"][:, :r]
-                           + res.steps_per_ray.reshape(f, r_pad)[:, :r])
-        if carry_lsdf:
-            s["lsdf"] = upd(s["lsdf"], res.last_sdf)
-        s["live"] = upd(s["live"], res.unresolved)
-        return s
+        with annotate(f".r{ri}"):
+            v_r = torch.stack([s["vx"][:, :r], s["vy"][:, :r], s["vz"][:, :r]], -1)
+            o_r = (origins.expand(f, r, 3) if shared_origin else torch.stack(
+                [s["ox"][:, :r], s["oy"][:, :r], s["oz"][:, :r]], -1))
+            res = batched_trace_padded(shared, bank, o_r, v_r, m, s["d"][:, :r],
+                                       s["live"][:, :r], block, salvage,
+                                       use_kernel, persistent)
+            if diag is not None:
+                diag[f"fine_r{ri}_block_residency"] = march_tile_steps(res.steps_per_ray)
+            s = dict(s)
+            was = s["live"][:, :r]
+            upd = lambda full, part: _merge_cols(full, r, torch.where(was, part, full[:, :r]))
+            if return_anchor:
+                # keyed on the msdf before this round: the anchor of the
+                # round that reached the min
+                s["dam"] = upd(s["dam"], torch.where(
+                    res.min_sdf <= s["msdf"][:, :r], res.depth_at_min, s["dam"][:, :r]))
+            s["d"] = upd(s["d"], res.depth)
+            s["hit"] = upd(s["hit"], s["hit"][:, :r] | res.hit)
+            s["msdf"] = upd(s["msdf"], torch.minimum(s["msdf"][:, :r], res.min_sdf))
+            s["brk"] = upd(s["brk"], res.bracketed)
+            if return_steps:
+                r_pad = res.steps_per_ray.shape[0] // f
+                s["stp"] = upd(s["stp"], s["stp"][:, :r]
+                               + res.steps_per_ray.reshape(f, r_pad)[:, :r])
+            if carry_lsdf:
+                s["lsdf"] = upd(s["lsdf"], res.last_sdf)
+            s["live"] = upd(s["live"], res.unresolved)
+            return s
 
     def repack(s):
         """Live-first re-pack by remaining work (one payload sort)."""
-        if difficulty_repack:
-            # the bin of |last SDF| among 4, 16 and 64 eps (a bucketize whose
-            # bins need no copy to the device: the comparisons round each
-            # bound to fp32, as a float32 bins tensor does)
-            a = torch.nan_to_num(s["lsdf"], posinf=1e9).abs()
-            qf = sum((a >= m * march.convergence_eps).long() for m in (4, 16, 64))
-            k2 = torch.where(~s["live"], 99, torch.where(s["brk"], 4, 0) + qf)
-        else:
-            k2 = torch.where(~s["live"], 99, torch.where(s["brk"], 1, 0))
-        k2_s, out = _sort_fields(k2.to(torch.int32),
-                                 {nm: a for nm, a in s.items() if nm != "live"})
-        out["live"] = k2_s < 99
-        return out
+        with annotate(".repack"):
+            if difficulty_repack:
+                # the bin of |last SDF| among 4, 16 and 64 eps (a bucketize whose
+                # bins need no copy to the device: the comparisons round each
+                # bound to fp32, as a float32 bins tensor does)
+                a = torch.nan_to_num(s["lsdf"], posinf=1e9).abs()
+                qf = sum((a >= m * march.convergence_eps).long() for m in (4, 16, 64))
+                k2 = torch.where(~s["live"], 99, torch.where(s["brk"], 4, 0) + qf)
+            else:
+                k2 = torch.where(~s["live"], 99, torch.where(s["brk"], 1, 0))
+            k2_s, out = _sort_fields(k2.to(torch.int32),
+                                     {nm: a for nm, a in s.items() if nm != "live"})
+            out["live"] = k2_s < 99
+            return out
 
     def rounds(width, st):
         """Every round and re-pack on the first `width` columns (every
@@ -893,111 +899,122 @@ def render_batched_c2f(
     if scheduler not in ("rounds", "queue", "auto"):
         raise ValueError(f"scheduler must be 'rounds', 'queue' or 'auto', "
                          f"got {scheduler!r}")
-    f = origins.shape[0]
-    h, w = img_hw
-    n = h * w
-    if scheduler == "auto":
-        scheduler = "queue" if f == 1 else "rounds"
+    with annotate("drt.batch"):
+        f = origins.shape[0]
+        h, w = img_hw
+        n = h * w
+        count("rays", f * n)
+        if scheduler == "auto":
+            scheduler = "queue" if f == 1 else "rounds"
 
-    if packed is None:
-        packed = (pack_shared(params, dcfg),
-                  None if proxy is None else pack_shared(*proxy))
-    shared, shared_p = packed
-    bank = fold_bias_bank(params, latents, dcfg, shared)
-    if proxy is not None:
-        shared_m = shared_p
-        bank_m = fold_bias_bank(proxy[0], latents, proxy[1], shared_m)
-    else:
-        shared_m, bank_m = shared, bank
-    coarse_march = dataclasses.replace(
-        march, max_steps=min(march.max_steps, coarse_steps))
-    o_full = origins.expand(f, n, 3)
-    diag = {} if with_diag else None
+        if packed is None:
+            packed = (pack_shared(params, dcfg),
+                      None if proxy is None else pack_shared(*proxy))
+        shared, shared_p = packed
+        with annotate("drt.setup"):
+            bank = fold_bias_bank(params, latents, dcfg, shared)
+            if proxy is not None:
+                shared_m = shared_p
+                bank_m = fold_bias_bank(proxy[0], latents, proxy[1], shared_m)
+            else:
+                shared_m, bank_m = shared, bank
+        coarse_march = dataclasses.replace(
+            march, max_steps=min(march.max_steps, coarse_steps))
+        o_full = origins.expand(f, n, 3)
+        diag = {} if with_diag else None
 
-    def trace_level(o_l, v_l, seed, active, stride):
-        res = batched_trace_padded(shared_m, bank_m, o_l, v_l, coarse_march,
-                                   seed, active, block, True, use_kernel,
-                                   persistent)
-        if with_diag:
+        def trace_level(o_l, v_l, seed, active, stride):
+            res = batched_trace_padded(shared_m, bank_m, o_l, v_l, coarse_march,
+                                       seed, active, block, True, use_kernel,
+                                       persistent)
+            if with_diag:
+                r_pad = res.steps_per_ray.shape[0] // f
+                diag[f"coarse{stride}_block_residency"] = march_tile_steps(
+                    res.steps_per_ray)
+                diag[f"coarse{stride}_ray_steps"] = res.steps_per_ray.reshape(
+                    f, r_pad)[:, :o_l.shape[1]]
+            return res
+
+        if warm is not None:
+            with annotate("drt.plan.maps"):
+                maps = warm_maps(*warm, img_hw, backoff)
+        else:
+            maps = classify_pyramid(
+                trace_level, o_full.reshape(f, h, w, 3), dirs.reshape(f, h, w, 3),
+                tuple(s for s in strides if h % s == 0 and w % s == 0), backoff)
+
+        if maps is None:  # no valid strides: plain batched march
+            with annotate("drt.fine"):
+                res = batched_trace_padded(
+                    shared, bank, o_full, dirs, march, None,
+                    torch.ones((f, n), dtype=torch.bool, device=dirs.device),
+                    block, True, use_kernel, persistent)
             r_pad = res.steps_per_ray.shape[0] // f
-            diag[f"coarse{stride}_block_residency"] = march_tile_steps(
-                res.steps_per_ray)
-            diag[f"coarse{stride}_ray_steps"] = res.steps_per_ray.reshape(
-                f, r_pad)[:, :o_l.shape[1]]
-        return res
+            out = StageResult(res.depth, res.hit, res.min_sdf, res.depth_at_min,
+                              res.last_sdf,
+                              res.steps_per_ray.reshape(f, r_pad)[:, :n],
+                              res.unresolved)
+            return (out, diag) if with_diag else out
 
-    if warm is not None:
-        maps = warm_maps(*warm, img_hw, backoff)
-    else:
-        maps = classify_pyramid(
-            trace_level, o_full.reshape(f, h, w, 3), dirs.reshape(f, h, w, 3),
-            tuple(s for s in strides if h % s == 0 and w % s == 0), backoff)
+        with annotate("drt.plan.maps"):
+            key, init_depth, skip = plan_from_maps(maps)
+        if with_diag:
+            diag.update(plan_key=key, plan_width=maps.width.reshape(f, n),
+                        plan_seed=maps.seed.reshape(f, n))
+        o_in = origins[:, :1] if shared_origin else origins
+        verify = proxy is not None and proxy_verify
 
-    if maps is None:  # no valid strides: plain batched march
-        res = batched_trace_padded(
-            shared, bank, o_full, dirs, march, None,
-            torch.ones((f, n), dtype=torch.bool, device=dirs.device),
-            block, True, use_kernel, persistent)
-        r_pad = res.steps_per_ray.shape[0] // f
-        out = StageResult(res.depth, res.hit, res.min_sdf, res.depth_at_min,
-                          res.last_sdf,
-                          res.steps_per_ray.reshape(f, r_pad)[:, :n],
-                          res.unresolved)
+        def fine_stage(sh, bk, key_s, seed_s, stage_diag=None, want_anchor=False,
+                       want_steps=False, want_last=False, want_unres=False,
+                       caps=None, qcaps=None) -> StageResult:
+            """One scheduler pass; the queue fills every field for free and
+            records no telemetry."""
+            if scheduler == "queue":
+                return queue_march(sh, bk, o_in, dirs, key_s, seed_s, march,
+                                   gen_caps=qcaps or queue_caps,
+                                   use_kernel=use_kernel)
+            return fine_march_rounds(
+                sh, bk, o_in, dirs, key_s, seed_s, march, block=block,
+                round_caps=caps or round_caps, diag=stage_diag,
+                live_frac=live_frac, return_anchor=want_anchor,
+                return_steps=want_steps, return_last=want_last,
+                return_unres=want_unres, difficulty_repack=difficulty_repack,
+                use_kernel=use_kernel, persistent=persistent)
+
+        # band probing and polish-all's weak candidates need the proxy's
+        # min-SDF depth
+        need_anchor = verify and (verify_band == "probe" or verify_hits == "polish-all")
+        with annotate("drt.fine"):
+            st = merge_skip(
+                fine_stage(shared_m, bank_m, key, init_depth, diag,
+                           want_anchor=return_anchor or need_anchor,
+                           want_steps=return_steps, want_last=return_last,
+                           want_unres=verify),
+                skip, maps.anchor.reshape(f, n), maps.margin.reshape(f, n))
+        if not verify:
+            return (st, diag) if with_diag else st
+
+        cert = None
+        with annotate("drt.verify.plan"):
+            if verify_mode == "cert" or verify_band == "probe":
+                cert, key2, seed2 = cert_plan(
+                    shared, bank, o_in, dirs, st, skip, march, proxy_band,
+                    proxy_backoff, proxy_band_w, verify_mode, verify_band == "probe",
+                    block, use_kernel, diag)
+            else:
+                key2, seed2 = verify_plan(st, proxy_band, proxy_backoff, verify_hits,
+                                          skip)
+        vdiag = {} if with_diag else None
+        with annotate("drt.verify"):
+            v2 = fine_stage(shared, bank, key2, seed2, vdiag, want_anchor=return_anchor,
+                            want_steps=return_steps, want_last=return_last,
+                            caps=verify_round_caps, qcaps=verify_gen_caps)
+        if with_diag:
+            diag.update({f"verify_{k}": v for k, v in vdiag.items()})
+            diag["verify_key"] = key2
+        with annotate("drt.verify.merge"):
+            out = verify_merge(st, v2, key2, cert, verify_hits, proxy_band, skip)
         return (out, diag) if with_diag else out
-
-    key, init_depth, skip = plan_from_maps(maps)
-    if with_diag:
-        diag.update(plan_key=key, plan_width=maps.width.reshape(f, n),
-                    plan_seed=maps.seed.reshape(f, n))
-    o_in = origins[:, :1] if shared_origin else origins
-    verify = proxy is not None and proxy_verify
-
-    def fine_stage(sh, bk, key_s, seed_s, stage_diag=None, want_anchor=False,
-                   want_steps=False, want_last=False, want_unres=False,
-                   caps=None, qcaps=None) -> StageResult:
-        """One scheduler pass; the queue fills every field for free and
-        records no telemetry."""
-        if scheduler == "queue":
-            return queue_march(sh, bk, o_in, dirs, key_s, seed_s, march,
-                               gen_caps=qcaps or queue_caps,
-                               use_kernel=use_kernel)
-        return fine_march_rounds(
-            sh, bk, o_in, dirs, key_s, seed_s, march, block=block,
-            round_caps=caps or round_caps, diag=stage_diag,
-            live_frac=live_frac, return_anchor=want_anchor,
-            return_steps=want_steps, return_last=want_last,
-            return_unres=want_unres, difficulty_repack=difficulty_repack,
-            use_kernel=use_kernel, persistent=persistent)
-
-    # band probing and polish-all's weak candidates need the proxy's
-    # min-SDF depth
-    need_anchor = verify and (verify_band == "probe" or verify_hits == "polish-all")
-    st = merge_skip(
-        fine_stage(shared_m, bank_m, key, init_depth, diag,
-                   want_anchor=return_anchor or need_anchor,
-                   want_steps=return_steps, want_last=return_last,
-                   want_unres=verify),
-        skip, maps.anchor.reshape(f, n), maps.margin.reshape(f, n))
-    if not verify:
-        return (st, diag) if with_diag else st
-
-    cert = None
-    if verify_mode == "cert" or verify_band == "probe":
-        cert, key2, seed2 = cert_plan(
-            shared, bank, o_in, dirs, st, skip, march, proxy_band, proxy_backoff,
-            proxy_band_w, verify_mode, verify_band == "probe", block, use_kernel,
-            diag)
-    else:
-        key2, seed2 = verify_plan(st, proxy_band, proxy_backoff, verify_hits, skip)
-    vdiag = {} if with_diag else None
-    v2 = fine_stage(shared, bank, key2, seed2, vdiag, want_anchor=return_anchor,
-                    want_steps=return_steps, want_last=return_last,
-                    caps=verify_round_caps, qcaps=verify_gen_caps)
-    if with_diag:
-        diag.update({f"verify_{k}": v for k, v in vdiag.items()})
-        diag["verify_key"] = key2
-    out = verify_merge(st, v2, key2, cert, verify_hits, proxy_band, skip)
-    return (out, diag) if with_diag else out
 
 
 def verify_merge(st: StageResult, v2: StageResult, key2, cert, verify_hits: str,

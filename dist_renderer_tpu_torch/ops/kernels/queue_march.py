@@ -42,6 +42,7 @@ from dist_renderer_tpu_torch.ops.kernels.batched_march import (
 from dist_renderer_tpu_torch.ops.kernels.march_body import (
     Carry, make_carry, march_loop, mlp_apply, rows_from_carry,
 )
+from dist_renderer_tpu_torch.utils.profiling import count_device
 
 
 def _caps(gen_caps, march: MarchConfig) -> Tuple[int, ...]:
@@ -146,10 +147,13 @@ def queue_march(
     # geometric sphere margin for rays whose march never sampled the SDF
     geo = geo_margin(o_p, v_p, rs.t_closest, march)
     msdf = torch.where(rows[2] > POS_BIG / 2, geo, rows[2])
+    # pad rays never march: the frames' steps are every generation's
+    steps = unflat(rows[5]).to(torch.int32)
+    count_device("ray_steps", steps)
     return StageResult(
         depth=unflat(rows[0]), hit=unflat(rows[1]) > 0.5,
         min_sdf=unflat(msdf), depth_at_min=unflat(rows[3]),
-        last_sdf=unflat(rows[4]), steps=unflat(rows[5]).to(torch.int32),
+        last_sdf=unflat(rows[4]), steps=steps,
         unresolved=unflat(rows[6]) > 0.5,
     )
 

@@ -58,6 +58,7 @@ from dist_renderer_tpu_torch.models.decoder import Params, dot_f32, round_bf16
 from dist_renderer_tpu_torch.ops.camera import dot3
 from dist_renderer_tpu_torch.ops.kernels import build
 from dist_renderer_tpu_torch.ops.kernels.batched_march import NEAR_TIE, pack_mma_tiles
+from dist_renderer_tpu_torch.utils.profiling import count
 
 TILE = 64        # points per tensor-core tile (csrc/recompute.cu)
 SUM_CHUNK = 64   # per-32-point partials K4 adds per thread, per pass
@@ -418,6 +419,7 @@ def precise_sdg_call(packed: PackedPrecise, biases, points: torch.Tensor,
     """(s, dd, g) for points/dirs [N, 3] fp32. A CUDA tensor launches K3;
     a CPU tensor, or use_kernel=False, runs the plain version. ``block``
     only steered the TPU's scheduling and has no effect."""
+    count("k3_points", points.shape[0])
     if not (use_kernel and points.is_cuda):
         return precise_sdg_plain(packed, biases, points, dirs, block)
     n = points.shape[0]

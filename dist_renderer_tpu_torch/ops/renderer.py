@@ -60,6 +60,7 @@ from dist_renderer_tpu_torch.ops.tracer import (
     TraceResult, inverse_permutation, live_counts_from_steps, sphere_trace,
     sphere_trace_compact,
 )
+from dist_renderer_tpu_torch.utils.profiling import annotate
 
 
 def _trace(march_fn, origins, dirs, cfg: RenderConfig, init_depth=None,
@@ -299,14 +300,16 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
         # derivative each, accepted only off the denominator clamp and
         # where |f| does not grow
         vc = v.detach()
-        s, dd, gr = sdg(latent, o + anchor[:, None] * v, vc)
+        with annotate("drt.compose.k3"):
+            s, dd, gr = sdg(latent, o + anchor[:, None] * v, vc)
         denom = torch.clamp(dd, max=-min_denom)
         acc_any = torch.zeros_like(hit)
         for _ in range(extra):
             ok = hit & (dd < -min_denom)
             d_try = torch.where(ok, d0 - s.detach() / denom, d0)
             p_try = o + torch.where(hit, d_try, anchor)[:, None] * v
-            s2, dd2, g2 = sdg(latent, p_try, vc)
+            with annotate("drt.compose.k3"):
+                s2, dd2, g2 = sdg(latent, p_try, vc)
             accept = ok & (s2.detach().abs() <= rho * s.detach().abs())
             acc_any = acc_any | accept
             d0 = torch.where(accept, d_try, d0)
@@ -361,57 +364,62 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
         depth, normal = finish(depth, hit, gr)
         return depth, s, normal, hit
 
-    compose = compose_sdg if use_sdg else compose_xla
-    n = origins.shape[0]
-    d0 = trace.depth
-    anchor = torch.where(trace.hit, d0, trace.depth_at_min)
-    frac = g.compact_frac
-    bucket = 0
-    if frac > 0 and n >= g.compact_min:
-        bucket = min(((n // frac + 511) // 512) * 512, n)
-    # the bucket choice is a host decision: one device sync per frame
-    if 0 < bucket < n and int(trace.hit.sum()) <= bucket:
-        # hit-first stable order: hits, then misses in pixel order
-        order = torch.sort((~trace.hit).to(torch.int32), stable=True).indices
-        idx_b = (order[:bucket],)
-        d_b, s_b, n_b, h_b = compose(origins[idx_b], dirs[idx_b], d0[idx_b],
-                                     anchor[idx_b], trace.hit[idx_b])
-        # misses outside the bucket keep the margin the march recorded,
-        # with the decoder's gradient at their anchor; the bucket's rays
-        # take the precise value (scatters out of place, for autograd)
-        margins = trace.min_sdf
-        if torch.is_grad_enabled() and (latent.requires_grad
-                                        or origins.requires_grad
-                                        or dirs.requires_grad):
-            if use_sdg:
-                dirs_c = dirs.detach()
-                fn = lambda z, p: sdg(z, p, dirs_c)[0]
-            else:
-                fn = base
-            margins = LazyMargin.apply(latent, origins + anchor[:, None] * dirs,
-                                       margins, fn)
-        min_sdf = margins.index_put(idx_b, s_b)
-        depth = torch.full((n,), cfg.background_depth, dtype=d_b.dtype,
-                           device=d_b.device).index_put(idx_b, d_b)
-        normal = torch.zeros((n, 3), dtype=n_b.dtype,
-                             device=n_b.device).index_put(idx_b, n_b)
-        # the rays outside the bucket are misses whenever it is used
-        mask = torch.zeros_like(trace.hit).index_put(idx_b, h_b)
-    else:
-        depth, min_sdf, normal, mask = compose(origins, dirs, d0, anchor,
-                                               trace.hit)
+    with annotate("drt.compose"):
+        compose = compose_sdg if use_sdg else compose_xla
+        n = origins.shape[0]
+        d0 = trace.depth
+        anchor = torch.where(trace.hit, d0, trace.depth_at_min)
+        frac = g.compact_frac
+        bucket = 0
+        if frac > 0 and n >= g.compact_min:
+            bucket = min(((n // frac + 511) // 512) * 512, n)
+        # the bucket choice is a host decision: one device sync per frame
+        fits = False
+        if 0 < bucket < n:
+            with annotate("drt.compose.read"):
+                fits = int(trace.hit.sum()) <= bucket
+        if fits:
+            # hit-first stable order: hits, then misses in pixel order
+            order = torch.sort((~trace.hit).to(torch.int32), stable=True).indices
+            idx_b = (order[:bucket],)
+            d_b, s_b, n_b, h_b = compose(origins[idx_b], dirs[idx_b], d0[idx_b],
+                                         anchor[idx_b], trace.hit[idx_b])
+            # misses outside the bucket keep the margin the march recorded,
+            # with the decoder's gradient at their anchor; the bucket's rays
+            # take the precise value (scatters out of place, for autograd)
+            margins = trace.min_sdf
+            if torch.is_grad_enabled() and (latent.requires_grad
+                                            or origins.requires_grad
+                                            or dirs.requires_grad):
+                if use_sdg:
+                    dirs_c = dirs.detach()
+                    fn = lambda z, p: sdg(z, p, dirs_c)[0]
+                else:
+                    fn = base
+                margins = LazyMargin.apply(latent, origins + anchor[:, None] * dirs,
+                                           margins, fn)
+            min_sdf = margins.index_put(idx_b, s_b)
+            depth = torch.full((n,), cfg.background_depth, dtype=d_b.dtype,
+                               device=d_b.device).index_put(idx_b, d_b)
+            normal = torch.zeros((n, 3), dtype=n_b.dtype,
+                                 device=n_b.device).index_put(idx_b, n_b)
+            # the rays outside the bucket are misses whenever it is used
+            mask = torch.zeros_like(trace.hit).index_put(idx_b, h_b)
+        else:
+            depth, min_sdf, normal, mask = compose(origins, dirs, d0, anchor,
+                                                   trace.hit)
 
-    # rays that never enter the bounding sphere: the geometric margin as
-    # the value, the decoder eval's gradient kept (it pulls back a shape
-    # that pokes past the sphere during a fit)
-    o_c, v_c = origins.detach(), dirs.detach()
-    _, _, enters = ray_sphere_entry(o_c, v_c, cfg.march.sphere_radius, 0.0)
-    t_c = torch.clamp(-dot3(o_c, v_c), min=0.0)
-    geo = geo_margin(o_c, v_c, t_c, cfg.march)
-    min_sdf = torch.where(enters, min_sdf, geo + min_sdf - min_sdf.detach())
-    return RenderOutput(depth=depth, mask=mask, normal=normal,
-                        min_sdf=min_sdf, points=origins + depth[:, None] * dirs,
-                        trace=trace)
+        # rays that never enter the bounding sphere: the geometric margin as
+        # the value, the decoder eval's gradient kept (it pulls back a shape
+        # that pokes past the sphere during a fit)
+        o_c, v_c = origins.detach(), dirs.detach()
+        _, _, enters = ray_sphere_entry(o_c, v_c, cfg.march.sphere_radius, 0.0)
+        t_c = torch.clamp(-dot3(o_c, v_c), min=0.0)
+        geo = geo_margin(o_c, v_c, t_c, cfg.march)
+        min_sdf = torch.where(enters, min_sdf, geo + min_sdf - min_sdf.detach())
+        return RenderOutput(depth=depth, mask=mask, normal=normal,
+                            min_sdf=min_sdf, points=origins + depth[:, None] * dirs,
+                            trace=trace)
 
 
 def render_color_rays(sdf_fn, color_fn, latent: torch.Tensor,
@@ -470,8 +478,14 @@ def render(sdf_fn, latent: torch.Tensor, camera: Camera,
     march runs under ``torch.no_grad()`` on a detached latent. Float32
     products run in full fp32 (TF32 off), which the precise value's
     accuracy needs."""
+    with annotate("drt.render"):
+        return _render(sdf_fn, latent, camera, cfg, march_fn_factory, warm)
+
+
+def _render(sdf_fn, latent, camera, cfg, march_fn_factory, warm) -> RenderOutput:
     set_fp32_matmul()
-    origins, dirs = pixel_rays(camera, cfg.img_h, cfg.img_w)
+    with annotate("drt.setup"):
+        origins, dirs = pixel_rays(camera, cfg.img_h, cfg.img_w)
     march_fn = (march_fn_factory(latent.detach())
                 if march_fn_factory is not None else None)
     if (cfg.use_pallas and cfg.march.coarse_to_fine and cfg.march.c2f_classify
@@ -546,13 +560,14 @@ def make_march_factory(params, dcfg: DecoderConfig, cfg: RenderConfig,
     proxy = (mparams, mdcfg) if is_proxy else None
 
     def factory(z):
-        folded = fold_latent(mparams, z, mdcfg)
-        point_fn = PointFn(folded, mdcfg, cfg.dtype)
-        point_fn.proxy_march = is_proxy
-        if not cfg.use_pallas:
-            return point_fn
-        mf = FusedMarchFn(pack_folded(folded, mdcfg, packed[1] or packed[0]),
-                          point_fn, use_kernel=use_kernel)
+        with annotate("drt.setup"):
+            folded = fold_latent(mparams, z, mdcfg)
+            point_fn = PointFn(folded, mdcfg, cfg.dtype)
+            point_fn.proxy_march = is_proxy
+            if not cfg.use_pallas:
+                return point_fn
+            mf = FusedMarchFn(pack_folded(folded, mdcfg, packed[1] or packed[0]),
+                              point_fn, use_kernel=use_kernel)
         mf.proxy_march = is_proxy
 
         def trace_frame(origins, dirs, march, img_hw, warm=None):
@@ -688,11 +703,14 @@ def finalize_hits_batched(
                          m.index_put((sel,), torch.where(hs, s_f, m[sel]))))
         return tuple(torch.stack(x) for x in zip(*outs))
 
-    if not in_host_free():
-        return branch(int(hit.sum(dim=1).max()) <= bucket)
-    # both branches, the choice made on the device: the eager call's bits
-    fits = hit.sum(dim=1).max() <= bucket
-    return tuple(torch.where(fits, a, b) for a, b in zip(branch(True), branch(False)))
+    with annotate("drt.finalize"):
+        if not in_host_free():
+            with annotate(".read"):
+                fits = int(hit.sum(dim=1).max()) <= bucket
+            return branch(fits)
+        # both branches, the choice made on the device: the eager call's bits
+        fits = hit.sum(dim=1).max() <= bucket
+        return tuple(torch.where(fits, a, b) for a, b in zip(branch(True), branch(False)))
 
 
 class SDFRenderer:

@@ -1,8 +1,31 @@
 """Tracing and timing on a CUDA card (the JAX package's
-``utils/profiling.py``): named regions in the profile, a device trace,
-a wall-clock timer that waits for the card, the march's live-ray
+``utils/profiling.py``): the program's spans and counters, a device
+trace, a wall-clock timer that waits for the card, the march's live-ray
 telemetry as work-efficiency numbers, and the launch-cost timers the
 probes (``dist_renderer_tpu_torch.diag``) measure with.
+
+Spans and counters. ``annotate(name)`` is the program's one span: the
+render paths open one at each layer boundary (``drt.render``,
+``drt.batch``, ``drt.setup``, ``drt.plan.*``, ``drt.fine*``,
+``drt.verify*``, ``drt.compose*``, ``drt.finalize*``; every host read of
+a device value sits in a ``*.read`` span). ``count(name, n)`` adds a
+host integer and ``count_device(name, values)`` the sum of a tensor,
+accumulated on the tensor's device; each count is keyed by the innermost
+open span, so one counter is split by stage. They record exactly while a
+torch.profiler is running. With none, a span is one check and a shared
+do-nothing context, and a counter returns at once: no allocation, no
+device work, no host read. While one runs, a span is a
+``record_function`` range, so ``device_profile``'s Chrome trace shows it
+around the kernels it launched, and the recorder keeps (name, start,
+end, parent, call) on ``time.time_ns()``, the clock of the profiler's
+own events; ``call`` numbers the outermost span (one ``render()`` or
+``render_batched_c2f()`` call), which every span inside it shares. A
+span reads no device value and never synchronizes; device counters are
+read on the host only by ``drain()``, which returns what was recorded
+and empties the recorder (at most ``MAX_SPANS`` spans; past that they
+are counted as dropped). Inside a CUDA-graph capture (``batched_render
+--scan``) the spans and host counts record the capture, not the
+replays, and device counters count nothing.
 
 Device time comes from CUDA events (``cuda_ms``, ``graph_us``); the host
 cost of a launch from ``time.perf_counter`` around each launch
@@ -16,26 +39,172 @@ import contextlib
 import json
 import os
 import statistics
+import threading
 import time
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+# whether a torch.profiler (or the autograd profiler) is recording
+enabled = torch._C._autograd._profiler_enabled
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named region in the profile: a ``record_function`` range, and an
-    NVTX range when CUDA is present."""
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+MAX_SPANS = 1 << 20
+
+
+class Span(NamedTuple):
+    """One recorded span: ``parent`` is the index of the span it opened
+    in (-1 for an outermost span), ``call`` the number of its outermost
+    span; ``end_ns`` is None while it is open."""
+
+    name: str
+    start_ns: int
+    end_ns: Optional[int]
+    parent: int
+    call: int
+
+
+class Drained(NamedTuple):
+    spans: List[Span]                   # in the order they opened
+    counts: Dict[Tuple[str, str], int]  # (counter, innermost span) -> total
+    dropped: int                        # spans past MAX_SPANS
+
+
+class Recorder:
+    """The spans and counts of the traced stretch of a process."""
+
+    def __init__(self, cap: int = MAX_SPANS):
+        self.cap = cap
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self.reset()
+
+    def reset(self) -> None:
+        self.spans: List[list] = []
+        self.counts: Dict[Tuple[str, str], int] = {}
+        self.device: Dict[Tuple[str, str, torch.device], torch.Tensor] = {}
+        self.dropped = 0
+        self.calls = 0
+
+    def stack(self) -> list:
+        """This thread's open spans, innermost last: (index, record)."""
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def innermost(self) -> str:
+        st = self.stack()
+        return st[-1][1][0] if st else ""
+
+    def count(self, name: str, n: int) -> None:
+        key = (name, self.innermost())
+        with self._lock:
+            self.counts[key] = self.counts.get(key, 0) + int(n)
+
+    def count_device(self, name: str, values: torch.Tensor) -> None:
+        if values.is_cuda and torch.cuda.is_current_stream_capturing():
+            return
+        key = (name, self.innermost(), values.device)
+        with self._lock:
+            acc = self.device.get(key)
+            if acc is None:
+                acc = self.device[key] = torch.zeros(
+                    (), dtype=torch.int64, device=values.device)
+        acc.add_(values.sum(dtype=torch.int64))
+
+    def drain(self) -> Drained:
+        with self._lock:
+            spans, counts, device, dropped = (self.spans, dict(self.counts),
+                                              self.device, self.dropped)
+            self.reset()
+        for (name, span, _), acc in device.items():
+            counts[(name, span)] = counts.get((name, span), 0) + int(acc)
+        return Drained([Span(*r) for r in spans], counts, dropped)
+
+
+RECORDER = Recorder()
+
+
+class _Off:
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "rf", "rec", "stack")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        r = RECORDER
+        stack = self.stack = r.stack()
+        if self.name.startswith("."):
+            self.name = (stack[-1][1][0] if stack else "drt") + self.name
+        if stack:
+            parent, call = stack[-1][0], stack[-1][1][4]
+        else:
+            r.calls += 1
+            parent, call = -1, r.calls
+        self.rec = rec = [self.name, 0, None, parent, call]
+        idx = len(r.spans)
+        if idx < r.cap:
+            r.spans.append(rec)
+        else:
+            idx = -1
+            r.dropped += 1
+        stack.append((idx, rec))
+        self.rf = torch.profiler.record_function(self.name)
+        rec[1] = time.time_ns()
+        self.rf.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        self.rf.__exit__(*exc)
+        self.rec[2] = time.time_ns()
+        self.stack.pop()
+        return False
+
+
+def annotate(name: str):
+    """A span (a context manager) named ``name``; a name that starts with
+    "." is taken relative to the innermost open span ("drt" outside
+    every span): ``annotate(".read")`` inside ``drt.fine`` is
+    ``drt.fine.read``. Records only while a profiler runs (see the
+    module's docstring)."""
+    if not enabled():
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add the host integer n to counter ``name`` under the innermost open
+    span, while a profiler runs."""
+    if enabled():
+        RECORDER.count(name, n)
+
+
+def count_device(name: str, values: torch.Tensor) -> None:
+    """Add values.sum() to counter ``name`` under the innermost open span,
+    accumulated on values' device (two small launches on a card, no host
+    read), while a profiler runs."""
+    if enabled():
+        RECORDER.count_device(name, values)
+
+
+def drain() -> Drained:
+    """The spans and counts recorded since the last drain (device counters
+    read on the host here), and an empty recorder. Call it outside every
+    span."""
+    return RECORDER.drain()
 
 
 @contextlib.contextmanager
