@@ -6,7 +6,10 @@ gives it, then serves five 512x512 forward renders of the committed bench
 fixture (the 8x512 DeepSDF decoder marched through its distilled 4x256
 proxy, 50 steps) through ``render()``, checks that the render went
 through every kernel, and compares it with the same render on the plain
-versions, and one request with polish-verify (compose()'s demote). Then
+versions, and one request with polish-verify (compose()'s demote).
+Phase 4b serves six requests from seeded views of the benchmark's frame traffic whose
+hits overflow the compose bucket, as served (K3 on the hits, K3's value
+mode on the misses) and through the full-width branch, bit for bit. Then
 it differentiates the same render: bench.py's fwd+bwd (a depth loss's
 gradient to the latent) for the five requests, that gradient and a
 camera-pose gradient against the plain versions, and five Adam steps of
@@ -199,8 +202,21 @@ def ties_line(torch, fn, packed, n):
     )
 
     queued, past = fn.ties.tolist()
-    values = mma_values(packed, n, k4=fn is precise_bias_grads_call)
+    values = mma_values(packed, n, k4=fn is precise_bias_grads_call,
+                        value=fn.__name__ == "precise_value_call")
     return dict(queued=queued, values=values, share=queued / values, past_queue=past)
+
+
+def precise_fwd_macs(packed):
+    """Multiply-adds of K3's forward at one point (its value mode's work):
+    precise_macs without the reverse sweep."""
+    total = 0
+    for m in packed.meta:
+        if m.has_wh:
+            total += (3 if m.split else 1) * m.in_p * m.out_p
+        if m.has_wx:
+            total += 3 * 3 * m.out_p
+    return total
 
 
 def precise_bytes(n, packed, rows_in, rows_out):
@@ -2921,6 +2937,131 @@ def stages_summary(res):
 SCAN_RUNS = [(16, 4, 16, "march"), (16, 4, 16, "polish"), (32, 16, 128, "march")]
 
 
+def compose_split_phase(torch, dev, smi, params, dcfg, latent, sdf_fn, factory, cfg,
+                        march_nets, want=6, tries=24):
+    """Phase 4b: served requests on the main path (the bench fixture and
+    its proxy, cfg) from seeded views over the benchmark's frame traffic's
+    ranges (port_bench/traffic/frame1.json, read as data: azimuth,
+    elevation, distance, focal and latent jitter), kept where the hits
+    overflow the n/4 compose bucket. Each renders as served (render_rays'
+    split: K3 on the hits, K3's value mode on the misses) and through the
+    full-width branch (compact_frac 0: K3 on every ray); depth, mask,
+    normal and min_sdf must agree bit for bit. On the first such
+    request's misses, the points the value mode gets there, the value
+    mode is held to its plain version (the kernels line's error), to its
+    in-order plain version and to K3's s bit for bit (K3's ties all
+    settled in the queue), and timed beside its plain version and its
+    bound. Returns the counts, launches and times for the JSON line."""
+    import numpy as np
+
+    from dist_renderer_tpu_torch.ops.camera import Camera, pixel_rays
+    from dist_renderer_tpu_torch.ops.kernels.recompute import (
+        fold_bias_precise, pack_precise, precise_value_call,
+    )
+    from dist_renderer_tpu_torch.ops.renderer import make_march_factory, render
+
+    print("\n== phase 4b: served requests whose hits overflow the compose bucket: "
+          "split against the full width ==", flush=True)
+    with open(os.path.join(HERE, "port_bench", "traffic", "frame1.json")) as f:
+        tr = json.load(f)
+    rng = np.random.default_rng(SEED + 26)
+    full_cfg = dataclasses.replace(cfg, grad=dataclasses.replace(cfg.grad, compact_frac=0))
+    fac = {cfg: factory, full_cfg: make_march_factory(params, dcfg, full_cfg,
+                                                      march_params=march_nets[0],
+                                                      march_dcfg=march_nets[1])}
+
+    def request():
+        az, el = (np.radians(rng.uniform(*tr[k])) for k in ("azimuth_deg", "elevation_deg"))
+        d = rng.uniform(*tr["distance"])
+        eye = (d * np.cos(el) * np.sin(az), d * np.sin(el), -d * np.cos(el) * np.cos(az))
+        cam = Camera.looking_at(eye, focal=tr["focal_scale"] * IMG, img_hw=(IMG, IMG),
+                                device=dev)
+        noise = rng.standard_normal(latent.shape[0]).astype(np.float32)
+        return latent + tr["latent_sigma"] * torch.from_numpy(noise).to(dev), cam
+
+    def timed(z, cam, c):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = render(sdf_fn, z, cam, c, fac[c])
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    z, cam = request()
+    for c in (cfg, full_cfg):  # warm-up
+        timed(z, cam, c)
+    rows, differ, launches, value = [], [], 0, None
+    packed = pack_precise(params, dcfg)
+    for i in range(tries):
+        z, cam = request()
+        n0 = precise_value_call.launches
+        split, ms_split = timed(z, cam, cfg)
+        if precise_value_call.launches == n0:
+            continue  # the hits fit the bucket: no split
+        launches += precise_value_call.launches - n0
+        full, ms_full = timed(z, cam, full_cfg)
+        bad = [k for k in ("depth", "mask", "normal", "min_sdf")
+               if not torch.equal(getattr(split, k), getattr(full, k))]
+        differ += bad
+        rows.append(dict(request=i, hits=int(split.mask.sum()), split_ms=ms_split,
+                         full_ms=ms_full, same_bits=not bad))
+        print(f"request {i}: {rows[-1]['hits']} hits; split {ms_split:.3f} ms, full width "
+              f"{ms_full:.3f} ms; same bits: {not bad} {bad or ''}  [{smi}]", flush=True)
+        if value is None:
+            value = value_mode_at_misses(torch, packed, fold_bias_precise(
+                params, z, dcfg, packed), split.trace, *pixel_rays(cam, IMG, IMG), smi)
+        if len(rows) == want:
+            break
+    check(len(rows) == want, f"only {len(rows)} of {tries} requests overflowed the "
+          "compose bucket")
+    check(not differ, f"the split compose differs from the full width in {sorted(set(differ))}")
+    med = lambda k: sorted(r[k] for r in rows)[len(rows) // 2]
+    return dict(requests=rows, value_launches=launches, split_ms_median=med("split_ms"),
+                full_ms_median=med("full_ms"), value=value)
+
+
+def value_mode_at_misses(torch, packed, biases, trace, origins, dirs, smi):
+    """K3's value mode on a served request's misses at their anchors (the
+    points render_rays' split gives it) against its plain version, its
+    in-order plain version and K3's s on the same points; its time, its
+    plain version's and its bound there. Any failed check exits nonzero."""
+    from dist_renderer_tpu_torch.ops.kernels.recompute import (
+        precise_sdg_call, precise_value_call,
+    )
+
+    miss = (~trace.hit).nonzero()[:, 0]
+    anchor = trace.depth_at_min[miss]
+    pts = (origins[miss] + anchor[:, None] * dirs[miss]).contiguous()
+    m = pts.shape[0]
+    sv = precise_value_call(packed, biases, pts)
+    ties = ties_line(torch, precise_value_call, packed, m)
+    sp = precise_value_call(packed, biases, pts, use_kernel=False)
+    so = in_order(lambda: precise_value_call(packed, biases, pts, use_kernel=False))
+    sk = precise_sdg_call(packed, biases, pts, dirs[miss].contiguous())[0]
+    k3_past = int(precise_sdg_call.ties[1])
+    err = (sv - sp).abs().max().item()
+    differ = (int((sv != sk).sum()), int((sv != so).sum()))
+    ms = cuda_ms(lambda: precise_value_call(packed, biases, pts))
+    plain_ms = cuda_ms(lambda: precise_value_call(packed, biases, pts, use_kernel=False))
+    k3_ms = cuda_ms(lambda: precise_sdg_call(packed, biases, pts, dirs[miss].contiguous()))
+    bound, bound_by = bound_ms(precise_bytes(m, packed, 3, 1),
+                               2 * m * precise_fwd_macs(packed))
+    print(f"K3 value mode on the request's {m} misses: |kernel - plain| max {err:.2e}; "
+          f"differing from K3's s: {differ[0]}, from its in-order plain version: "
+          f"{differ[1]}; near ties {ties['queued']} of {ties['values']} "
+          f"({ties['share']:.4%}), {ties['past_queue']} past the queue (K3's: {k3_past}); "
+          f"{ms:.3f} ms vs plain {plain_ms:.3f}, K3 {k3_ms:.3f}, bound {bound:.3f} "
+          f"({bound_by})  [{smi}]", flush=True)
+    check(differ == (0, 0) and k3_past == 0,
+          f"K3's value mode differs from K3's s on {differ[0]} of {m} misses and from its "
+          f"in-order plain version on {differ[1]} (K3's ties past the queue: {k3_past})")
+    check(err <= 1e-5, f"K3's value mode disagrees with its plain version on the misses "
+          f"(max |diff| {err:.2e}; bar 1e-5, K3's s bar)")
+    return dict(points=m, max_abs_err=err, ms=ms, plain_ms=plain_ms, k3_ms=k3_ms,
+                bound_ms=bound, bound_by=bound_by, ties=ties, k3_past_queue=k3_past)
+
+
 def scan_phase(torch, smi):
     """Phase 15 (the comment above); any failed check exits nonzero.
     Returns its numbers for the JSON line."""
@@ -3018,7 +3159,7 @@ def main():
     from dist_renderer_tpu_torch.ops.kernels.queue_march import queue_march
     from dist_renderer_tpu_torch.ops.kernels.recompute import (
         fold_bias_precise, latent_grad, pack_precise, precise_bias_grads_call,
-        precise_sdg_call,
+        precise_sdg_call, precise_value_call,
     )
     from dist_renderer_tpu_torch.ops.renderer import make_march_factory, render
 
@@ -3185,6 +3326,21 @@ def main():
               f"in-order plain version: {k3_differ} of {pts.shape[0]}", flush=True)
         check(k3_differ == 0, f"K3 differs from its in-order plain version on {k3_differ} "
               "points (a near tie the margin missed)")
+        # K3's value mode on the same points: K3's s and its in-order plain
+        # version's, bit for bit (K3's ties all settled in the queue)
+        sv = precise_value_call(packed, biases, pts)
+        ties["K3 value"] = ties_line(torch, precise_value_call, packed, pts.shape[0])
+        svo = in_order(lambda: precise_value_call(packed, biases, pts, use_kernel=False))
+        v_differ = (int((sv != sk).sum()), int((sv != svo).sum()))
+        print(f"K3 value mode: {pts.shape[0]} points; differing from K3's s: {v_differ[0]}, "
+              f"from its in-order plain version: {v_differ[1]}; near ties "
+              f"{ties['K3 value']['queued']} of {ties['K3 value']['values']} "
+              f"({ties['K3 value']['share']:.4%}), {ties['K3 value']['past_queue']} past "
+              "the queue", flush=True)
+        check(v_differ == (0, 0) and ties["K3"]["past_queue"] == 0,
+              f"K3's value mode differs from K3's s on {v_differ[0]} points and from its "
+              f"in-order plain version on {v_differ[1]} (K3's ties past the queue: "
+              f"{ties['K3']['past_queue']})")
 
         # K4 on the main path's inputs: (a) the compose bucket with a
         # seeded cotangent, (b) every ray's anchor (the lazy margin's
@@ -3464,6 +3620,9 @@ def main():
         check(agree_v >= 0.99, f"the {name} render disagrees with march-verify "
               f"({agree_v:.4f} < 0.99)")
 
+    with torch.no_grad():
+        split4 = compose_split_phase(torch, dev, smi, params, dcfg, latent, sdf_fn,
+                                     factory, cfg, (pparams, pcfg))
     fb = fwd_bwd_phase(torch, dev, sdf_fn, factory, plain_fac, plain_sdf, cfg, cam,
                        lats, latent, counters + (precise_bias_grads_call,), smi)
     g6 = grid_path_phase(torch, dev, params, dcfg, lats, cam, smi, outs[0])
@@ -3508,6 +3667,12 @@ def main():
              max_abs_err=max(e_s[2], e_dd[2], e_g[2]),
              ms=t_k3, plain_ms=t_k3p, bound_ms=b_k3[0], bound_by=b_k3[1],
              library_ms=t_k3c),
+        dict(name="precise_value_call (K3's value mode, tensor cores)", route="cuda",
+             source=src + "recompute.cu", replaces=None,
+             launches=split4["value_launches"], max_abs_err=split4["value"]["max_abs_err"],
+             ms=split4["value"]["ms"], plain_ms=split4["value"]["plain_ms"],
+             bound_ms=split4["value"]["bound_ms"], bound_by=split4["value"]["bound_by"],
+             library_ms=None),
         dict(name="precise_bias_grads_call (K4, tensor cores)", route="cuda",
              source=src + "recompute.cu",
              replaces="dist_renderer_tpu/ops/pallas/recompute.py:421",
@@ -3556,6 +3721,7 @@ def main():
                       "grid_c2f_fwd_ms": g6["c2f_ms"],
                       "grid_hit_frac": g6["hit_frac"],
                       "k1_f1_ms": kg[0]["k1_ms"],
+                      "compose_split": split4,
                       "k1_coarse": dict(ms=t_k1, plain_ms=t_k1p, bound_ms=b_k1[0],
                                         launches=launches["sphere_trace_persistent"]),
                       "k3_k4_chains": dict(k3_ms=t_k3c, k4_a_ms=t_k4c, gap=chain_gap),

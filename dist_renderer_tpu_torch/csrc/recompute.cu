@@ -32,12 +32,25 @@
 // (3.1 MB): as for K5, the L2 stream and the shared-memory traffic of
 // the ring, not the MMAs, bound a tile.
 //
+// K3's value mode (precise_value_kernel, drt_precise_value) replaces no
+// TPU kernel. The renderer's composition keeps only s of a ray that
+// missed (its margin), so where a frame's hits overflow the compose
+// bucket it runs K3 on the hits and this mode on the misses. It is K3's
+// forward, tile for tile: the same rounding points, the same near-tie
+// queue, the last layer's row 0 in k order and the tanh chain, so a
+// point's s is K3's s bit for bit. It keeps no gates and has no reverse:
+// the producer streams the forward tiles alone. What bounds it: 1.84 M of
+// the 3.42 M multiply-adds a point, and 3.4 MB of the 6.5 MB of weights
+// a 64-point tile streams (8x512 decoder).
+//
 // Design (point_mlp.cuh's machinery: 64-row wgmma tiles, a producer warp
 // streaming 16 KB weight tiles through a cp.async.bulk ring, two consumer
 // warpgroups on alternating N-chunks, near ties summed again in k order):
 // - A persistent grid: one block per SM strides over the 64-point tiles.
 //   The producer streams, per tile, the forward tiles (pack_precise's
 //   ftiles) and then the reverse tiles (rtiles), through a 3-stage ring.
+//   One body (precise_block) serves the three modes, a template
+//   parameter: K4, K3 and K3's value.
 // - Forward. Layer 0 (x only) on CUDA cores: bias, then the three x
 //   products, each a 3-term fmaf chain. Hidden layers on the tensor
 //   cores: wgmma m64nNk16, bf16(h) as A from shared memory, N-chunks of
@@ -106,6 +119,10 @@ using pm::round16;
 constexpr int RS = 3;       // weight ring stages
 constexpr int QCAP = 1024;  // near-tie queue entries per layer
 constexpr int SLOTS = 2;    // K4's partial sums a tile: one per 32 rows
+
+// The body's modes: K4 (the cotangent-seeded backward), K3 (s, dd, g) and
+// K3's value alone (the forward and s: no gates kept, no reverse).
+enum Mode { K4 = 0, K3 = 1, VALUE = 2 };
 
 struct Precise {
   int n_layers, use_tanh, final_tanh, w16, u_rows, gate_words;
@@ -346,7 +363,9 @@ __device__ __forceinline__ void rows_in_order(const __nv_bfloat16* w, int len,
 // consumer splits its input. An item is 8 columns x 4 rows (rg + 16 i);
 // weights from the forward-orientation rows in L2, activations from
 // shared memory. Writes bf16(relu(v)) at column c of hout and, with lo,
-// bf16(relu(v) - that) at column round16(out_p) + c, and the gates.
+// bf16(relu(v) - that) at column round16(out_p) + c, and with GATES the
+// gates.
+template <bool GATES>
 __device__ __forceinline__ void exact_layer(const Args& a, const Blk& b, int l, const __nv_bfloat16* hin,
                             __nv_bfloat16* hout, bool lo) {
   const Precise& P = a.P;
@@ -401,7 +420,7 @@ __device__ __forceinline__ void exact_layer(const Args& a, const Blk& b, int l, 
       if (lo)
         *reinterpret_cast<uint4*>(hout + act_idx(r, kh_out + c0)) =
             make_uint4(lw[0], lw[1], lw[2], lw[3]);
-      atomicOr(gate + r * wpr + (c0 >> 5), bits << (c0 & 31));
+      if (GATES) atomicOr(gate + r * wpr + (c0 >> 5), bits << (c0 & 31));
     }
   }
 }
@@ -415,10 +434,10 @@ __device__ __forceinline__ int frag_row0() {
 
 // One forward N-chunk [n0, n0 + NT) of hidden layer l for one warpgroup:
 // the product on the tensor cores, then bias + acc + the x products,
-// ReLU, bf16 and the gates; a value whose gate or bf16 rounding the
-// tensor cores' order may have moved, |v - v_in_order| <= s_wn[c] *
+// ReLU, bf16 and (GATES) the gates; a value whose gate or bf16 rounding
+// the tensor cores' order may have moved, |v - v_in_order| <= s_wn[c] *
 // s_hn[r], is queued.
-template <int NT>
+template <int NT, bool GATES>
 __device__ __forceinline__ void fwd_chunk(const Args& a, const Blk& b, int l, int n0, int t0,
                                           const __nv_bfloat16* hin, __nv_bfloat16* hout,
                                           bool wait_turn, bool pass_turn) {
@@ -455,33 +474,35 @@ __device__ __forceinline__ void fwd_chunk(const Args& a, const Blk& b, int l, in
   // the gates: a word is 32 columns; 128- and 64-wide chunks start on a
   // word, so the quad's OR is the word and one lane stores it; 8-wide
   // chunks share their word with the layer's other 8-wide chunks
-  constexpr int NW = NT >= 32 ? NT / 32 : 1;
-  unsigned gw[2][NW];
+  if constexpr (GATES) {
+    constexpr int NW = NT >= 32 ? NT / 32 : 1;
+    unsigned gw[2][NW];
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int m = 0; m < NW; ++m) gw[h][m] = 0u;
+      for (int m = 0; m < NW; ++m) gw[h][m] = 0u;
 #pragma unroll
-  for (int i = 0; i < NT / 2; ++i) {
-    const int c = cq + 8 * (i / 4) + (i & 1);
-    gw[(i / 2) & 1][i / 16] |= (acc[i] > 0.0f ? 1u : 0u) << (c & 31);
-  }
-  unsigned* gate = b.gate + P.g_off[l] + (n0 >> 5);
-  const int wpr = P.g_wpr[l];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int m = 0; m < NW; ++m) {
-      unsigned w = gw[h][m];
-      w |= __shfl_xor_sync(0xffffffffu, w, 1);
-      w |= __shfl_xor_sync(0xffffffffu, w, 2);
-      unsigned* dst = gate + (r0 + 8 * h) * wpr + m;
-      if (NT >= 32) {
-        if ((lane & 3) == (m & 3)) *dst = w;
-      } else if ((lane & 3) == 0) {
-        atomicOr(dst, w);
-      }
+    for (int i = 0; i < NT / 2; ++i) {
+      const int c = cq + 8 * (i / 4) + (i & 1);
+      gw[(i / 2) & 1][i / 16] |= (acc[i] > 0.0f ? 1u : 0u) << (c & 31);
     }
+    unsigned* gate = b.gate + P.g_off[l] + (n0 >> 5);
+    const int wpr = P.g_wpr[l];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int m = 0; m < NW; ++m) {
+        unsigned w = gw[h][m];
+        w |= __shfl_xor_sync(0xffffffffu, w, 1);
+        w |= __shfl_xor_sync(0xffffffffu, w, 2);
+        unsigned* dst = gate + (r0 + 8 * h) * wpr + m;
+        if (NT >= 32) {
+          if ((lane & 3) == (m & 3)) *dst = w;
+        } else if ((lane & 3) == 0) {
+          atomicOr(dst, w);
+        }
+      }
+  }
 #pragma unroll
   for (int i = 0; i < NT / 4; ++i) {  // rare
     if (ties[i] & 0xffffu) pm::near_tie<QCAP>(tl, r0 + 8 * (i & 1), cq + 8 * (i / 2));
@@ -490,13 +511,15 @@ __device__ __forceinline__ void fwd_chunk(const Args& a, const Blk& b, int l, in
 }
 
 // A queued forward value of layer l ((row << 16) | column) in k order:
-// its bf16 activation and its gate.
+// its bf16 activation and (GATES) its gate.
+template <bool GATES>
 __device__ __forceinline__ void fwd_tie(const Args& a, const Blk& b, int l,
                                         const __nv_bfloat16* hin, __nv_bfloat16* hout,
                                         unsigned e) {
   const int r = (int)(e >> 16), c = (int)(e & 0xffffu);
   const float v = fwd_value(a, b, l, c, r, hin, b.tl.s_bias[c]);
   hout[act_idx(r, c)] = __float2bfloat16_rn(fmaxf(v, 0.0f));
+  if (!GATES) return;
   unsigned* w = b.gate + a.P.g_off[l] + r * a.P.g_wpr[l] + (c >> 5);
   if (v > 0.0f)
     atomicOr(w, 1u << (c & 31));
@@ -565,7 +588,7 @@ __device__ __forceinline__ void rev_tie(const Args& a, int l, const __nv_bfloat1
 }
 
 // The near ties a layer queued: the queue, then the overflow bits.
-template <bool FWD>
+template <bool FWD, bool GATES = true>
 __device__ __forceinline__ void settle_ties(const Args& a, const Blk& b, int l,
                                             const __nv_bfloat16* hin, __nv_bfloat16* hout) {
   const pm::Tile& tl = b.tl;
@@ -573,7 +596,7 @@ __device__ __forceinline__ void settle_ties(const Args& a, const Blk& b, int l,
   const int tid = threadIdx.x;
   for (int i = tid; i < min(queued, QCAP); i += CONSUMERS) {
     if (FWD)
-      fwd_tie(a, b, l, hin, hout, tl.q[i]);
+      fwd_tie<GATES>(a, b, l, hin, hout, tl.q[i]);
     else
       rev_tie(a, l, hin, hout, tl.q[i]);
   }
@@ -583,7 +606,7 @@ __device__ __forceinline__ void settle_ties(const Args& a, const Blk& b, int l,
         const int bit = 32 * w + __ffs(bits) - 1;
         const unsigned e = ((unsigned)(bit / tl.w16) << 16) | (unsigned)(bit % tl.w16);
         if (FWD)
-          fwd_tie(a, b, l, hin, hout, e);
+          fwd_tie<GATES>(a, b, l, hin, hout, e);
         else
           rev_tie(a, l, hin, hout, e);
       }
@@ -713,9 +736,9 @@ __device__ __forceinline__ float tanh_chain(const Precise& P, float pre0, float 
 // K4 runs the reverse of layer l on CUDA cores where the latent enters
 // layer l - 1 (exact_rev_layer); K3 runs every hidden layer's on the
 // tensor cores.
-template <bool SDG>
+template <int MODE>
 __device__ __forceinline__ bool exact_rev(const Precise& P, int l) {
-  return !SDG && P.u_off[l - 1] >= 0;
+  return MODE == K4 && P.u_off[l - 1] >= 0;
 }
 
 // Zero an activation buffer's columns [c0, c1) (the K padding).
@@ -725,19 +748,22 @@ __device__ __forceinline__ void zero_cols(__nv_bfloat16* h, int c0, int c1) {
 }
 
 // The consumer warpgroups: per tile, the forward, the seed, the reverse
-// and the outputs. Chunk g of the tile's tensor-core chunks (forward,
-// then reverse) runs on warpgroup g % 2; t counts the block's ring tiles.
-template <bool SDG>
+// and the outputs (VALUE: the forward and s). Chunk g of the tile's
+// tensor-core chunks (forward, then reverse) runs on warpgroup g % 2; t
+// counts the block's ring tiles.
+template <int MODE>
 __device__ __forceinline__ void consume(const Args& a, Blk& b, int tiles) {
+  constexpr bool SDG = MODE == K3, REV = MODE != VALUE;
   const Precise& P = a.P;
   const int tid = threadIdx.x, wg = pm::warp_uniform(tid / WG);
   const int L = P.n_layers - 1;
   const int w16 = P.w16;
   int chunks = 0;
   for (int l = 1; l < L; ++l)
-    chunks += (P.exact[l] ? 0 : n_chunks(P.out_p[l])) + (exact_rev<SDG>(P, l) ? 0 : n_chunks(P.in_p[l]));
+    chunks += (P.exact[l] ? 0 : n_chunks(P.out_p[l])) +
+              (!REV || exact_rev<MODE>(P, l) ? 0 : n_chunks(P.in_p[l]));
   const bool want_gx = SDG || a.gx != nullptr;
-  const bool need_pre = SDG || a.scalar_chain;
+  const bool need_pre = MODE != K4 || a.scalar_chain;
   const int sr = a.seed_rows;
   int t = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -754,10 +780,11 @@ __device__ __forceinline__ void consume(const Args& a, Blk& b, int tiles) {
         b.x[ax * M + tid] = hi;
         b.x[(3 + ax) * M + tid] = round_bf16(xv - hi);
         if (SDG) b.v[ax * M + tid] = mine ? a.dirs[3 * (size_t)p + ax] : 0.0f;
-        b.gx[ax * M + tid] = 0.0f;
+        if (REV) b.gx[ax * M + tid] = 0.0f;
       }
     }
-    for (int w = tid; w < P.gate_words; w += CONSUMERS) b.gate[w] = 0u;
+    if (REV)
+      for (int w = tid; w < P.gate_words; w += CONSUMERS) b.gate[w] = 0u;
     __nv_bfloat16* cur = b.tl.act;
     __nv_bfloat16* oth = b.tl.act + M * w16;
     int g = 0;
@@ -777,7 +804,7 @@ __device__ __forceinline__ void consume(const Args& a, Blk& b, int tiles) {
       pm::consumer_sync();
       const bool lo = P.split[l + 1] != 0;
       if (!tc) {
-        exact_layer(a, b, l, cur, oth, lo);
+        exact_layer<REV>(a, b, l, cur, oth, lo);
       } else {
         const int kv = fwd_k(P, l);
         for (int n0 = 0, nt; n0 < out_p; n0 += nt, ++g) {
@@ -785,17 +812,17 @@ __device__ __forceinline__ void consume(const Args& a, Blk& b, int tiles) {
           if (g % 2 == wg) {
             const bool wait_turn = g > 0, pass_turn = g + 1 < chunks;
             if (nt == 128)
-              fwd_chunk<128>(a, b, l, n0, t, cur, oth, wait_turn, pass_turn);
+              fwd_chunk<128, REV>(a, b, l, n0, t, cur, oth, wait_turn, pass_turn);
             else if (nt == 64)
-              fwd_chunk<64>(a, b, l, n0, t, cur, oth, wait_turn, pass_turn);
+              fwd_chunk<64, REV>(a, b, l, n0, t, cur, oth, wait_turn, pass_turn);
             else
-              fwd_chunk<8>(a, b, l, n0, t, cur, oth, wait_turn, pass_turn);
+              fwd_chunk<8, REV>(a, b, l, n0, t, cur, oth, wait_turn, pass_turn);
           }
           const int kt = STAGE_BYTES / (2 * nt);
           t += (kv + kt - 1) / kt;
         }
         pm::consumer_sync();
-        settle_ties<true>(a, b, l, cur, oth);
+        settle_ties<true, REV>(a, b, l, cur, oth);
       }
       const int k16 = round16(out_p);
       zero_cols(oth, out_p, k16);
@@ -812,12 +839,16 @@ __device__ __forceinline__ void consume(const Args& a, Blk& b, int tiles) {
       for (int r = tid; r < M; r += CONSUMERS) {
         const float pre = fwd_value(a, b, L, 0, r, cur, a.bias[P.b_off[L]]);
         const int p = r0 + r;
-        const float seed = SDG ? 1.0f : (p < a.n ? a.ct[(size_t)p * sr] : 0.0f);
+        const float seed = MODE != K4 ? 1.0f : (p < a.n ? a.ct[(size_t)p * sr] : 0.0f);
         float s;
         b.pre[r] = tanh_chain(P, pre, seed, &s);
         b.pre[M + r] = s;
       }
     pm::consumer_sync();
+    if constexpr (!REV) {
+      if (tid < M && r0 + tid < a.n) a.out[r0 + tid] = b.pre[M + tid];
+      continue;
+    }
     const int oL = P.out_p[L], iL = P.in_p[L];
     auto seed_at = [&](int r, int o) -> float {
       if (o >= oL) return 0.0f;
@@ -853,7 +884,7 @@ __device__ __forceinline__ void consume(const Args& a, Blk& b, int tiles) {
     // ---- the hidden layers' reverse on the tensor cores: cur -> oth ----
     for (int l = L - 1; l >= 1; --l) {
       const int cols = P.in_p[l], k16 = round16(P.out_p[l]);
-      if (exact_rev<SDG>(P, l)) {
+      if (exact_rev<MODE>(P, l)) {
         if (want_gx) gx_layer(a, b, l, cur);
         exact_rev_layer(a, b, l, cur, oth);
         zero_cols(oth, cols, round16(cols));
@@ -916,9 +947,9 @@ __device__ __forceinline__ void consume(const Args& a, Blk& b, int tiles) {
 }
 
 // The producer: per tile, the forward's tensor-core layers' tiles, then
-// the reverse's, in the consumers' order (K4 skips the layers it runs on
-// CUDA cores).
-template <bool SDG>
+// (but for VALUE) the reverse's, in the consumers' order (K4 skips the
+// layers it runs on CUDA cores).
+template <int MODE>
 __device__ void produce(const Args& a, const pm::Tile& tl, int tiles) {
   const Precise& P = a.P;
   const int L = P.n_layers - 1;
@@ -930,9 +961,10 @@ __device__ void produce(const Args& a, const pm::Tile& tl, int tiles) {
       if (!P.exact[l])
         src = pm::stream_layer<RS>(src, P.out_p[l], fwd_k(P, l), tl.ring, tl.full, tl.empty,
                                    stage, phase);
+    if (MODE == VALUE) continue;
     src = reinterpret_cast<const char*>(a.rtiles);
     for (int l = L - 1; l >= 1; --l) {
-      if (exact_rev<SDG>(P, l))
+      if (exact_rev<MODE>(P, l))
         src += (size_t)2 * P.in_p[l] * round16(P.out_p[l]);
       else
         src = pm::stream_layer<RS>(src, P.in_p[l], round16(P.out_p[l]), tl.ring, tl.full,
@@ -941,9 +973,9 @@ __device__ void produce(const Args& a, const pm::Tile& tl, int tiles) {
   }
 }
 
-// SDG: K3; else K4.
-template <bool SDG>
-__global__ void __launch_bounds__(THREADS, 1) precise_kernel(const __grid_constant__ Args a) {
+// A block of the kernels in mode MODE.
+template <int MODE>
+__device__ __forceinline__ void precise_block(const Args& a) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const Plan plan = smem_plan(a.P.w16, a.P.gate_words);
   Blk b;
@@ -970,11 +1002,23 @@ __global__ void __launch_bounds__(THREADS, 1) precise_kernel(const __grid_consta
   __syncthreads();
   const int tiles = (a.n + M - 1) / M;
   if (pm::warp_uniform(threadIdx.x / 32) >= CONSUMERS / 32) {
-    if (threadIdx.x == CONSUMERS) produce<SDG>(a, tl, tiles);
+    if (threadIdx.x == CONSUMERS) produce<MODE>(a, tl, tiles);
     __syncwarp();
   } else {
-    consume<SDG>(a, b, tiles);
+    consume<MODE>(a, b, tiles);
   }
+}
+
+// SDG: K3; else K4.
+template <bool SDG>
+__global__ void __launch_bounds__(THREADS, 1) precise_kernel(const __grid_constant__ Args a) {
+  precise_block<SDG ? K3 : K4>(a);
+}
+
+// K3's value alone (drt_precise_value), under a name of its own so that
+// K3's and K4's keep theirs.
+__global__ void __launch_bounds__(THREADS, 1) precise_value_kernel(const __grid_constant__ Args a) {
+  precise_block<VALUE>(a);
 }
 
 // One pass of the fixed-order sum: out[c][row] = sum over slots
@@ -1019,10 +1063,8 @@ static cudaError_t precise_args(const int* table, int n_layers, const void* W,
 }
 
 // A persistent grid: what fits on the card, at most one block a tile.
-template <bool SDG>
-static cudaError_t launch(const Args& a, cudaStream_t stream) {
+static cudaError_t launch(void (*kernel)(Args), const Args& a, cudaStream_t stream) {
   const int bytes = smem_plan(a.P.w16, a.P.gate_words).bytes;
-  auto kernel = precise_kernel<SDG>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -1063,7 +1105,26 @@ extern "C" int drt_precise_sdg(const float* pts, const float* dirs, int n, const
   a.n = n;
   a.out = out;
   a.ties = ties;
-  return (int)launch<true>(a, (cudaStream_t)stream);
+  return (int)launch(precise_kernel<true>, a, (cudaStream_t)stream);
+}
+
+// K3's value alone: s [n] fp32 into out, for points [n][3]; the other
+// arguments as for drt_precise_sdg (rtiles and rscale are not read).
+extern "C" int drt_precise_value(const float* pts, int n, const void* W, const void* ftiles,
+                                 const void* rtiles, const float* fscale, const float* rscale,
+                                 const float* bias, const int* table, int n_layers, float* out,
+                                 unsigned* ties, void* stream) {
+  using namespace drt::rk;
+  Args a;
+  cudaError_t err = precise_args(table, n_layers, W, ftiles, rtiles, fscale, rscale,
+                                 bias, &a);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return (int)cudaGetLastError();
+  a.pts = pts;
+  a.n = n;
+  a.out = out;
+  a.ties = ties;
+  return (int)launch(precise_value_kernel, a, (cudaStream_t)stream);
 }
 
 // K4. points [n][3] and ct [n][seed_rows] fp32; W .. bias and table as
@@ -1102,7 +1163,7 @@ extern "C" int drt_precise_bias_grads(const float* pts, const float* ct, int n, 
   a.gx = gx;
   a.partials = partials;
   a.ties = ties;
-  err = launch<false>(a, s);
+  err = launch(precise_kernel<false>, a, s);
   if (err != cudaSuccess) return (int)err;
   // the per-32-point partials, summed in slot order, chunk by chunk
   const double* src = partials;

@@ -32,7 +32,10 @@ Inputs (the committed bench fixture; seeded):
     not where the points lie, up to its near ties. Seeded unit directions
     (K3) and cotangents (K4); K3 (b) and K4 (b) on K5's 262,144 points
     (the lazy margin's width: its backward runs K3, then K4, on every
-    anchor), K4 (c) with 3 seed rows and the xyz gradient;
+    anchor), K4 (c) with 3 seed rows and the xyz gradient; "K3 value"
+    (K3's value mode, a tree that has it) on the first 184,320 of K5's
+    points (the misses of a served request whose hits overflow the
+    compose bucket);
   - the loop probes at their scripts' operands (diag_launch_cost's,
     diag_launch2's and diag_launch3's zero operands, the bench decoder's
     march plan as P3's and P4's scratch): P3, P5, P11, P12, P13 at
@@ -63,8 +66,8 @@ Inputs (the committed bench fixture; seeded):
 Each other: CUDA events around the wrapper, median of 3 after a warm-up
 (``utils/profiling.py``'s ``cuda_ms``, imported from the tree timed: a
 ``--root`` tree needs that module).
-``--only K3,K4`` times just the entries whose names start so (K3 and
-K4's four: "K4" also takes "K4 (a)" .. "K4 (c)"). Prints one JSON
+``--only K3,K4`` times just the entries whose names start so (K3's
+three and K4's three: "K4" also takes "K4 (a)" .. "K4 (c)"). Prints one JSON
 object, {name: ms}, with the card's name and power limit.
 """
 
@@ -220,6 +223,11 @@ def main(argv=None) -> int:
         precise = {
             "K3": lambda: rc.precise_sdg_call(pk, bs, p3, v3),
             "K3 (b)": lambda: rc.precise_sdg_call(pk, bs, pts, v_b),
+        }
+        if hasattr(rc, "precise_value_call"):
+            p_v = pts[:184_320].contiguous()
+            precise["K3 value"] = lambda: rc.precise_value_call(pk, bs, p_v)
+        precise |= {
             "K4 (a)": lambda: rc.precise_bias_grads_call(pk, bs, p3, ct1),
             "K4 (b)": lambda: rc.precise_bias_grads_call(pk, bs, pts, ct_b),
             "K4 (c)": lambda: rc.precise_bias_grads_call(

@@ -56,6 +56,7 @@ SIGNATURES = {
     "drt_march_in_order": [
         _P, _I, _I, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
     "drt_precise_sdg": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "drt_precise_value": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "drt_precise_bias_grads": [
         _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
         _P, _P, _P],

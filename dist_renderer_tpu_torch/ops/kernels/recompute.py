@@ -42,6 +42,12 @@ its bits. What bounds them: the hidden weights streamed through shared
 memory once forward and once in reverse per 64 points (6.5 MB for the
 8x512 decoder), as for K5.
 
+``precise_value_call`` is K3's value mode (``precise_value_kernel``):
+K3's forward and s alone, no gates and no reverse, for points whose
+gradient nobody reads (the renderer's misses where a frame's hits
+overflow the compose bucket); its s is K3's bit for bit. It replaces no
+TPU kernel.
+
 ``make_color_vjp`` is the differentiable color head: K5 (mlp_eval.py)
 forward, K4 backward with 3 seed rows.
 """
@@ -279,15 +285,18 @@ def precise_smem_bytes(packed: PackedPrecise) -> int:
             + 4 * TILE * 15 + 4 * QCAP + 16 + TILE * w16 // 8 + 16 * RING_STAGES)
 
 
-def mma_values(packed: PackedPrecise, n: int, k4: bool = False) -> int:
-    """The values K3 (or, with k4, K4) computes on the tensor cores for n
-    points (the tiles' padded rows included): the near-tie queue's
-    denominator. K4 runs the reverse of a layer on CUDA cores where the
-    latent enters the layer below it."""
+def mma_values(packed: PackedPrecise, n: int, k4: bool = False,
+               value: bool = False) -> int:
+    """The values K3 (or, with k4, K4; with value, K3's value mode, the
+    forward alone) computes on the tensor cores for n points (the tiles'
+    padded rows included): the near-tie queue's denominator. K4 runs the
+    reverse of a layer on CUDA cores where the latent enters the layer
+    below it."""
     meta, exact = packed.meta, exact_layers(packed.meta)
     per_row = sum(m.out_p for i, m in enumerate(meta[:-1]) if not exact[i])
-    per_row += sum(m.in_p for i, m in enumerate(meta) if 0 < i < len(meta) - 1
-                   and not (k4 and meta[i - 1].takes_z))
+    if not value:
+        per_row += sum(m.in_p for i, m in enumerate(meta) if 0 < i < len(meta) - 1
+                       and not (k4 and meta[i - 1].takes_z))
     return _round_up(max(n, 0), TILE) * per_row
 
 
@@ -303,6 +312,23 @@ def check_precise_plan(packed: PackedPrecise, device) -> None:
         raise ValueError(f"a decoder of width {width} needs {need} bytes of shared memory "
                          f"per block for K3/K4, more than the {SMEM_LIMIT} an H100 block "
                          "can use")
+
+
+def _k3_bias(name: str, packed: PackedPrecise, biases, points: torch.Tensor,
+             *rows: torch.Tensor) -> torch.Tensor:
+    """The folded biases as K3's one buffer, once the launch's points (and
+    rows, [N, 3] each) pass its checks and the decoder's plan fits."""
+    n = points.shape[0]
+    bias = torch.cat([b.reshape(-1) for b in biases]).contiguous()
+    for t in (points, *rows, bias):
+        if t.device != points.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous float32 tensors on one "
+                             "CUDA device")
+    if any(t.shape != (n, 3) for t in (points, *rows)):
+        raise ValueError(f"{name}: points{' and dirs' if rows else ''} must be [N, 3]")
+    check_precise_plan(packed, points.device)
+    return bias
 
 
 def _mma_ptrs(packed: PackedPrecise):
@@ -423,15 +449,7 @@ def precise_sdg_call(packed: PackedPrecise, biases, points: torch.Tensor,
     if not (use_kernel and points.is_cuda):
         return precise_sdg_plain(packed, biases, points, dirs, block)
     n = points.shape[0]
-    bias = torch.cat([b.reshape(-1) for b in biases]).contiguous()
-    for t in (points, dirs, bias):
-        if t.device != points.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError("precise_sdg_call takes contiguous float32 "
-                             "tensors on one CUDA device")
-    if points.shape != (n, 3) or dirs.shape != (n, 3):
-        raise ValueError("points and dirs must both be [N, 3]")
-    check_precise_plan(packed, points.device)
+    bias = _k3_bias("precise_sdg_call", packed, biases, points, dirs)
     out = torch.empty((5, n), dtype=torch.float32, device=points.device)
     ties = torch.zeros(2, dtype=torch.int32, device=points.device)
     tab = (ctypes.c_int * len(packed.table))(*packed.table)
@@ -449,6 +467,40 @@ def precise_sdg_call(packed: PackedPrecise, biases, points: torch.Tensor,
 precise_sdg_call.launches = 0
 # the last launch's [values queued as near ties, values past the queue]
 precise_sdg_call.ties = None
+
+
+def precise_value_plain(packed: PackedPrecise, biases, points: torch.Tensor):
+    """The plain PyTorch version of K3's value mode -> s [N]: the s of
+    precise_sdg_plain, from the same forward and seed."""
+    pre, _ = _forward_plain(packed, biases, points)
+    s, _ = _seed_last(packed, pre, torch.ones_like(pre[:, 0]))
+    return s
+
+
+def precise_value_call(packed: PackedPrecise, biases, points: torch.Tensor,
+                       use_kernel: bool = True):
+    """s [N] for points [N, 3] fp32: K3's value, bit for bit, from its
+    forward alone. A CUDA tensor launches K3's value mode; a CPU tensor,
+    or use_kernel=False, runs the plain version."""
+    count("k3_value_points", points.shape[0])
+    if not (use_kernel and points.is_cuda):
+        return precise_value_plain(packed, biases, points)
+    n = points.shape[0]
+    bias = _k3_bias("precise_value_call", packed, biases, points)
+    out = torch.empty(n, dtype=torch.float32, device=points.device)
+    ties = torch.zeros(2, dtype=torch.int32, device=points.device)
+    tab = (ctypes.c_int * len(packed.table))(*packed.table)
+    lib = build.load()
+    lib.call("drt_precise_value", build.ptr(points), n, *_mma_ptrs(packed),
+             build.ptr(bias), tab, len(packed.meta), build.ptr(out), build.ptr(ties),
+             build.stream_of(points))
+    precise_value_call.launches += 1
+    precise_value_call.ties = ties
+    return out
+
+
+precise_value_call.launches = 0
+precise_value_call.ties = None
 
 
 def _seed_cols(ct: torch.Tensor, n: int) -> torch.Tensor:
@@ -608,19 +660,32 @@ def make_precise_sdg(params: Params, cfg: DecoderConfig, block: int = 512,
     gets no gradient. The decoder parameters are constants here: they
     get no gradient, as in the JAX package, where they are closed over.
 
+    ``sdg.value(latent, points)`` is s alone (K3's value mode), with no
+    gradient.
+
     A CUDA tensor launches K3 forward and K4 backward; a CPU tensor, or
     use_kernel=False, runs their plain versions."""
     if packed is None:
         packed = pack_precise(params, cfg)
 
-    def sdg(latent, points, dirs):
+    def one_latent(latent):
         if latent.ndim != 1:
             raise ValueError(
                 "precise_sdg folds ONE latent per call (got shape "
                 f"{tuple(latent.shape)})")
+
+    def sdg(latent, points, dirs):
+        one_latent(latent)
         return _PreciseSDG.apply(latent, points, dirs, params, cfg, packed,
                                  block, use_kernel)
 
+    @torch.no_grad()
+    def value(latent, points):
+        one_latent(latent)
+        biases = fold_bias_precise(params, latent, cfg, packed)
+        return precise_value_call(packed, biases, points, use_kernel=use_kernel)
+
+    sdg.value = value
     return sdg
 
 

@@ -232,7 +232,10 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
     slope carries model error: then from ``sdf_fn.cheap`` (else
     ``sdf_fn``) on the detached latent. The recompute runs on a hit-first
     bucket of n/compact_frac rays when the hits fit it, else at full
-    width; misses outside the bucket keep the trace's margin as the value
+    width; with the fused recompute and no gradient wanted, the full width
+    is K3 on the hits and K3's value alone on the misses (a miss keeps
+    only its value: the same bits). Misses outside the bucket keep the
+    trace's margin as the value
     with the decoder's gradient at their anchor (LazyMargin); rays that
     never enter the bounding sphere take the geometric distance as the
     value and keep the margin's gradient. With a proxy march and
@@ -373,24 +376,36 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
         bucket = 0
         if frac > 0 and n >= g.compact_min:
             bucket = min(((n // frac + 511) // 512) * 512, n)
+        want_grad = torch.is_grad_enabled() and (latent.requires_grad
+                                                 or origins.requires_grad
+                                                 or dirs.requires_grad)
         # the bucket choice is a host decision: one device sync per frame
-        fits = False
+        hits = None
         if 0 < bucket < n:
             with annotate("drt.compose.read"):
-                fits = int(trace.hit.sum()) <= bucket
-        if fits:
-            # hit-first stable order: hits, then misses in pixel order
+                hits = int(trace.hit.sum())
+        fits = hits is not None and hits <= bucket
+        # overflowed, and no gradient wanted: the full width keeps only the
+        # precise value of a miss (its margin), so the hits take K3 and the
+        # misses K3's value alone, the same bits
+        split = hits is not None and not fits and use_sdg and not want_grad
+        if fits or split:
+            # hit-first stable order: hits, then misses in pixel order; the
+            # bucket's rays, or the hits alone where they overflow it
             order = torch.sort((~trace.hit).to(torch.int32), stable=True).indices
-            idx_b = (order[:bucket],)
+            idx_b = (order[:bucket if fits else hits],)
             d_b, s_b, n_b, h_b = compose(origins[idx_b], dirs[idx_b], d0[idx_b],
                                          anchor[idx_b], trace.hit[idx_b])
-            # misses outside the bucket keep the margin the march recorded,
-            # with the decoder's gradient at their anchor; the bucket's rays
-            # take the precise value (scatters out of place, for autograd)
             margins = trace.min_sdf
-            if torch.is_grad_enabled() and (latent.requires_grad
-                                            or origins.requires_grad
-                                            or dirs.requires_grad):
+            if split:
+                # the misses: the precise value alone, the full width's margin
+                idx_m = (order[hits:],)
+                with annotate("drt.compose.value"):
+                    margins = margins.index_put(idx_m, sdg.value(
+                        latent, origins[idx_m] + anchor[idx_m][:, None] * dirs[idx_m]))
+            elif want_grad:
+                # misses outside the bucket keep the margin the march
+                # recorded, with the decoder's gradient at their anchor
                 if use_sdg:
                     dirs_c = dirs.detach()
                     fn = lambda z, p: sdg(z, p, dirs_c)[0]
@@ -398,12 +413,14 @@ def render_rays(sdf_fn, latent: torch.Tensor, origins: torch.Tensor,
                     fn = base
                 margins = LazyMargin.apply(latent, origins + anchor[:, None] * dirs,
                                            margins, fn)
+            # the composed rays take the precise value (scatters out of
+            # place, for autograd)
             min_sdf = margins.index_put(idx_b, s_b)
             depth = torch.full((n,), cfg.background_depth, dtype=d_b.dtype,
                                device=d_b.device).index_put(idx_b, d_b)
             normal = torch.zeros((n, 3), dtype=n_b.dtype,
                                  device=n_b.device).index_put(idx_b, n_b)
-            # the rays outside the bucket are misses whenever it is used
+            # the rays outside the composed ones are misses whenever it is used
             mask = torch.zeros_like(trace.hit).index_put(idx_b, h_b)
         else:
             depth, min_sdf, normal, mask = compose(origins, dirs, d0, anchor,

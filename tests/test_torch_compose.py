@@ -590,3 +590,74 @@ def test_sdf_renderer_renders_with_the_jax_default_config(decoder):
     out = r.render(z0, cam.R, cam.T)
     assert out.mask.float().mean() > 0.05 and torch.isfinite(out.depth).all()
     assert out.trace.steps_per_ray.shape == (IMG * IMG,)
+
+
+# ---- an overflowed compose bucket: K3 on the hits, its value on the misses --
+
+def _bucket_render(decoder, eye_z, frac, polish_iters, grad=False):
+    """render() with the fused recompute on K1-grid's plain version, an
+    n/4 compose bucket (compact_frac=frac, compact_min 256: 512 rays of
+    IMG^2 = 1024): (output, the recorder's counts by counter name)."""
+    from torch.profiler import profile
+
+    from dist_renderer_tpu_torch.utils import profiling
+
+    tp, z0 = params_from_numpy(decoder[0]), torch.tensor(decoder[1])
+    dcfg = DecoderConfig(**DEC_KW)
+    cfg = RenderConfig(img_h=IMG, img_w=IMG, march=MarchConfig(**FAST),
+                       grad=GradConfig(mode="ift", compact_frac=frac, compact_min=256,
+                                       polish_iters=polish_iters),
+                       compute_dtype="bfloat16", use_pallas=True)
+    cam = Camera.looking_at((0.0, 0.0, eye_z), focal=40.0, img_hw=(IMG, IMG))
+    z = z0.clone().requires_grad_(grad)
+    profiling.drain()
+    with profile(), torch.set_grad_enabled(grad):
+        out = render(make_precise_sdf(tp, dcfg), z, cam, cfg, make_march_factory(tp, dcfg, cfg))
+    counts = {}
+    for (name, _), v in profiling.drain().counts.items():
+        counts[name] = counts.get(name, 0) + v
+    return out, counts
+
+
+def _same_maps(a, b):
+    for k in ("depth", "mask", "normal", "min_sdf", "points"):
+        x, y = getattr(a, k).detach(), getattr(b, k).detach()
+        if x.is_floating_point():
+            x, y = x.contiguous().view(torch.int32), y.contiguous().view(torch.int32)
+        assert torch.equal(x, y), k
+
+
+BUCKET, OVERFLOW_EYE, FIT_EYE = 512, -1.5, -2.0
+
+
+@pytest.mark.parametrize("polish_iters", [1, 2])
+def test_overflowed_bucket_splits_compose_with_the_full_width_bits(decoder, polish_iters):
+    """Hits past the n/4 bucket and no gradient: K3 on the hits, K3's
+    value mode on the misses; the maps equal the full-width branch's
+    (compact_frac 0: K3 on every ray) bit for bit."""
+    split, c = _bucket_render(decoder, OVERFLOW_EYE, 4, polish_iters)
+    full, c0 = _bucket_render(decoder, OVERFLOW_EYE, 0, polish_iters)
+    n, hits = IMG * IMG, int(split.mask.sum())
+    assert BUCKET < hits < n
+    assert c["k3_points"] == polish_iters * hits and c["k3_value_points"] == n - hits
+    assert c0["k3_points"] == polish_iters * n and "k3_value_points" not in c0
+    _same_maps(split, full)
+
+
+@pytest.mark.parametrize("polish_iters", [1, 2])
+def test_overflowed_bucket_with_a_gradient_keeps_the_full_width(decoder, polish_iters):
+    """With a gradient wanted the split never engages: K3 on every ray
+    (its K4 backward reads every margin), the full-width maps."""
+    out, c = _bucket_render(decoder, OVERFLOW_EYE, 4, polish_iters, grad=True)
+    full, _ = _bucket_render(decoder, OVERFLOW_EYE, 0, polish_iters)
+    assert out.depth.requires_grad and int(out.mask.sum()) > BUCKET
+    assert c["k3_points"] == polish_iters * IMG * IMG and "k3_value_points" not in c
+    _same_maps(out, full)
+
+
+@pytest.mark.parametrize("polish_iters", [1, 2])
+def test_fitting_bucket_does_not_split(decoder, polish_iters):
+    """Hits within the bucket: K3 on the bucket's rays alone, as before."""
+    out, c = _bucket_render(decoder, FIT_EYE, 4, polish_iters)
+    assert 0 < int(out.mask.sum()) <= BUCKET
+    assert c["k3_points"] == polish_iters * BUCKET and "k3_value_points" not in c

@@ -353,6 +353,29 @@ def test_cuda_k3_matches_plain(arch, n, k_order):
     assert torch.isfinite(out[0]).all() and torch.isfinite(out[2]).all()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", K34_SIZES)
+@pytest.mark.parametrize("arch", range(len(K3_ARCHS) + 1))
+def test_cuda_k3_value_is_k3s_s(arch, n, k_order):
+    """K3's value mode: K3's s and its in-order plain version's, bit for
+    bit; one launch counted, none for the plain version; no point, no
+    launch's work."""
+    dev = _device()
+    _, _, _, pk, b, pts, _ = _k4_inputs(arch, dev, n)
+    dirs = torch.nn.functional.normalize(torch.ones_like(pts), dim=-1)
+    n0 = rc.precise_value_call.launches
+    s = rc.precise_value_call(pk, b, pts)
+    assert rc.precise_value_call.launches == n0 + 1
+    ref = rc.precise_value_call(pk, b, pts, use_kernel=False)
+    assert rc.precise_value_call.launches == n0 + 1
+    s_k3 = rc.precise_sdg_call(pk, b, pts, dirs)[0]
+    none = rc.precise_value_call(pk, b, pts[:0])
+    torch.cuda.synchronize()
+    assert s.shape == (n,) and torch.isfinite(s).all()
+    assert torch.equal(s, ref) and torch.equal(s, s_k3)
+    assert none.shape == (0,)
+
+
 def _k4_inputs(arch, dev, n=3000):
     """A decoder of K3's card test (arch == len(K3_ARCHS): the 8x512
     bench decoder), its packed weights and folded biases, and seeded
@@ -653,6 +676,41 @@ def test_cuda_sdf_renderer_gradients_match_plain(k_order):
         assert a.is_cuda and torch.isfinite(a).all() and a.abs().sum() > 0
         rel = ((a.double() - b.double()).norm() / b.double().norm()).item()
         assert rel <= 1e-5, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("polish_iters", [1, 2])
+def test_cuda_compose_split_is_the_full_width(polish_iters):
+    """A request whose hits overflow the n/4 compose bucket, with no
+    gradient wanted: K3 on the hits and K3's value mode on the misses
+    give the full-width branch's (compact_frac 0: K3 on every ray) depth,
+    mask, normal, margins and points bit for bit."""
+    dev = _device()
+    params, z = load_params_npz(os.path.join(ROOT, ".bench_decoder.npz"), dev)
+    proxy, pcfg = load_proxy_npz(os.path.join(ROOT, ".bench_proxy.npz"), dev)
+    img = 64
+    cam = Camera.looking_at((0.0, 0.0, -1.3), focal=img * 1.2, img_hw=(img, img),
+                            device=dev)
+    outs = []
+    for frac in (4, 0):
+        cfg = RenderConfig(
+            img_h=img, img_w=img,
+            march=MarchConfig(max_steps=50, convergence_eps=2e-3, depth_eps=5e-4,
+                              coarse_to_fine=True, c2f_strides=(16, 4),
+                              c2f_coarse_steps=16),
+            grad=GradConfig(mode="ift", compact_frac=frac, compact_min=1024,
+                            polish_iters=polish_iters),
+            compute_dtype="bfloat16", use_pallas=True)
+        fac = make_march_factory(params, DecoderConfig(), cfg, march_params=proxy,
+                                 march_dcfg=pcfg)
+        n0 = rc.precise_value_call.launches
+        with torch.no_grad():
+            outs.append(render(make_precise_sdf(params, DecoderConfig()), z, cam, cfg, fac))
+        assert rc.precise_value_call.launches - n0 == (1 if frac else 0)
+    a, b = outs
+    assert a.mask.sum() > img * img // 4
+    for k in ("depth", "mask", "normal", "min_sdf", "points"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
 
 
 @pytest.mark.gpu
@@ -1590,6 +1648,27 @@ def test_cuda_march_registers_unchanged():
     assert sum("precise_kernel" in name for name in regs) == 2
 
 
+# K3's and K4's ptxas report, as their one body (recompute.cu's
+# precise_block) compiled before it gained the value mode
+PRECISE_REGISTERS = {"precise_kernelILb1E": (168, 60), "precise_kernelILb0E": (168, 24)}
+
+
+@pytest.mark.gpu
+def test_cuda_precise_registers_unchanged():
+    """K3 and K4 keep their registers and spill stores; K3's value mode
+    (precise_value_kernel) is built, within the tensor-core kernels'
+    registers and spills."""
+    _device()
+    log = build.load().build_log
+    regs, spills = ptxas_registers(log), ptxas_spills(log)
+    for key, want in PRECISE_REGISTERS.items():
+        got = [(r, spills[n]) for n, r in regs.items() if key in n]
+        assert got == [want], (key, got)
+    value = [n for n in regs if "precise_value_kernel" in n]
+    assert len(value) == 1
+    assert regs[value[0]] <= 168 and spills[value[0]] <= MMA_SPILL_BYTES
+
+
 @pytest.mark.gpu
 def test_cuda_precise_smem_plan_matches_the_host():
     """K3's and K4's shared-memory plan (drt_precise_smem, recompute.cu's
@@ -1648,8 +1727,9 @@ def sass_functions(sass: str) -> dict:
 def test_cuda_point_evals_run_on_tensor_cores():
     """Every K5 and K6 kernel of the built library, every march kernel
     (K1's, K1-multi's, K1-grid's and K2's generations), and K3's and
-    K4's (precise_kernel), issues warpgroup MMAs (HGMMA in its SASS); the
-    in-order witness issues none."""
+    K4's (precise_kernel) and K3's value mode's (precise_value_kernel),
+    issues warpgroup MMAs (HGMMA in its SASS); the in-order witness
+    issues none."""
     import shutil
     import subprocess
 
@@ -1661,8 +1741,9 @@ def test_cuda_point_evals_run_on_tensor_cores():
     funcs = sass_functions(sass)
     point = {k: v for k, v in funcs.items() if "point_mlp_kernel" in k}
     march = {k: v for k, v in funcs.items() if any(m in k for m in MARCH_KERNELS)}
-    precise = {k: v for k, v in funcs.items() if "precise_kernel" in k}
-    assert len(point) >= 4 and len(march) == 4 and len(precise) == 2, sorted(funcs)
+    precise = {k: v for k, v in funcs.items() if "precise_kernel" in k
+               or "precise_value_kernel" in k}
+    assert len(point) >= 4 and len(march) == 4 and len(precise) == 3, sorted(funcs)
     assert any("sphere_trace_grid" in k for k in march)
     assert any("queue_generation" in k for k in march)
     for name, text in {**point, **march, **precise}.items():

@@ -132,3 +132,51 @@ def test_padding_and_ragged_batch():
                                         torch.as_tensor(dirs[:7]))
     np.testing.assert_allclose(s1.numpy(), s.numpy()[:7], atol=1e-6)
     np.testing.assert_allclose(g1.numpy(), g.numpy()[:7], atol=1e-5)
+
+
+@pytest.mark.parametrize("kw", ARCHS)
+def test_value_plain_is_the_s_of_precise_sdg_plain(kw):
+    """K3's value mode's plain version is precise_sdg_plain's s bit for
+    bit, on random points, for each architecture."""
+    params, latent, pts, dirs = _setup(kw, n=257, seed=5)
+    tp, tc = params_from_numpy(params), DecoderConfig(**kw)
+    pk = trec.pack_precise(tp, tc)
+    b = trec.fold_bias_precise(tp, torch.as_tensor(latent), tc, pk)
+    s, _, _ = trec.precise_sdg_plain(pk, b, torch.as_tensor(pts), torch.as_tensor(dirs))
+    v = trec.precise_value_plain(pk, b, torch.as_tensor(pts))
+    assert v.shape == (257,) and v.dtype == torch.float32
+    assert torch.equal(v.view(torch.int32), s.view(torch.int32))
+
+
+def test_value_call_on_the_cpu_is_its_plain_version_and_counts_its_rows():
+    """On a CPU tensor precise_value_call runs its plain version (no
+    launch), and k3_value_points counts its rows under a profiler; the
+    sdg's .value folds the latent as the sdg does and carries no
+    gradient."""
+    from torch.profiler import profile
+
+    from dist_renderer_tpu_torch.utils import profiling
+
+    kw = ARCHS[1]
+    params, latent, pts, dirs = _setup(kw, n=130, seed=6)
+    tp, tc = params_from_numpy(params), DecoderConfig(**kw)
+    pk = trec.pack_precise(tp, tc)
+    z = torch.as_tensor(latent)
+    b = trec.fold_bias_precise(tp, z, tc, pk)
+    p = torch.as_tensor(pts)
+    n0 = trec.precise_value_call.launches
+    profiling.drain()
+    with profile():
+        v = trec.precise_value_call(pk, b, p)
+        v0 = trec.precise_value_call(pk, b, p[:0])
+    counts = profiling.drain().counts
+    assert trec.precise_value_call.launches == n0
+    assert counts == {("k3_value_points", ""): 130}
+    assert torch.equal(v, trec.precise_value_plain(pk, b, p)) and v0.shape == (0,)
+    sdg = trec.make_precise_sdg(tp, tc, packed=pk)
+    zg = z.clone().requires_grad_()
+    sv = sdg.value(zg, p)
+    assert not sv.requires_grad
+    assert torch.equal(sv, sdg(zg, p, torch.as_tensor(dirs))[0].detach())
+    with pytest.raises(ValueError):
+        sdg.value(z[None], p)

@@ -192,11 +192,14 @@ def test_served_spans_nest_as_the_layers(net, path):
             p = d.spans[s.parent]
             assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns and p.call == s.call
     pairs = set(_parent_names(d))
+    # the second request's hits overflow the compose bucket: its misses
+    # take K3's value mode
     want = {("drt.render", None), ("drt.setup", "drt.render"), ("drt.batch", "drt.render"),
             ("drt.setup", "drt.batch"), ("drt.plan.level16", "drt.batch"),
             ("drt.plan.level4", "drt.batch"), ("drt.plan.maps", "drt.batch"),
             ("drt.fine", "drt.batch"), ("drt.compose", "drt.render"),
-            ("drt.compose.read", "drt.compose"), ("drt.compose.k3", "drt.compose")}
+            ("drt.compose.read", "drt.compose"), ("drt.compose.k3", "drt.compose"),
+            ("drt.compose.value", "drt.compose")}
     if path == "proxy":
         want |= {("drt.verify.plan", "drt.batch"), ("drt.verify", "drt.batch"),
                  ("drt.verify.merge", "drt.batch")}
@@ -314,14 +317,32 @@ def test_ray_steps_are_the_marches_steps(net, path, scheduler):
 @pytest.mark.parametrize("dist, fits", [(-2.5, True), (-1.3, False)])
 def test_k3_points_are_the_compose_width(net, dist, fits):
     """k3_points is the n/4 bucket where the frame's hits fit it, else
-    every ray; it is counted under drt.compose.k3."""
+    the hits, counted under drt.compose.k3; the misses of an overflowed
+    bucket are k3_value_points, under drt.compose.value."""
     out, d, _ = traced(lambda: serve(net, "proxy", dist=dist, compact_min=256))
     n = IMG * IMG
     bucket = min(((n // 4 + 511) // 512) * 512, n)
     hits = int(out.trace.hit.sum())
     assert (hits <= bucket) == fits
-    assert d.counts == {**{k: v for k, v in d.counts.items() if k[0] != "k3_points"},
-                        ("k3_points", "drt.compose.k3"): bucket if fits else n}
+    k3 = {("k3_points", "drt.compose.k3"): bucket} if fits else {
+        ("k3_points", "drt.compose.k3"): hits,
+        ("k3_value_points", "drt.compose.value"): n - hits}
+    assert d.counts == {**{k: v for k, v in d.counts.items()
+                           if not k[0].startswith("k3_")}, **k3}
+
+
+def test_the_value_mode_is_recorded_only_under_a_profiler(net):
+    """An overflowed request records k3_value_points and the
+    drt.compose.value span under the profiler, and nothing without one;
+    the render's bits are the same either way."""
+    out, d, _ = traced(lambda: serve(net, "proxy", dist=-1.3, compact_min=256))
+    n, hits = IMG * IMG, int(out.trace.hit.sum())
+    assert d.counts[("k3_value_points", "drt.compose.value")] == n - hits > 0
+    assert [s.name for s in d.spans].count("drt.compose.value") == 1
+    off = serve(net, "proxy", dist=-1.3, compact_min=256)
+    d_off = profiling.drain()
+    assert d_off.spans == [] and d_off.counts == {}
+    _assert_same_bits(out, off)
 
 
 # -- the benchmark's readers ------------------------------------------------
@@ -439,6 +460,22 @@ def test_readers_find_nothing_to_read(monkeypatch, case):
         assert got["steps_per_ray.batch"] == 2.0
 
 
+@pytest.mark.parametrize("case", ["split", "no_split", "parent", "nothing_recorded"])
+def test_compose_value_points_reads_the_value_modes_rows(monkeypatch, case):
+    """compose_value_points.frame: k3_value_points per request / 1000;
+    None where no request split (a fitting bucket, or the full width of a
+    program without the value mode) or nothing was recorded."""
+    counts = {"split": {("k3_points", "drt.compose.k3"): 80_000,
+                        ("k3_value_points", "drt.compose.value"): 182_144},
+              "no_split": {("k3_points", "drt.compose.k3"): 131_072},
+              "parent": {("k3_points", "drt.compose.k3"): 524_288},
+              "nothing_recorded": {}}[case]
+    monkeypatch.setattr(profiling, "drain", lambda: _drained(
+        [("drt.compose", 0.1, 0.2, -1)], counts))
+    got = _reader("compose_value_points.frame")(_ctx([], [("k", 0.0, 0.5)]))
+    assert got == (pytest.approx(182.144 / 2) if case == "split" else None)
+
+
 CELL_RUN = """
 import json, sys
 sys.path[0:0] = [{root!r}, {tests!r}]
@@ -466,6 +503,7 @@ def test_a_traced_cpu_run_reads_the_counters(cell):
     assert r["correct"]
     if cell == "proxy.frame":
         assert m["compose_points.frame"] == pytest.approx(1.024)   # 32^2: no bucket
+        assert "compose_value_points.frame" not in m            # no split
         assert m["host_plan_ms.frame"] > 0
         assert not {"idle_plan_ms.frame", "idle_march_ms.frame",
                     "idle_compose_ms.frame"} & set(m)
